@@ -1,4 +1,4 @@
-"""Carry trained KT-GNN weights from the JAX package into the port.
+"""Carry trained KT-GNN weights between the JAX package and the port.
 
 ``ktgnn_state_dict_from_flax`` takes the JAX ``{"params",
 "batch_stats"}`` tree of a KTGNN (as nested dicts of numpy arrays — the
@@ -11,6 +11,11 @@ accepts:
 * ``bns_*`` and ``clf_transformer/bn_1`` scale, bias, mean and var become
   BatchNorm weight, bias, running_mean and running_var;
 * ``convs_<i>``/``bns_<i>`` become ``convs.<i>``/``bns.<i>``.
+
+``flax_variables_from_ktgnn_state_dict`` is its inverse: it gives the
+nested numpy dicts that the JAX stage-2 ``--save`` pickle holds
+(stage2.py:996-1019), so a checkpoint trained by the port loads in both
+packages' serving CLIs.
 """
 
 from __future__ import annotations
@@ -83,3 +88,47 @@ def ktgnn_state_dict_from_flax(
                 f"unexpected KT-GNN parameter group {key!r} (the feature "
                 "complementor is not ported)")
     return sd
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def flax_variables_from_ktgnn_state_dict(
+    state_dict: Mapping[str, torch.Tensor]
+) -> Dict[str, Dict[str, Any]]:
+    """``{"params", "batch_stats"}`` nested dicts of numpy arrays, the
+    layout of the JAX stage-2 ``--save`` pickle, from a port KTGNN's
+    state dict."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def put(tree, path, value):
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = value
+
+    bn_leaf = dict(weight=("params", "scale"), bias=("params", "bias"),
+                   running_mean=("batch_stats", "mean"),
+                   running_var=("batch_stats", "var"))
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        if parts[0] in ("convs", "bns"):
+            parts = [f"{parts[0]}_{int(parts[1])}"] + parts[2:]
+        group, leaf = parts[:-1], parts[-1]
+        if group[0].startswith("bns_") or group[-1] == "bn_1":
+            if leaf not in bn_leaf:
+                raise ValueError(f"unexpected batch-norm entry {key!r}")
+            col, name = bn_leaf[leaf]
+            put(params if col == "params" else stats, group + [name], _np(t))
+        elif leaf in _CONV_VECTORS:
+            put(params, group + [leaf, "kernel"], _np(t)[:, None])
+        elif leaf == "weight" and group[-1] in _CONV_LINEARS + (
+                "lin_0", "lin_3"):
+            put(params, group + ["kernel"], _np(t).T.copy())
+        elif leaf == "bias" and group[-1] in _CONV_LINEARS + (
+                "lin_0", "lin_3"):
+            put(params, group + ["bias"], _np(t))
+        else:
+            raise ValueError(f"unexpected KT-GNN state entry {key!r}")
+    return {"params": params, "batch_stats": stats}

@@ -1,4 +1,4 @@
-"""KT-GNN: domain-adapted attention message passing (forward).
+"""KT-GNN: domain-adapted attention message passing.
 
 Port of ``bridged_gnn_tpu/nn/ktgnn.py`` (reference models/KTGNN.py):
 ``AdaptedConv`` with its single-layout and degree-tiered fused attention
@@ -15,8 +15,10 @@ reference:
 * all three heads are log-softmax.
 
 The attention runs through ``ops/fused_attention.py``: the selective
-kernel on a single padded layout, the concatenated kernel per tier on
-degree-tiered layouts.
+kernels on a single padded layout, the concatenated kernels per tier on
+degree-tiered layouts, forward and backward. Dropout in train mode draws
+its masks from a ``torch.Generator`` the caller passes, on the model's
+device, never from the global generator.
 """
 
 from __future__ import annotations
@@ -121,7 +123,9 @@ class KTGNN(nn.Module):
     ``forward`` returns the log-probabilities of the three heads
     ``(base, target, target_hat)``; ``embed`` the final node embeddings.
     Train/eval mode follows ``nn.Module.train``/``eval``: dropout and
-    batch statistics in train mode, running statistics in eval mode."""
+    batch statistics in train mode, running statistics in eval mode.
+    Dropout needs ``generator`` (on the model's device) in train mode
+    unless ``dropout`` is 0."""
 
     def __init__(self, num_classes: int, in_channels: int,
                  layer_num: int = 2, hidden: int = 64, dropout: float = 0.5,
@@ -143,7 +147,21 @@ class KTGNN(nn.Module):
         self.clf_target = AdaptedConv(hidden, num_classes, generator=g)
         self.clf_transformer = ClfTransformer(hidden, generator=g)
 
-    def embed(self, g: Graph, adj: Adjacency) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Inverted dropout with the mask drawn from ``generator``."""
+        p = self.dropout
+        if not self.training or p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError(
+                f"train-mode dropout ({p}) needs a torch.Generator on "
+                f"{x.device}")
+        keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+        return x * keep * (1.0 / (1.0 - p))
+
+    def embed(self, g: Graph, adj: Adjacency,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Final node embeddings (reference get_emb, KTGNN.py:436-465)."""
         cm, nm = g.central_mask, g.node_mask
         x = g.x
@@ -152,13 +170,14 @@ class KTGNN(nn.Module):
             if self.bns is not None:
                 x = self.bns[i](x, nm)
             x = torch.relu(x)
-            x = nn.functional.dropout(x, self.dropout, self.training)
+            x = self._dropout(x, generator)
         return x
 
-    def forward(self, g: Graph, adj: Adjacency
+    def forward(self, g: Graph, adj: Adjacency,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         cm, nm = g.central_mask, g.node_mask
-        x = self.embed(g, adj)
+        x = self.embed(g, adj, generator)
         logits_base = self.clf_base(x, adj, cm, nm)
         x_trans = self.clf_transformer(x, nm)
         logits_target_hat = self.clf_target(x_trans, adj, cm, nm)

@@ -12,9 +12,16 @@ their order, so every destination's slots form one run. The JAX
 layout's ``other_slot``/``rel_key``/``slot_mask`` follow from these two
 (:func:`slot_rows`).
 
-The src-keyed layouts, the ``src_from_dst`` reorder map and the per-slot
-original edge ids (``slot_edge``) serve only the backward passes and
-arrive with the training slice.
+Every layout also holds its sender-keyed index, the input of the
+backward's sender-side reduce: a CSR by sender over the real slots.
+``src_ranges`` gives each sender row its range of CSR entries and
+``src_slots`` the dst-layout slot of each entry, ordered by a stable sort
+on the sender. It stands for the JAX package's ``lay_src`` with its
+``src_from_dst`` map (blocked_segment.py:594-608, :895-905) restricted to
+real slots, in the same order. Masked edges and pad slots are left out.
+It is not a padded ``[B, Et]`` grid: on a hub graph a few hundred
+senders own ~850 slots each, and a padded sender layout would give every
+block a tile that wide.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ class PaddedLayout(NamedTuple):
 
     slot_src: torch.Tensor     # [B*Et] int32: sender per real slot, else -1
     dst_ranges: torch.Tensor   # [B*nb, 2] int32: flat slot range per row
+    src_ranges: torch.Tensor   # [N_send, 2] int32: CSR range per sender
+    src_slots: torch.Tensor    # [real slots] int32: dst slot per CSR entry
     node_block: int
     tile_e: int
     num_blocks: int
@@ -85,12 +94,31 @@ def _padded_layout_np(
     return slot_src, ranges, tile_e, num_blocks
 
 
+def _sender_csr_np(slot_src: np.ndarray, num_senders: int):
+    """Sender-keyed CSR over the real slots: ``src_ranges`` [N_send, 2]
+    and ``src_slots``, the real slots in a stable sort by sender. Slots
+    follow edge order, so this is the JAX package's stable argsort of the
+    edges by sender, restricted to real edges."""
+    real = np.flatnonzero(slot_src >= 0)
+    order = np.argsort(slot_src[real], kind="stable")
+    src_slots = real[order].astype(np.int32)
+    sorted_src = slot_src[src_slots]
+    rows = np.arange(num_senders)
+    ranges = np.stack([np.searchsorted(sorted_src, rows, side="left"),
+                       np.searchsorted(sorted_src, rows, side="right")],
+                      axis=1).astype(np.int32)
+    return ranges, src_slots
+
+
 def _layout_from_np(arrs, num_nodes_padded: int, node_block: int,
-                    device) -> PaddedLayout:
+                    device, num_senders: int) -> PaddedLayout:
     slot_src, ranges, tile_e, num_blocks = arrs
+    src_ranges, src_slots = _sender_csr_np(slot_src, num_senders)
     return PaddedLayout(
         slot_src=torch.from_numpy(slot_src).to(device),
         dst_ranges=torch.from_numpy(ranges).to(device),
+        src_ranges=torch.from_numpy(src_ranges).to(device),
+        src_slots=torch.from_numpy(src_slots).to(device),
         node_block=node_block,
         tile_e=tile_e,
         num_blocks=num_blocks,
@@ -111,8 +139,8 @@ def slot_rows(lay: PaddedLayout) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class BlockedOps(NamedTuple):
-    """Edge ops bound to one dst-sorted edge array: its dst-keyed slot
-    layout, the input of the fused attention forward."""
+    """Edge ops bound to one dst-sorted edge array: its slot layout, the
+    input of the fused attention kernels."""
 
     lay_dst: PaddedLayout
 
@@ -134,7 +162,7 @@ def make_blocked_ops(
     )
     return BlockedOps(
         lay_dst=_layout_from_np(dst_np, num_nodes_padded, node_block,
-                                device))
+                                device, num_nodes_padded))
 
 
 class TieredOps(NamedTuple):
@@ -212,7 +240,7 @@ def make_tiered_blocked_ops(
         d_np = _padded_layout_np(
             r_t, s[idx].astype(np.int32), em[idx], n_out_t, nb,
         )
-        lay_dst = _layout_from_np(d_np, n_out_t, nb, device)
+        lay_dst = _layout_from_np(d_np, n_out_t, nb, device, n_pad)
         tiers.append(BlockedOps(lay_dst=lay_dst))
         slots_tiered += lay_dst.num_blocks * lay_dst.tile_e
 

@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's KT-GNN serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's KT-GNN serving and training paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -24,14 +24,38 @@ Phases, in order; any failure exits non-zero:
    picks >= 2 tiers and the concatenated kernel runs on every tier;
    compared with the CPU as in phase 4;
 6. HTTP: ``make_server`` on an ephemeral port answers /healthz, a cached
-   and a live /v1/predict.
+   and a live /v1/predict;
+7. backward kernel phase: one training step on each graph (KT-GNN at
+   the Stage2Config defaults: hidden 64, dropout 0.5, Adam) records its
+   kernel launches with their inputs; each backward and sender-reduce
+   call is replayed through the kernel and its plain version on the card
+   (f32, rtol 1e-4 and atol 1e-4 times the output's largest magnitude:
+   the gradients are small and each sums up to thousands of terms that
+   cancel),
+   timed with CUDA events, set beside its bound, and the sender reduce
+   beside ``index_add_``; one backward of the whole model run twice must
+   give bit-identical gradients;
+8. training, single layout: ``train_ktgnn`` on the bench graph for 10
+   epochs; per epoch the selective forward launches 8 times (4 in the
+   step, 4 in the eval), its backward 4 times and the sender reduce 4
+   times (1 at D=64 and 3 at D=8 per pass); finite losses, the last below
+   the first;
+9. training, degree tiers: the same on the hub graph for 5 epochs, the
+   concatenated forward and backward on every tier (>= 2 tiers);
+10. card vs CPU: 2 epochs at dropout 0 from the same seeded init on the
+   card and on the CPU (plain versions), on each graph; per-epoch losses
+   within rtol 1e-4, final weights and BN statistics within rtol 1e-3 and
+   atol 1e-5.
 
-The launch counts in the ``{"kernels": [...]}`` line are those of the
-serving phases (each count is set to 0 just before its phase); its
-``ms`` is the kernel's time per predict inside the serving run, and its
-``plain_ms`` and ``bound_ms`` sum the replayed calls of one predict.
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero and prints no result.
+In the ``{"kernels": [...]}`` line the forwards' launch counts are those
+of the serving phases and their ``ms`` the kernel's time per predict
+inside the serving run (``per``: "predict"); the backwards' counts are
+those of the training phases and their ``ms`` the kernel's time per
+epoch inside the training run (``per``: "epoch"). Each count is set to 0
+just before its phase. ``plain_ms``, ``bound_ms`` and ``library_ms`` sum
+the replayed calls of one predict or one training step.
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -52,8 +76,15 @@ HIDDEN = 64              # Stage2Config().hidden: the conv's width
 HUB_NODES = 256          # hub destinations of the tiered graph
 RTOL = ATOL = 1e-4       # kernel vs plain version, f32
 LOGPROB_ATOL = 1e-4      # card vs CPU log-probabilities
+LOSS_RTOL = 1e-4         # card vs CPU training losses
+WEIGHT_RTOL, WEIGHT_ATOL = 1e-3, 1e-5   # card vs CPU weights after training
 KERNEL_REPS = 25
+PLAIN_REPS = 20          # the backward phase's plain versions
 PREDICT_REPS = 10
+TRAIN_EPOCHS = 10        # phase 8, single layout
+TIERED_EPOCHS = 5        # phase 9
+PARITY_EPOCHS = 2        # phase 10
+PARITY_NODES = BENCH["n"]   # phase 10 graph size
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside tensor cores
 
@@ -167,57 +198,162 @@ def kernel_bound(inputs, concat: bool):
             flops / F32_FLOPS_PER_S * 1e3, real)
 
 
-def record_predict(pred, name: str):
-    """One ``predict`` with its kernel launches recorded; returns the
-    recorded inputs of each launch (all of kernel ``name``)."""
+def bwd_bound(inputs, concat: bool):
+    """Least time for one backward call on these inputs, counted as
+    :func:`kernel_bound` counts a forward: the sender index of every real
+    slot, the slot ranges, the sender rows the slots reach (distinct
+    (sender, branch) pairs: both kernels read the destination's branch
+    only), the own row, output cotangent, flag (and, selective, den) of
+    every destination with a real slot, the per-slot weight (ex or α) of
+    every real slot and the two logit vectors; the outputs dm (every
+    slot, D or 2D wide), dud, da and (selective) the slots' branch flags
+    are written once. Operations: 13·D per real slot (two
+    dot products, leaky-relu and its gate, dz, dm, dud and da)."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops.blocked_segment import slot_rows
+
+    lay, u1, _u2, _ud, central = inputs[:5]
+    d, n_out = u1.shape[1], central.shape[0]
+    row, valid = slot_rows(lay)
+    src = lay.slot_src[valid].long()
+    real = int(src.numel())
+    rows_read = int(torch.unique(src * 2 + central[row[valid]]).numel())
+    dst_read = int(torch.unique(row[valid]).numel())
+    n_slots = int(lay.slot_src.numel())
+    f32 = 4
+    read = (real * 4 + lay.dst_ranges.numel() * 4 + rows_read * d * f32
+            + dst_read * (2 * d * f32 + 1 + (0 if concat else f32))
+            + real * f32 + 2 * d * f32)
+    written = (n_slots * (2 if concat else 1) * d * f32 + n_out * d * f32
+               + 2 * d * f32 + (0 if concat else n_slots))
+    flops = real * d * 13
+    return ((read + written) / HBM_BYTES_PER_S * 1e3,
+            flops / F32_FLOPS_PER_S * 1e3, real)
+
+
+def reduce_bound(inputs):
+    """Least time for one sender-keyed reduce: the CSR ranges and slot
+    ids, one W-wide row (and, split, one branch flag) per real slot read,
+    the output written once; one add per element of every row read."""
+    lay, vals, n_rows, branch = inputs
+    real, w = int(lay.src_slots.numel()), vals.shape[1]
+    read = (lay.src_ranges.numel() * 4 + real * 4 + real * w * 4
+            + (real if branch is not None else 0))
+    written = n_rows * w * (2 if branch is not None else 1) * 4
+    return (((read + written) / HBM_BYTES_PER_S * 1e3,
+             real * w / F32_FLOPS_PER_S * 1e3, real))
+
+
+def reduce_library(inputs):
+    """The one PyTorch call that computes the sender-keyed reduce on the
+    same inputs: ``index_add_`` of every slot row into its sender's row
+    (pad and masked slots carry zero rows), the branch split folded into
+    the index. Timed as a yardstick only; the port never calls it."""
+    import torch
+
+    lay, vals, n_rows, branch = inputs
+    sender = lay.slot_src.long().clamp(min=0)
+    w = vals.shape[1]
+    if branch is None:
+        idx, rows = sender, n_rows
+    else:
+        idx, rows = 2 * sender + (1 - branch.long()), 2 * n_rows
+
+    def call():
+        out = torch.zeros(rows, w, device=vals.device).index_add_(
+            0, idx, vals)
+        return out.view(n_rows, -1)
+    return call
+
+
+def _outs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def record_run(fn, names):
+    """Run ``fn`` with its kernel launches recorded; returns the
+    launch records (``name``, ``d``, ``inputs``), all of kernels in
+    ``names``."""
     from bridged_gnn_tpu_torch.ops import fused_kernels as fk
 
     with fk.record_launches(keep_inputs=True) as recs:
-        pred.predict()
-    if not recs or any(r["name"] != name for r in recs):
-        raise RuntimeError(f"a predict launched {[r['name'] for r in recs]}"
-                           f", not only {name}")
-    return [r["inputs"] for r in recs]
+        fn()
+    if not recs or any(r["name"] not in names for r in recs):
+        raise RuntimeError(f"the run launched {[r['name'] for r in recs]}"
+                           f", not only {names}")
+    return recs
 
 
-def check_kernel(name, wrapper, plain, calls, layouts):
+def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
+                 scaled=False, plain_reps=5, library=None):
     """Replay each recorded call through the kernel and its plain version
-    on the card; returns per-call records with errors, times and
-    bounds."""
+    on the card; returns per-call records with errors, times and bounds.
+
+    Integer outputs must be equal. Float outputs must agree within rtol
+    ``RTOL`` and atol ``ATOL``, times the output's largest magnitude when
+    ``scaled``. ``bound(inputs)`` gives the byte time, the
+    operation time and the real slot count (default: the forwards'
+    :func:`kernel_bound`); ``library(inputs)``, where given, the one
+    PyTorch call computing the same function, which is checked and
+    timed beside the kernel."""
     import torch
 
     records = []
-    for i, inputs in enumerate(calls):
-        got = wrapper(*inputs)
+    for i, rec in enumerate(calls):
+        inputs = rec["inputs"]
+        got = _outs(wrapper(*inputs))
         torch.cuda.synchronize()
-        want = plain(*inputs)
-        abs_err = rel_err = 0.0
+        want = _outs(plain(*inputs))
+        layout = next(j for j, lay in enumerate(layouts) if lay is inputs[0])
+        where = f"{name} at D={rec['d']}, layout {layout}"
+        abs_err = rel_err = norm_err = 0.0
         for g, w in zip(got, want):
+            if not g.is_floating_point():
+                if not torch.equal(g, w):
+                    raise RuntimeError(f"{where}: integer output differs "
+                                       "from the plain version's")
+                continue
             if not torch.isfinite(g).all():
-                raise RuntimeError(f"{name}: non-finite kernel output")
+                raise RuntimeError(f"{where}: non-finite kernel output")
             diff = (g - w).abs()
             abs_err = max(abs_err, float(diff.max()))
             rel_err = max(rel_err, float(
                 (diff / w.abs().clamp(min=ATOL)).max()))
-        d = inputs[1].shape[1]
-        layout = next(j for j, lay in enumerate(layouts) if lay is inputs[0])
-        for g, w in zip(got, want):
-            if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
+            w_max = float(w.abs().max())
+            norm_err = max(norm_err, float(diff.max()) / max(w_max, 1e-30))
+            atol = ATOL * (w_max if scaled else 1.0)
+            if not torch.allclose(g, w, rtol=RTOL, atol=atol):
                 raise RuntimeError(
-                    f"{name} disagrees with its plain version at D={d}, "
-                    f"layout {layout}: max abs err {abs_err:.3g}")
+                    f"{where} disagrees with its plain version: max abs "
+                    f"err {float(diff.max()):.3g} (atol {atol:.3g})")
         ms = cuda_ms(lambda: wrapper(*inputs), KERNEL_REPS)
-        plain_ms = cuda_ms(lambda: plain(*inputs), 5, warmup=1)
-        t_bytes, t_ops, real = kernel_bound(inputs, concat=len(got) == 2)
+        plain_ms = cuda_ms(lambda: plain(*inputs), plain_reps, warmup=1)
+        if bound is None:
+            t_bytes, t_ops, real = kernel_bound(inputs,
+                                                concat=len(got) == 2)
+        else:
+            t_bytes, t_ops, real = bound(inputs)
         lay = inputs[0]
-        records.append(dict(
-            call=i, layout=layout, d=d, tile_e=lay.tile_e,
+        out = dict(
+            call=i, layout=layout, d=rec["d"], tile_e=lay.tile_e,
             blocks=lay.num_blocks, slots=int(lay.slot_src.numel()),
             real_slots=real, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             max_abs_err=abs_err, max_rel_err=rel_err,
-        ))
+            max_err_over_max_abs=norm_err, library_ms=None,
+        )
+        if library is not None:
+            lib_call = library(inputs)
+            lib = lib_call()
+            if not torch.allclose(lib, want[0], rtol=RTOL,
+                                  atol=ATOL * float(want[0].abs().max())):
+                raise RuntimeError(f"{where}: the library call disagrees "
+                                   "with the plain version")
+            out["library_ms"] = cuda_ms(lib_call, KERNEL_REPS)
+            del lib
+        records.append(out)
         del got, want
     return records
 
@@ -370,6 +506,191 @@ def http_phase(pred) -> dict:
                 live_labels=live["labels"], requests=3)
 
 
+# ---------------------------------------------------------- training phases
+
+
+def train_setup(data: dict, cfg):
+    """The training graph, adjacency, seeded model, optimizer and dropout
+    generator of ``train_ktgnn`` on the card."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train.optim import make_optimizer
+    from bridged_gnn_tpu_torch.train.stage2 import (
+        build_model,
+        prepare_stage2_graph,
+    )
+
+    g, adj = prepare_stage2_graph(data, cfg, "cuda")
+    model = build_model(cfg, g.num_classes, g.num_features, "cuda")
+    opt, _ = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay,
+                            cfg.use_scheduler, cfg.step_size, cfg.gamma)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    return g, adj, model, opt, gen
+
+
+def layouts_of(adj):
+    return ([adj.fast_fn.lay_dst] if adj.fast_fn is not None
+            else [t.lay_dst for t in adj.tiered_fn.tiers])
+
+
+def check_backward(name, data, cfg, tiered: bool):
+    """Phase 7 on one graph: record the kernel launches of one training
+    step, replay every backward and sender-reduce call against its plain
+    version (and the reduce against ``index_add_``), then run one whole
+    backward twice from the same dropout state and require bit-identical
+    gradients."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train.stage2 import stage2_loss, train_step
+
+    g, adj, model, opt, gen = train_setup(data, cfg)
+    if (adj.tiered_fn is not None) != tiered:
+        raise RuntimeError(f"{name}: expected tiered={tiered} layouts")
+    layouts = layouts_of(adj)
+    state = gen.get_state()
+
+    def grads():
+        gen.set_state(state)
+        model.zero_grad(set_to_none=True)
+        loss, _ = stage2_loss(model, g, adj, cfg.Lambda, gen)
+        loss.backward()
+        return [p.grad.clone() for p in model.parameters()]
+
+    first, second = grads(), grads()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    if not same:
+        raise RuntimeError(f"{name}: two backward runs gave different "
+                           "gradients")
+    del first, second
+    fwd, bwd, bwd_plain = (
+        (fk.attention_fwd, fk.attention_bwd, fk.attention_bwd_plain)
+        if tiered else (fk.attention_sel_fwd, fk.attention_sel_bwd,
+                        fk.attention_sel_bwd_plain))
+    recs = record_run(
+        lambda: train_step(model, g, adj, opt, cfg.Lambda, gen),
+        (fwd.__name__, bwd.__name__, "slot_reduce"))
+    calls = {n: [r for r in recs if r["name"] == n]
+             for n in (bwd.__name__, "slot_reduce")}
+    # the recorded inputs are the step's activations: replay without
+    # recording autograd
+    with torch.no_grad():
+        out = {
+            bwd.__name__: check_kernel(
+                bwd.__name__, bwd, bwd_plain, calls[bwd.__name__], layouts,
+                bound=lambda inputs: bwd_bound(inputs, concat=tiered),
+                scaled=True, plain_reps=PLAIN_REPS),
+            "slot_reduce": check_kernel(
+                "slot_reduce", fk.slot_reduce, fk.slot_reduce_plain,
+                calls["slot_reduce"], layouts, bound=reduce_bound,
+                scaled=True, plain_reps=PLAIN_REPS,
+                library=reduce_library),
+        }
+    del recs, calls
+    return out, dict(graph=name, layouts=len(layouts),
+                     bit_identical_grads=same,
+                     params=len(list(model.parameters())))
+
+
+def train_phase(name, data, cfg, tiered: bool, n_layouts: int,
+                num_classes: int):
+    """Phases 8 and 9: ``train_ktgnn`` on the card with CUDA events around
+    every kernel launch; asserts each kernel's launches per epoch by
+    width, finite losses and a last-epoch loss below the first."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    fwd, bwd = ((fk.attention_fwd, fk.attention_bwd) if tiered
+                else (fk.attention_sel_fwd, fk.attention_sel_bwd))
+    e, lays = cfg.num_epoch, n_layouts
+    # per epoch and layout: the conv at HIDDEN and the three heads at the
+    # number of classes, in the train step's forward and backward and in
+    # the eval forward
+    want = {fwd: {HIDDEN: 2 * e * lays, num_classes: 6 * e * lays},
+            bwd: {HIDDEN: e * lays, num_classes: 3 * e * lays},
+            fk.slot_reduce: {HIDDEN: e * lays, num_classes: 3 * e * lays}}
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with fk.record_launches() as recs:
+        res = train_ktgnn(data, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    for fn in fk.KERNEL_WRAPPERS:
+        if fn.launches_by_d != want.get(fn, {}):
+            raise RuntimeError(
+                f"{name}: {fn.__name__} launched {fn.launches_by_d} by width"
+                f" in {e} epochs on {lays} layout(s); expected "
+                f"{want.get(fn, {})}")
+    kernel_ms = {fn.__name__: sum(r["start"].elapsed_time(r["stop"])
+                                  for r in recs if r["name"] == fn.__name__)
+                 / e for fn in want}
+    losses = [h["loss"] for h in res["history"]]
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{name}: losses {losses}")
+    return dict(
+        phase=name, epochs=e, layouts=lays, edges=int(res["num_edges"]),
+        launches={fn.__name__: fn.launches for fn in want},
+        launches_per_epoch_by_d={fn.__name__: {
+            d: n // e for d, n in fn.launches_by_d.items()} for fn in want},
+        epoch_s_median=res["throughput"]["p50_s"],
+        epoch_s_mean=res["mean_epoch_time"], run_s=wall_s,
+        kernel_ms_per_epoch=kernel_ms, losses=losses,
+        best={k: v for k, v in res["best"].items() if k != "per_head"},
+        per_head_test=res["best"].get("per_head"),
+    )
+
+
+def parity_phase(name, data, cfg):
+    """Phase 10: the same seeded run on the card and on the CPU."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    card = train_ktgnn(data, cfg, device="cuda")
+    t0 = time.perf_counter()
+    cpu = train_ktgnn(data, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_err = max(abs(a[k] - b[k]) / abs(b[k])
+                   for a, b in zip(card["history"], cpu["history"])
+                   for k in ("loss", "loss_t2"))
+    if loss_err > LOSS_RTOL:
+        raise RuntimeError(f"{name}: card vs CPU losses differ by "
+                           f"{loss_err:.3g} (relative) > {LOSS_RTOL}")
+    w_err = 0.0
+    for k, want in cpu["state_dict"].items():
+        got = card["state_dict"][k]
+        w_err = max(w_err, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=WEIGHT_RTOL, atol=WEIGHT_ATOL):
+            raise RuntimeError(f"{name}: card vs CPU weights differ at {k}")
+    return dict(phase=name, epochs=cfg.num_epoch,
+                nodes=int(data["x"].shape[0]), max_rel_loss_err=loss_err,
+                max_abs_weight_err=w_err, cpu_run_s=cpu_s,
+                cpu_epoch_s=cpu["mean_epoch_time"],
+                card_epoch_s=card["mean_epoch_time"],
+                losses_card=[h["loss"] for h in card["history"]],
+                losses_cpu=[h["loss"] for h in cpu["history"]])
+
+
+def summary_row(name, source, replaces, recs, launches, ms, per, card):
+    """One entry of the kernels line: ``ms`` from the main path's run,
+    ``plain_ms``, ``bound_ms`` and ``library_ms`` summed over the replayed
+    calls of one predict or training step."""
+    bytes_ms = sum(r["bytes_ms"] for r in recs)
+    ops_ms = sum(r["ops_ms"] for r in recs)
+    lib = [r["library_ms"] for r in recs]
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=max(r["max_abs_err"] for r in recs),
+        ms=ms, ms_replayed=sum(r["ms"] for r in recs),
+        plain_ms=sum(r["plain_ms"] for r in recs),
+        bound_ms=sum(r["bound_ms"] for r in recs),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None if None in lib else sum(lib), per=per, card=card,
+    )
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -421,11 +742,11 @@ def main() -> int:
         sel = check_kernel(
             "attention_sel_fwd", fk.attention_sel_fwd,
             fk.attention_sel_fwd_plain,
-            record_predict(pred, "attention_sel_fwd"),
+            record_run(pred.predict, ("attention_sel_fwd",)),
             [pred.adj.fast_fn.lay_dst])
         cat = check_kernel(
             "attention_fwd", fk.attention_fwd, fk.attention_fwd_plain,
-            record_predict(pred_t, "attention_fwd"),
+            record_run(pred_t.predict, ("attention_fwd",)),
             [t.lay_dst for t in pred_t.adj.tiered_fn.tiers])
     for name, recs in (("attention_sel_fwd", sel), ("attention_fwd", cat)):
         for r in recs:
@@ -442,6 +763,7 @@ def main() -> int:
                          fk.attention_fwd, expect_tiered=True,
                          reps=PREDICT_REPS)
     log(json.dumps(dict(card=card, **tiered)))
+    n_tiers = len(pred_t.adj.tiered_fn.tiers)
     del pred_t
 
     # 6. HTTP
@@ -451,33 +773,107 @@ def main() -> int:
     if http["sel_launches"] == 0:
         raise RuntimeError("HTTP phase launched no kernel")
     log(json.dumps(dict(phase="http", **http)))
+    del pred
 
-    # summary, per kernel: its launches in the serving phase, its time per
-    # predict inside that run, and, summed over the calls of one predict
-    # replayed in phase 3, the same calls alone, the plain version and the
-    # bound
-    kernels = []
-    for name, recs, phase, replaces in (
-            ("attention_sel_fwd", sel, single,
-             "bridged_gnn_tpu/ops/pallas_fused.py:501"),
-            ("attention_fwd", cat, tiered,
-             "bridged_gnn_tpu/ops/pallas_fused.py:168")):
-        bytes_ms = sum(r["bytes_ms"] for r in recs)
-        ops_ms = sum(r["ops_ms"] for r in recs)
-        kernels.append(dict(
-            name=name, route="cuda",
-            source="bridged_gnn_tpu_torch/csrc/attention_fwd.cu",
-            replaces=replaces, launches=phase["launches"],
-            launches_per_predict=phase["launches_per_predict"],
-            launches_per_predict_by_d=phase["launches_per_predict_by_d"],
-            max_abs_err=max(r["max_abs_err"] for r in recs),
-            ms=phase["kernel_ms_per_predict_median"],
-            ms_replayed=sum(r["ms"] for r in recs),
-            plain_ms=sum(r["plain_ms"] for r in recs),
-            bound_ms=sum(r["bound_ms"] for r in recs),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=None, per="predict", card=card,
-        ))
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config
+
+    # 7. backward kernels: each call of one training step on each graph,
+    # replayed against the plain versions; bit-identical gradients
+    cfg = Stage2Config(to_undirected=True)
+    replay = {}
+    for name, data, is_tiered in (("bench", bench, False),
+                                  ("hub", hub, True)):
+        t0 = time.perf_counter()
+        recs, det = check_backward(name, data, cfg, is_tiered)
+        for kname, rows in recs.items():
+            replay[(kname, name)] = rows
+            for r in rows:
+                log(json.dumps(dict(kernel=kname, graph=name, card=card,
+                                    **r)))
+        log(json.dumps(dict(phase="backward_kernels", card=card,
+                            s=time.perf_counter() - t0, **det)))
+        torch.cuda.empty_cache()
+
+    # 8. training, single layout
+    c = BENCH["num_classes"]
+    train_single = train_phase(
+        "train_single", bench, Stage2Config(num_epoch=TRAIN_EPOCHS,
+                                            to_undirected=True),
+        tiered=False, n_layouts=1, num_classes=c)
+    log(json.dumps(dict(card=card, **train_single)))
+
+    # 9. training, degree tiers
+    if n_tiers < 2:
+        raise RuntimeError(f"hub graph gave {n_tiers} tier(s)")
+    train_tiered = train_phase(
+        "train_tiered", hub, Stage2Config(num_epoch=TIERED_EPOCHS,
+                                          to_undirected=True),
+        tiered=True, n_layouts=n_tiers, num_classes=c)
+    log(json.dumps(dict(card=card, **train_tiered)))
+    torch.cuda.empty_cache()
+
+    # 10. card vs CPU, dropout 0, same seeded init
+    small = (bench if PARITY_NODES == BENCH["n"]
+             else make_benchmark_graph(**dict(BENCH, n=PARITY_NODES)))
+    pcfg = Stage2Config(num_epoch=PARITY_EPOCHS, dropout=0.0,
+                        to_undirected=True)
+    for name, data in (("parity_single", small),
+                       ("parity_tiered", hub_graph(small, BENCH["seed"]))):
+        log(json.dumps(dict(card=card, **parity_phase(name, data, pcfg))))
+
+    # summary, per kernel: its launches in its main-path phase and its
+    # time inside that run (per predict for the forwards, per epoch for
+    # the backwards), and, summed over the replayed calls of one predict
+    # (phase 3) or one training step (phase 7), the plain version, the
+    # bound and the library call
+    fwd_src = "bridged_gnn_tpu_torch/csrc/attention_fwd.cu"
+    bwd_src = "bridged_gnn_tpu_torch/csrc/attention_bwd.cu"
+    kernels = [
+        summary_row("attention_sel_fwd", fwd_src,
+                    "bridged_gnn_tpu/ops/pallas_fused.py:501", sel,
+                    single["launches"],
+                    single["kernel_ms_per_predict_median"], "predict", card),
+        summary_row("attention_fwd", fwd_src,
+                    "bridged_gnn_tpu/ops/pallas_fused.py:168", cat,
+                    tiered["launches"],
+                    tiered["kernel_ms_per_predict_median"], "predict", card),
+        summary_row("attention_sel_bwd", bwd_src,
+                    "bridged_gnn_tpu/ops/pallas_fused.py:614",
+                    replay[("attention_sel_bwd", "bench")],
+                    train_single["launches"]["attention_sel_bwd"],
+                    train_single["kernel_ms_per_epoch"]["attention_sel_bwd"],
+                    "epoch", card),
+        summary_row("attention_bwd", bwd_src,
+                    "bridged_gnn_tpu/ops/pallas_fused.py:281",
+                    replay[("attention_bwd", "hub")],
+                    train_tiered["launches"]["attention_bwd"],
+                    train_tiered["kernel_ms_per_epoch"]["attention_bwd"],
+                    "epoch", card),
+        summary_row("slot_reduce",
+                    "bridged_gnn_tpu_torch/csrc/slot_reduce.cu",
+                    "bridged_gnn_tpu/ops/pallas_padded.py:33",
+                    replay[("slot_reduce", "bench")],
+                    train_single["launches"]["slot_reduce"]
+                    + train_tiered["launches"]["slot_reduce"],
+                    train_single["kernel_ms_per_epoch"]["slot_reduce"],
+                    "epoch", card),
+    ]
+    for row, phase in ((kernels[0], single), (kernels[1], tiered)):
+        row["launches_per_predict_by_d"] = phase["launches_per_predict_by_d"]
+    for row, phase, kname in ((kernels[0], train_single, "attention_sel_fwd"),
+                              (kernels[1], train_tiered, "attention_fwd"),
+                              (kernels[2], train_single, "attention_sel_bwd"),
+                              (kernels[3], train_tiered, "attention_bwd"),
+                              (kernels[4], train_single, "slot_reduce")):
+        row["launches_per_epoch_by_d"] = \
+            phase["launches_per_epoch_by_d"][kname]
+    # the reduce on the tiered graph, beside the single layout's numbers
+    hub_rows = replay[("slot_reduce", "hub")]
+    kernels[4].update(
+        ms_tiered=train_tiered["kernel_ms_per_epoch"]["slot_reduce"],
+        plain_ms_tiered=sum(r["plain_ms"] for r in hub_rows),
+        bound_ms_tiered=sum(r["bound_ms"] for r in hub_rows),
+        library_ms_tiered=sum(r["library_ms"] for r in hub_rows))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -71,10 +71,10 @@ def _slot_rows(lay_j):
     return rows, valid
 
 
-def _jax_sel_kernel(lay_j, inp):
-    """The Pallas selective kernel (interpret mode) fed as
-    make_adapted_attention_sel._forward_kernel feeds it; returns out and
-    α = ex / den per slot."""
+def _jax_sel_operands(lay_j, inp):
+    """The selected-branch slot rows ``m`` [B, Et, D] and the packed
+    ``udc`` [B, nb, D+128] operand, as make_adapted_attention_sel feeds
+    the Pallas selective kernels."""
     b, et, nb = lay_j.num_blocks, lay_j.tile_e, lay_j.node_block
     u1, u2, c = inp["u1"], inp["u2"], inp["central"]
     n_in, d = u1.shape
@@ -90,8 +90,18 @@ def _jax_sel_kernel(lay_j, inp):
     udc[:n_out, :d] = ud
     udc[:n_out, d] = c
     udc[:n_out, d + 1] = 1.0
+    return jnp.asarray(m), jnp.asarray(udc.reshape(b, nb, -1))
+
+
+def _jax_sel_kernel(lay_j, inp):
+    """The Pallas selective kernel (interpret mode) fed as
+    make_adapted_attention_sel._forward_kernel feeds it; returns out and
+    α = ex / den per slot."""
+    b, nb = lay_j.num_blocks, lay_j.node_block
+    n_out, d = len(inp["central"]), inp["u1"].shape[1]
+    rows, valid = _slot_rows(lay_j)
     out, ex, den = _attention_sel_call(
-        lay_j.rel_key, jnp.asarray(m), jnp.asarray(udc.reshape(b, nb, -1)),
+        lay_j.rel_key, *_jax_sel_operands(lay_j, inp),
         jnp.asarray(inp["a1"])[None], jnp.asarray(inp["a2"])[None],
         nb, SLOPE, interpret=True,
     )

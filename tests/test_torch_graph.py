@@ -229,7 +229,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 # ------------------------------------------------------------ import hygiene
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "bridged_gnn_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
+              "bridged_gnn_tpu")
 
 
 def _port_sources():
@@ -238,8 +239,9 @@ def _port_sources():
 
 
 def test_port_sources_import_no_jax():
-    """AST check: no import of JAX, flax or the JAX package anywhere in
-    the port or chip_smoke.py (relative imports stay inside the port)."""
+    """AST check: no import of JAX, flax, scikit-learn or the JAX package
+    anywhere in the port or chip_smoke.py (relative imports stay inside
+    the port)."""
     bad = []
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -258,7 +260,8 @@ def test_port_sources_import_no_jax():
 
 def test_port_modules_load_without_jax():
     """Subprocess check: importing every port module and chip_smoke.py
-    loads no JAX, flax or JAX-package module and sets no CUDA state."""
+    loads no JAX, flax, scikit-learn or JAX-package module and sets no
+    CUDA state."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "bridged_gnn_tpu_torch").rglob("*.py")
