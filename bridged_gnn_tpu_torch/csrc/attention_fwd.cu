@@ -1,6 +1,6 @@
 // Fused KT-GNN attention forward for Hopper (sm_90a).
 //
-// Two kernels, one loop:
+// Two kernels:
 //   attention_sel_fwd  replaces the TPU kernel _attention_sel_kernel
 //                      (bridged_gnn_tpu/ops/pallas_fused.py:501) together with
 //                      the sender-row gather _gather_sel_rows that feeds it
@@ -22,22 +22,56 @@
 //
 // Design for the card rather than the TPU. The TPU kernel expanded one-hot
 // [nb, Et] matrices through its matrix unit and read pre-gathered [Et, D]
-// messages. Here one warp owns one destination row: its slots are one
-// contiguous run (edges are dst-sorted), so the warp streams them once, keeps
-// an online softmax (running max, rescaled sum and accumulator) in registers
-// and gathers each sender row straight from the u table. No [Et, D] message
-// array and no one-hot matrix ever reach device memory. Lanes stride over D
-// (kPer values per lane, D <= 256); the warp loads 32 sender ids at a time
-// and broadcasts them by shuffle.
+// messages. Here each destination's slots are one contiguous run (edges are
+// dst-sorted); the kernel streams them once, keeps an online softmax (running
+// max, rescaled sum and accumulators) in registers and gathers each sender
+// row straight from the u tables. No [Et, D] message array and no one-hot
+// matrix ever reach device memory.
 //
-// Bound: bytes. Per slot the kernel reads a D-wide f32 sender row (two for the
-// concatenated kernel) and does ~5·D flops, far below the card's 67 TFLOP/s
-// f32 rate per byte moved. The rows are scattered 4·D-byte reads, so the
-// achieved rate sits below the 3.35 TB/s streaming rate; the row-per-warp
-// split keeps each such read coalesced across the warp.
+// Bound: bytes. Per slot the kernel reads one D-wide f32 sender row (two for
+// the concatenated kernel) and does ~5·D flops (~8·D concatenated), far below
+// the card's 67 TFLOP/s f32 rate per byte moved. The bound counts each
+// sender row once; the kernels read a row once per slot (~33 times on the
+// main path), scattered, so what limits them is either the chain of
+// dependent loads per slot (index, row, logit reduction, exp) with too few
+// chains in flight, or, once enough are in flight and the u tables outgrow
+// the 50 MB L2 (67 MB at D = 64), the row traffic itself (2·S·D·4 bytes).
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-//        -Xcompiler -fPIC (see bridged_gnn_tpu_torch/ops/fused_kernels.py).
+// attention_sel_fwd keeps its first loop for now: one warp per destination
+// row, lanes striding over D, one slot (one sender-row load) in flight per
+// warp.
+//
+// attention_fwd, the concatenated forward, is built for loads in flight:
+//   * Lane groups. A row's lanes split into groups of G = min(32, ⌈D/4⌉)
+//     lanes, rounded up to a power of two; each lane of a group holds 4
+//     columns (16-byte vector loads when D % 4 == 0 and the tables are
+//     16-byte aligned). Each group takes its own slots of the row, two per
+//     step, so a warp keeps 2·32/G sender rows in flight: 32 at D = 8, 4 at
+//     D = 64. A group reduces its logit with log2 G shuffles and keeps its
+//     own online-softmax state; the groups merge by shuffles at the end of
+//     the row. The row's lanes load the sender ids of 32 slots at once and
+//     hand them out by shuffle, so a step waits on its row loads only.
+//   * Light rows. One warp takes one row at D > 8; at D <= 8 two rows (four
+//     at D <= 4) share a warp, 16 (8) lanes each, since a main-path row of
+//     ~33 slots would leave most of the groups of a whole warp idle and the
+//     grid would need twice the waves.
+//   * Heavy rows. A row with more than kHeavySlots slots (listed by the host
+//     as the layout's dst_heavy) gets a block of its own: its 16 warps each
+//     take one contiguous chunk of the row and merge their states in shared
+//     memory in warp order. The grid puts these blocks first, then one block
+//     for every 16 light warps; a light row's lanes skip a heavy row.
+//     kHeavySlots = 128: a light warp at D = 64 (two groups) walks a row in
+//     steps of four slots, each a chain of ~1–2 µs, so a 128-slot row takes
+//     ~30–60 µs, about one wave of a bench-size call; the main path's ordinary
+//     rows (at most ~70 slots) stay light and only hub rows (~850) go heavy.
+//   * Index, destination rows and outputs are touched once: streaming loads
+//     and stores (evict-first), so that L2 keeps the u tables.
+//   No atomics: every sum is taken in a fixed order, so two launches on the
+//   same inputs give bit-identical outputs.
+//
+// Build: one nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -c
+//        -Xcompiler -fPIC per source, linked with -shared (see
+//        bridged_gnn_tpu_torch/ops/fused_kernels.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,7 +80,9 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;   // selective kernel
+constexpr int kCatWarps = 16;       // concatenated kernel, light or heavy block
+constexpr int kHeavySlots = 128;    // see the header; = HEAVY_SLOTS in Python
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -54,21 +90,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <bool kConcat, int kPer>
+// ---------------------------------------------------------------- selective
+
+template <int kPer>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-attention_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
-                     const int32_t* __restrict__ ranges,  // [R_lay, 2]
-                     const float* __restrict__ u1,        // [N_in, D]
-                     const float* __restrict__ u2,        // [N_in, D]
-                     const float* __restrict__ ud,        // [n_out, D]
-                     const bool* __restrict__ central,    // [n_out]
-                     const float* __restrict__ a1,        // [D]
-                     const float* __restrict__ a2,        // [D]
-                     float slope, int d, int n_rows_layout, int n_out,
-                     int node_block, int tile_e,
-                     float* __restrict__ out,      // [n_out, D] or [n_out, 2D]
-                     float* __restrict__ slot_w,   // [S] ex or alpha
-                     float* __restrict__ den_out)  // [n_out] (selective only)
+attention_sel_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender/-1
+                         const int32_t* __restrict__ ranges,  // [R_lay, 2]
+                         const float* __restrict__ u1,        // [N_in, D]
+                         const float* __restrict__ u2,        // [N_in, D]
+                         const float* __restrict__ ud,        // [n_out, D]
+                         const bool* __restrict__ central,    // [n_out]
+                         const float* __restrict__ a1,        // [D]
+                         const float* __restrict__ a2,        // [D]
+                         float slope, int d, int n_rows_layout, int n_out,
+                         int node_block, int tile_e,
+                         float* __restrict__ out,      // [n_out, D]
+                         float* __restrict__ slot_w,   // [S] ex
+                         float* __restrict__ den_out)  // [n_out]
 {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -88,15 +126,14 @@ attention_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
   const float* __restrict__ tab = is_c ? u1 : u2;
   const float* __restrict__ a = is_c ? a1 : a2;
 
-  float dst[kPer], av[kPer], acc1[kPer], acc2[kPer];
+  float dst[kPer], av[kPer], acc[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int c = lane + 32 * i;
     const bool ok = c < d;
     dst[i] = ok ? ud[(long long)row * d + c] : 0.f;
     av[i] = ok ? a[c] : 0.f;
-    acc1[i] = 0.f;
-    acc2[i] = 0.f;
+    acc[i] = 0.f;
   }
 
   float mx = -INFINITY;
@@ -113,18 +150,12 @@ attention_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
         continue;
       }
       const long long s = sj;
-      float m[kPer], m1[kPer], m2[kPer];
+      float m[kPer];
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
         const int c = lane + 32 * i;
-        if (kConcat) {
-          m1[i] = c < d ? u1[s * d + c] : 0.f;
-          m2[i] = c < d ? u2[s * d + c] : 0.f;
-          m[i] = is_c ? m1[i] : m2[i];
-        } else {
-          m[i] = c < d ? tab[s * d + c] : 0.f;
-        }
+        m[i] = c < d ? tab[s * d + c] : 0.f;
         const float z = m[i] + dst[i];
         const float h = z >= 0.f ? z : slope * z;
         part += h * av[i];
@@ -135,14 +166,7 @@ attention_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
       const float p = expf(logit - new_mx);
       den = den * scale + p;
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        if (kConcat) {
-          acc1[i] = acc1[i] * scale + p * m1[i];
-          acc2[i] = acc2[i] * scale + p * m2[i];
-        } else {
-          acc1[i] = acc1[i] * scale + p * m[i];
-        }
-      }
+      for (int i = 0; i < kPer; ++i) acc[i] = acc[i] * scale + p * m[i];
       mx = new_mx;
       if (lane == j) my_logit = logit;
     }
@@ -153,58 +177,366 @@ attention_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int c = lane + 32 * i;
-    if (c < d) {
-      if (kConcat) {
-        out[(long long)row * 2 * d + c] = acc1[i] / den_safe;
-        out[(long long)row * 2 * d + d + c] = acc2[i] / den_safe;
-      } else {
-        out[(long long)row * d + c] = acc1[i] / den_safe;
-      }
-    }
+    if (c < d) out[(long long)row * d + c] = acc[i] / den_safe;
   }
-  if (!kConcat && lane == 0) den_out[row] = den_safe;
+  if (lane == 0) den_out[row] = den_safe;
 
   // Each lane rewrites the logits it stored itself, so no lane reads
   // another lane's write.
   for (int k = lo + lane; k < hi; k += 32) {
     const float l = slot_w[k];
-    const float ex = l == -INFINITY ? 0.f : expf(l - mx);
-    slot_w[k] = kConcat ? ex / den_safe : ex;
+    slot_w[k] = l == -INFINITY ? 0.f : expf(l - mx);
   }
 }
 
-template <bool kConcat>
-cudaError_t launch(const void* src, const void* ranges, const void* u1,
-                   const void* u2, const void* ud, const void* central,
-                   const void* a1, const void* a2, float slope, int d,
-                   int n_rows_layout, int n_out, int node_block, int tile_e,
-                   void* out, void* slot_w, void* den, void* stream) {
-  if (d < 1 || d > 256 || n_rows_layout < 1 || n_out > n_rows_layout ||
-      node_block < 1 || tile_e < 1) {
-    return cudaErrorInvalidValue;
-  }
-  const dim3 grid((n_rows_layout + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BGNN_LAUNCH(PER)                                                    \
-  attention_fwd_kernel<kConcat, PER><<<grid, block, 0, st>>>(               \
-      static_cast<const int32_t*>(src), static_cast<const int32_t*>(ranges), \
-      static_cast<const float*>(u1), static_cast<const float*>(u2),          \
-      static_cast<const float*>(ud), static_cast<const bool*>(central),      \
-      static_cast<const float*>(a1), static_cast<const float*>(a2), slope, d, \
-      n_rows_layout, n_out, node_block, tile_e, static_cast<float*>(out),    \
-      static_cast<float*>(slot_w), static_cast<float*>(den))
-  if (d <= 32) {
-    BGNN_LAUNCH(1);
-  } else if (d <= 64) {
-    BGNN_LAUNCH(2);
-  } else if (d <= 128) {
-    BGNN_LAUNCH(4);
+// ------------------------------------------------------------- concatenated
+
+// Columns held by lane gl of a group of kG lanes: 4·(gl + kG·i) + j for
+// i < kPer, j < 4; the padded width is 4·kG·kPer. kStream marks data read
+// once (evict-first in L2), so that it leaves the cache to the u tables.
+template <bool kVec, bool kStream = false>
+__device__ __forceinline__ void load4(const float* __restrict__ p, int c,
+                                      int d, float (&v)[4]) {
+  if (kVec) {  // d % 4 == 0 and p 16-byte aligned: c < d covers c + 3
+    if (c < d) {
+      const float4* q = reinterpret_cast<const float4*>(p + c);
+      const float4 t = kStream ? __ldcs(q) : *q;
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
   } else {
-    BGNN_LAUNCH(8);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = c + j < d ? (kStream ? __ldcs(p + c + j) : p[c + j]) : 0.f;
   }
-#undef BGNN_LAUNCH
-  return cudaGetLastError();
+}
+
+// Output rows are written once and not read again here: streaming stores.
+template <bool kVec>
+__device__ __forceinline__ void store4(float* __restrict__ p, int c, int d,
+                                       const float (&v)[4]) {
+  if (kVec) {
+    if (c < d) __stcs(reinterpret_cast<float4*>(p + c),
+                      make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < d) __stcs(p + c + j, v[j]);
+  }
+}
+
+template <int kG>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = kG / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Online-softmax state of one lane: the running max and sum (equal on all
+// lanes of a group) and the lane's columns of both accumulators.
+template <int kPer>
+struct CatState {
+  float mx, den;
+  float acc1[kPer][4], acc2[kPer][4];
+};
+
+// Light rows per warp: at D <= 8 a row of the main path (~33 slots) would
+// leave most of a warp's 16 or 32 groups idle, so 2 (or, at D <= 4, 4) rows
+// share a warp, each on a sub-warp of 32/kRows lanes.
+__host__ __device__ constexpr int light_rows_per_warp(int g) {
+  return g == 1 ? 4 : (g == 2 ? 2 : 1);
+}
+
+// The kSub lanes of a sub-warp walk the slots [lo, hi) of one destination:
+// group g of its kSub/kG groups takes slots lo + g + kSub/kG·t, two per
+// step. The sub-warp loads the sender ids of kSub slots at once and hands
+// them to the groups by shuffle, so a step waits on its row loads only.
+// Every lane of the warp runs the most steps any of its rows needs, so the
+// shuffles see the whole warp; an empty range walks nothing. Writes each
+// slot's raw logit (−inf on masked slots) and leaves the row's merged state
+// in `st`, equal on every lane of the sub-warp for mx and den and on every
+// group for the accumulators.
+template <int kG, int kPer, bool kVec, int kSub>
+__device__ __forceinline__ void cat_walk(
+    const int32_t* __restrict__ src, int lo, int hi,
+    const float* __restrict__ u1, const float* __restrict__ u2,
+    const float (&dst)[kPer][4], const float (&av)[kPer][4], bool is_c,
+    float slope, int d, float* __restrict__ slot_w, CatState<kPer>& st) {
+  constexpr int kGroups = kSub / kG;  // groups per row
+  const int lane = threadIdx.x & 31;
+  const int sl = lane % kSub;
+  const int grp = sl / kG;
+  const int gl = sl % kG;
+  st.mx = -INFINITY;
+  st.den = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) st.acc1[i][j] = st.acc2[i][j] = 0.f;
+
+  int steps = (hi - lo + 2 * kGroups - 1) / (2 * kGroups);
+#pragma unroll
+  for (int o = kSub; o < 32; o <<= 1)
+    steps = max(steps, __shfl_xor_sync(kFull, steps, o));
+  int my_s = -1;  // the sender id of slot w0 + sl of the current window
+  for (int t = 0; t < steps; ++t) {
+    const int base = lo + 2 * kGroups * t;
+    const int ka = base + grp;
+    const int kb = ka + kGroups;
+    int sa, sb;
+    if (kG == 1) {  // one lane per group: each loads its own two ids
+      sa = ka < hi ? __ldcs(src + ka) : -1;
+      sb = kb < hi ? __ldcs(src + kb) : -1;
+    } else {  // a window of kSub ids serves kG/2 steps
+      const int off = (2 * kGroups * t) % kSub;  // the same on every lane
+      if (off == 0) my_s = base + sl < hi ? __ldcs(src + base + sl) : -1;
+      sa = __shfl_sync(kFull, my_s, lane - sl + off + grp);
+      sb = __shfl_sync(kFull, my_s, lane - sl + off + grp + kGroups);
+    }
+    float m1a[kPer][4], m2a[kPer][4], m1b[kPer][4], m2b[kPer][4];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = 4 * (gl + kG * i);
+      if (sa >= 0) {
+        load4<kVec>(u1 + (long long)sa * d, c, d, m1a[i]);
+        load4<kVec>(u2 + (long long)sa * d, c, d, m2a[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) m1a[i][j] = m2a[i][j] = 0.f;
+      }
+      if (sb >= 0) {
+        load4<kVec>(u1 + (long long)sb * d, c, d, m1b[i]);
+        load4<kVec>(u2 + (long long)sb * d, c, d, m2b[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) m1b[i][j] = m2b[i][j] = 0.f;
+      }
+    }
+    float pa = 0.f, pb = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float za = (is_c ? m1a[i][j] : m2a[i][j]) + dst[i][j];
+        const float zb = (is_c ? m1b[i][j] : m2b[i][j]) + dst[i][j];
+        pa += (za >= 0.f ? za : slope * za) * av[i][j];
+        pb += (zb >= 0.f ? zb : slope * zb) * av[i][j];
+      }
+    pa = group_sum<kG>(pa);
+    pb = group_sum<kG>(pb);
+    const float la = sa >= 0 ? pa : -INFINITY;
+    const float lb = sb >= 0 ? pb : -INFINITY;
+    if (gl == 0) {  // raw logits; rescaled into α once the row is done
+      if (ka < hi) slot_w[ka] = la;
+      if (kb < hi) slot_w[kb] = lb;
+    }
+    const float nm = fmaxf(st.mx, fmaxf(la, lb));
+    if (nm != -INFINITY) {
+      const float sc = expf(st.mx - nm);  // 0 while the state is empty
+      const float ea = expf(la - nm);     // 0 on a masked or missing slot
+      const float eb = expf(lb - nm);
+      st.den = st.den * sc + ea + eb;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st.acc1[i][j] = st.acc1[i][j] * sc + ea * m1a[i][j] + eb * m1b[i][j];
+          st.acc2[i][j] = st.acc2[i][j] * sc + ea * m2a[i][j] + eb * m2b[i][j];
+        }
+      st.mx = nm;
+    }
+  }
+
+  // Merge the row's groups: a butterfly over lane distances kG, ...,
+  // kSub/2. Both partners compute the same products and sum (no
+  // contraction into an FMA), so every group ends with the same state.
+#pragma unroll
+  for (int o = kG; o < kSub; o <<= 1) {
+    const float omx = __shfl_xor_sync(kFull, st.mx, o);
+    const float oden = __shfl_xor_sync(kFull, st.den, o);
+    const float nm = fmaxf(st.mx, omx);
+    const float s = st.mx == -INFINITY ? 0.f : expf(st.mx - nm);
+    const float so = omx == -INFINITY ? 0.f : expf(omx - nm);
+    st.den = __fadd_rn(__fmul_rn(st.den, s), __fmul_rn(oden, so));
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float o1 = __shfl_xor_sync(kFull, st.acc1[i][j], o);
+        const float o2 = __shfl_xor_sync(kFull, st.acc2[i][j], o);
+        st.acc1[i][j] = __fadd_rn(__fmul_rn(st.acc1[i][j], s),
+                                  __fmul_rn(o1, so));
+        st.acc2[i][j] = __fadd_rn(__fmul_rn(st.acc2[i][j], s),
+                                  __fmul_rn(o2, so));
+      }
+    st.mx = nm;
+  }
+}
+
+__device__ __forceinline__ float alpha_of(float logit, float mx,
+                                          float den_safe) {
+  return logit == -INFINITY ? 0.f : expf(logit - mx) / den_safe;
+}
+
+// The pad slots behind the last row of each layout block are zeroed by the
+// lanes that own that row, `stride` apart from `first`.
+__device__ __forceinline__ void zero_tail(float* __restrict__ slot_w, int row,
+                                          int hi, int node_block, int tile_e,
+                                          int first, int stride) {
+  if (row % node_block != node_block - 1) return;
+  const long long tail_end = (long long)(row / node_block + 1) * tile_e;
+  for (long long k = hi + first; k < tail_end; k += stride) slot_w[k] = 0.f;
+}
+
+// Two blocks per SM caps a thread at 64 registers; at D > 128 (kPer = 2)
+// that would spill, so those widths take one block per SM.
+template <int kG, int kPer, bool kVec>
+__global__ void __launch_bounds__(kCatWarps * 32, kPer == 1 ? 2 : 1)
+attention_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
+                     const int32_t* __restrict__ ranges,  // [R_lay, 2]
+                     const float* __restrict__ u1,        // [N_in, D]
+                     const float* __restrict__ u2,        // [N_in, D]
+                     const float* __restrict__ ud,        // [n_out, D]
+                     const bool* __restrict__ central,    // [n_out]
+                     const float* __restrict__ a1,        // [D]
+                     const float* __restrict__ a2,        // [D]
+                     const int32_t* __restrict__ heavy,   // [n_heavy] rows
+                     int n_heavy, float slope, int d, int n_rows_layout,
+                     int n_out, int node_block, int tile_e,
+                     float* __restrict__ out,     // [n_out, 2D]
+                     float* __restrict__ slot_w)  // [S] alpha
+{
+  constexpr int kDP = 4 * kG * kPer;  // padded D
+  constexpr int kRows = light_rows_per_warp(kG);
+  constexpr int kSub = 32 / kRows;    // lanes per light row
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gl = lane % kG;
+  float dst[kPer][4], av[kPer][4];
+  CatState<kPer> st;
+
+  if (blockIdx.x >= n_heavy) {
+    // Light rows: sub-warp `sub` owns row `row` unless the row lies past the
+    // layout or is heavy (a heavy block owns it, pad tail included). Lanes
+    // of rows they do not own walk an empty range, for the shuffles.
+    const int sl = lane % kSub;
+    const int row =
+        ((blockIdx.x - n_heavy) * kCatWarps + warp) * kRows + lane / kSub;
+    int lo = 0, hi = 0;
+    bool mine = false;
+    if (row < n_rows_layout) {
+      lo = ranges[2 * row];
+      hi = ranges[2 * row + 1];
+      mine = hi - lo <= kHeavySlots;
+    }
+    if (mine) zero_tail(slot_w, row, hi, node_block, tile_e, sl, kSub);
+    const bool live = mine && row < n_out;
+    if (!live) hi = lo;
+    const bool is_c = live && central[row];
+    const float* __restrict__ a = is_c ? a1 : a2;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = 4 * (sl % kG + kG * i);
+      if (live) {
+        load4<kVec, true>(ud + (long long)row * d, c, d, dst[i]);
+        load4<kVec>(a, c, d, av[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dst[i][j] = av[i][j] = 0.f;
+      }
+    }
+    cat_walk<kG, kPer, kVec, kSub>(src, lo, hi, u1, u2, dst, av, is_c, slope,
+                                   d, slot_w, st);
+    const float den_safe = st.den == 0.f ? 1.f : st.den;
+    if (live && sl < kG) {  // the row's group 0 writes it
+      float* __restrict__ orow = out + (long long)row * 2 * d;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        float v1[4], v2[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v1[j] = st.acc1[i][j] / den_safe;
+          v2[j] = st.acc2[i][j] / den_safe;
+        }
+        const int c = 4 * (sl + kG * i);
+        store4<kVec>(orow, c, d, v1);
+        store4<kVec>(orow + d, c, d, v2);
+      }
+    }
+    __syncwarp();  // the row's raw logits, visible to all its lanes
+    for (int k = lo + sl; k < hi; k += kSub)
+      __stcs(slot_w + k, alpha_of(slot_w[k], st.mx, den_safe));
+    return;
+  }
+
+  // Heavy row: warp w walks the w-th of kCatWarps contiguous chunks, then
+  // the warps' states merge in shared memory in warp order.
+  const int row = heavy[blockIdx.x];
+  const int lo = ranges[2 * row];
+  const int hi = ranges[2 * row + 1];
+  zero_tail(slot_w, row, hi, node_block, tile_e, threadIdx.x, blockDim.x);
+  if (row >= n_out) return;  // the whole block
+  const bool is_c = central[row];
+  const float* __restrict__ a = is_c ? a1 : a2;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = 4 * (gl + kG * i);
+    load4<kVec, true>(ud + (long long)row * d, c, d, dst[i]);
+    load4<kVec>(a, c, d, av[i]);
+  }
+  __shared__ float s_mx[kCatWarps], s_den[kCatWarps];
+  __shared__ float s_acc[kCatWarps][2][kDP];
+  const int chunk = (hi - lo + kCatWarps - 1) / kCatWarps;
+  const int wlo = min(hi, lo + warp * chunk);
+  const int whi = min(hi, wlo + chunk);
+  cat_walk<kG, kPer, kVec, 32>(src, wlo, whi, u1, u2, dst, av, is_c, slope, d,
+                               slot_w, st);
+  if (lane == 0) {
+    s_mx[warp] = st.mx;
+    s_den[warp] = st.den;
+  }
+  if (lane < kG) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s_acc[warp][0][4 * (gl + kG * i) + j] = st.acc1[i][j];
+        s_acc[warp][1][4 * (gl + kG * i) + j] = st.acc2[i][j];
+      }
+  }
+  __syncthreads();  // also makes every warp's raw logits visible
+
+  float mx = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kCatWarps; ++w) mx = fmaxf(mx, s_mx[w]);
+  float scale[kCatWarps];
+  float den = 0.f;
+#pragma unroll
+  for (int w = 0; w < kCatWarps; ++w) {
+    scale[w] = s_mx[w] == -INFINITY ? 0.f : expf(s_mx[w] - mx);
+    den += s_den[w] * scale[w];
+  }
+  const float den_safe = den == 0.f ? 1.f : den;
+  float* __restrict__ orow = out + (long long)row * 2 * d;
+  for (int t = threadIdx.x; t < 2 * kDP; t += blockDim.x) {
+    const int half = t / kDP;
+    const int c = t % kDP;
+    if (c >= d) continue;
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kCatWarps; ++w) acc += s_acc[w][half][c] * scale[w];
+    __stcs(orow + half * d + c, acc / den_safe);
+  }
+  for (int k = lo + threadIdx.x; k < hi; k += blockDim.x)
+    __stcs(slot_w + k, alpha_of(slot_w[k], mx, den_safe));
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace
@@ -216,10 +548,32 @@ extern "C" int attention_sel_fwd(const void* src, const void* ranges,
                                  int d, int n_rows_layout, int n_out,
                                  int node_block, int tile_e, void* out,
                                  void* ex, void* den, void* stream) {
-  return static_cast<int>(launch<false>(src, ranges, u1, u2, ud, central,
-                                        a1, a2, slope, d, n_rows_layout, n_out,
-                                        node_block, tile_e, out, ex, den,
-                                        stream));
+  if (d < 1 || d > 256 || n_rows_layout < 1 || n_out > n_rows_layout ||
+      node_block < 1 || tile_e < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((n_rows_layout + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const dim3 block(kWarpsPerBlock * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BGNN_LAUNCH(PER)                                                    \
+  attention_sel_fwd_kernel<PER><<<grid, block, 0, st>>>(                    \
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(ranges), \
+      static_cast<const float*>(u1), static_cast<const float*>(u2),          \
+      static_cast<const float*>(ud), static_cast<const bool*>(central),      \
+      static_cast<const float*>(a1), static_cast<const float*>(a2), slope, d, \
+      n_rows_layout, n_out, node_block, tile_e, static_cast<float*>(out),    \
+      static_cast<float*>(ex), static_cast<float*>(den))
+  if (d <= 32) {
+    BGNN_LAUNCH(1);
+  } else if (d <= 64) {
+    BGNN_LAUNCH(2);
+  } else if (d <= 128) {
+    BGNN_LAUNCH(4);
+  } else {
+    BGNN_LAUNCH(8);
+  }
+#undef BGNN_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int attention_fwd(const void* src, const void* ranges,
@@ -227,10 +581,56 @@ extern "C" int attention_fwd(const void* src, const void* ranges,
                              const void* central, const void* a1,
                              const void* a2, float slope, int d,
                              int n_rows_layout, int n_out, int node_block,
-                             int tile_e, void* out, void* alpha,
-                             void* stream) {
-  return static_cast<int>(launch<true>(src, ranges, u1, u2, ud, central, a1,
-                                       a2, slope, d, n_rows_layout, n_out,
-                                       node_block, tile_e, out, alpha, nullptr,
-                                       stream));
+                             int tile_e, const void* heavy, int n_heavy,
+                             void* out, void* alpha, void* stream) {
+  if (d < 1 || d > 256 || n_rows_layout < 1 || n_out > n_rows_layout ||
+      node_block < 1 || tile_e < 1 || n_heavy < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = d % 4 == 0 && aligned16(u1) && aligned16(u2) &&
+                   aligned16(ud) && aligned16(a1) && aligned16(a2) &&
+                   aligned16(out);
+  const dim3 block(kCatWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // one block per heavy row, then one per kCatWarps·kRows light rows
+#define BGNN_LAUNCH(G, PER, VEC)                                             \
+  attention_fwd_kernel<G, PER, VEC>                                          \
+      <<<dim3(n_heavy + (n_rows_layout + kCatWarps *                        \
+                             light_rows_per_warp(G) - 1) /                   \
+                            (kCatWarps * light_rows_per_warp(G))),           \
+         block, 0, st>>>(                                                    \
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(ranges), \
+      static_cast<const float*>(u1), static_cast<const float*>(u2),          \
+      static_cast<const float*>(ud), static_cast<const bool*>(central),      \
+      static_cast<const float*>(a1), static_cast<const float*>(a2),          \
+      static_cast<const int32_t*>(heavy), n_heavy, slope, d, n_rows_layout,  \
+      n_out, node_block, tile_e, static_cast<float*>(out),                   \
+      static_cast<float*>(alpha))
+#define BGNN_LAUNCH_VEC(G, PER) \
+  if (vec) {                    \
+    BGNN_LAUNCH(G, PER, true);  \
+  } else {                      \
+    BGNN_LAUNCH(G, PER, false); \
+  }
+  // G = min(32, ⌈D/4⌉) rounded up to a power of two; 4·G·PER >= D
+  if (d <= 4) {
+    BGNN_LAUNCH_VEC(1, 1)
+  } else if (d <= 8) {
+    BGNN_LAUNCH_VEC(2, 1)
+  } else if (d <= 16) {
+    BGNN_LAUNCH_VEC(4, 1)
+  } else if (d <= 32) {
+    BGNN_LAUNCH_VEC(8, 1)
+  } else if (d <= 64) {
+    BGNN_LAUNCH_VEC(16, 1)
+  } else if (d <= 128) {
+    BGNN_LAUNCH_VEC(32, 1)
+  } else {
+    BGNN_LAUNCH_VEC(32, 2)
+  }
+#undef BGNN_LAUNCH_VEC
+#undef BGNN_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
+
+extern "C" int attention_fwd_heavy_slots() { return kHeavySlots; }

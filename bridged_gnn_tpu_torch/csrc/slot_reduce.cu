@@ -11,7 +11,7 @@
 // It computes, for every sender row r over its CSR entries k,
 //   out[r] = Σ_k vals[slots[k]]                      ([n_rows, W]),
 // reading the dst-ordered slot rows by index. With a per-slot branch flag
-// (the selective backward's slot_c) each D-wide row goes to one half of a
+// (the selective backward's slot_c) each W-wide row goes to one half of a
 // [n_rows, 2W] output: out[r, :W] when the slot's destination is central,
 // out[r, W:] otherwise. That folds in _gather_sel_vjp's [dm·c ‖ dm·(1−c)]
 // without an [S, 2D] temporary. Senders without entries, and rows past the
@@ -20,16 +20,38 @@
 // Design for the card. The TPU kernel reduced a padded src-keyed [B, Et]
 // grid with one-hot matmuls. Here the index is a CSR by sender over the real
 // slots only (a padded sender grid would give every block a tile as wide as
-// the heaviest hub sender's ~850 slots). One warp owns one sender row and
-// walks its entries in order, so each row's sum is taken in a fixed order:
-// no atomics, bit-identical from run to run. Lanes stride over W (kPer
-// values per lane, W <= 512); the warp loads 32 slot ids at a time and
-// broadcasts them by shuffle.
+// the heaviest hub sender's ~850 slots), and the kernel is built to keep many
+// independent row loads in flight:
+//   * Lane groups. A warp splits into groups of G = min(32, ⌈W/4⌉) lanes,
+//     rounded up to a power of two; each lane holds 4 columns (16-byte
+//     vector loads when W % 4 == 0 and vals is 16-byte aligned). A light
+//     sender gets one group, so 32/G senders share a warp (16 at W = 8, 8 at
+//     W = 16): a grid over 131k senders of one or two entries each, like the
+//     hub graph's heavy tier, needs 32/G times fewer waves than one warp per
+//     sender. A group requests the rows of 4/kPer entries before it adds the
+//     first, and the slot ids of the next ones with them, so each lane
+//     keeps several loads in flight and a step waits on one load.
+//   * Heavy senders. A sender with more than kHeavyEntries entries (listed by
+//     the host as the layout's src_heavy) gets a block of its own: its 16
+//     warps each take one contiguous chunk of the entries, the groups of a
+//     warp stride over the chunk, the groups merge by shuffles and the warps
+//     in shared memory, in warp order. The grid puts these blocks first; a
+//     light group returns at once on a heavy sender. kHeavyEntries = 128: a
+//     light group walks its entries 4 at a time in chains of ~1.5 µs (index,
+//     branch flag, row), so a 128-entry sender takes ~50 µs, about one wave
+//     of a bench-size call; the main path's ordinary senders (at most ~70
+//     entries) stay light and only hub senders (~850) go heavy.
+// Every sum is taken in a fixed order (a light sender's in CSR order, as
+// before), with no atomics: two launches give bit-identical outputs.
 //
 // Bound: bytes. Per entry the kernel reads one scattered W-wide f32 row and
-// adds it: one flop per 4 bytes.
+// adds it: one flop per 4 bytes. Each slot row is read exactly once, in
+// sender order, so the reads land at random in an array far larger than L2
+// (147 MB at W = 8 on the bench graph): at small W the time is set by the
+// rate of scattered 32- and 64-byte DRAM reads rather than by bandwidth.
+// Slot rows and outputs are touched once: streaming loads and stores.
 //
-// Build: see attention_bwd.cu.
+// Build: see attention_fwd.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,104 +59,257 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarps = 16;          // warps per block, light or heavy
+constexpr int kHeavyEntries = 128;  // see the header; = HEAVY_SLOTS in Python
 constexpr int kMaxW = 512;
 
-template <bool kSplit, int kPer>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Every slot row is read once and every output row written once: streaming
+// (evict-first) loads and stores keep L2 for the index and the flags.
+template <bool kVec>
+__device__ __forceinline__ void load4(const float* __restrict__ p, int c,
+                                      int w, float (&v)[4]) {
+  if (kVec) {  // w % 4 == 0 and p 16-byte aligned: c < w covers c + 3
+    if (c < w) {
+      const float4 t = __ldcs(reinterpret_cast<const float4*>(p + c));
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = c + j < w ? __ldcs(p + c + j) : 0.f;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* __restrict__ p, int c, int w,
+                                       const float (&v)[4]) {
+  if (kVec) {
+    if (c < w) __stcs(reinterpret_cast<float4*>(p + c),
+                      make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < w) __stcs(p + c + j, v[j]);
+  }
+}
+
+// One group sums the entries k0, k0 + stride, ... below hi, in that order,
+// into acc1 (branch 1, or every entry without the split) and acc2 (branch
+// 0). Lane gl of the group holds columns 4·(gl + kG·i) + j. The slot ids of
+// the next kU entries are requested before this step's rows are added.
+template <bool kSplit, bool kVec, int kG, int kPer>
+__device__ __forceinline__ void sum_entries(
+    const int32_t* __restrict__ slots, const float* __restrict__ vals,
+    const uint8_t* __restrict__ branch, int w, int k0, int hi, int stride,
+    int gl, float (&acc1)[kPer][4], float (&acc2)[kPer][4]) {
+  constexpr int kU = 4 / kPer;  // entries in flight per group
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc1[i][j] = acc2[i][j] = 0.f;
+  int p[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const int ku = k0 + u * stride;
+    p[u] = ku < hi ? __ldcs(slots + ku) : -1;
+  }
+  for (int k = k0; k < hi; k += kU * stride) {
+    int next[kU];
+    bool b[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int ku = k + (kU + u) * stride;
+      next[u] = ku < hi ? __ldcs(slots + ku) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) b[u] = !kSplit || (p[u] >= 0 && branch[p[u]]);
+    float v[kU][kPer][4];
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        if (p[u] >= 0) {
+          load4<kVec>(vals + (long long)p[u] * w, 4 * (gl + kG * i), w,
+                      v[u][i]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[u][i][j] = 0.f;
+        }
+      }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (p[u] < 0) continue;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (b[u]) {
+            acc1[i][j] += v[u][i][j];
+          } else {
+            acc2[i][j] += v[u][i][j];
+          }
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) p[u] = next[u];
+  }
+}
+
+template <bool kSplit, bool kVec, int kG, int kPer>
+__global__ void __launch_bounds__(kWarps * 32, 2)
 slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
                    const int32_t* __restrict__ slots,   // [R] dst slot
                    const float* __restrict__ vals,      // [S, W]
                    const uint8_t* __restrict__ branch,  // [S] (split only)
-                   int w, int n_ranges, int n_rows,
+                   const int32_t* __restrict__ heavy,   // [n_heavy] senders
+                   int n_heavy, int w, int n_ranges, int n_rows,
                    float* __restrict__ out)  // [n_rows, W] or [n_rows, 2W]
 {
+  constexpr int kGroups = 32 / kG;
+  constexpr int kWP = 4 * kG * kPer;  // padded W
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  int lo = 0, hi = 0;
-  if (row < n_ranges) {
-    lo = ranges[2 * row];
-    hi = ranges[2 * row + 1];
-  }
-  float acc1[kPer], acc2[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    acc1[i] = 0.f;
-    acc2[i] = 0.f;
-  }
-  for (int k0 = lo; k0 < hi; k0 += 32) {
-    const int kk = k0 + lane;
-    const int my_p = kk < hi ? slots[kk] : 0;
-    const int my_b = (kSplit && kk < hi) ? branch[my_p] : 1;
-    const int cnt = min(32, hi - k0);
-    for (int j = 0; j < cnt; ++j) {
-      const long long p = __shfl_sync(kFull, my_p, j);
-      const int b = __shfl_sync(kFull, my_b, j);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int c = lane + 32 * i;
-        const float v = c < w ? vals[p * w + c] : 0.f;
-        if (!kSplit || b) {
-          acc1[i] += v;
-        } else {
-          acc2[i] += v;
-        }
-      }
-    }
-  }
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / kG;
+  const int gl = lane % kG;
   const long long ow = kSplit ? 2 * w : w;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int c = lane + 32 * i;
-    if (c < w) {
-      out[row * ow + c] = acc1[i];
-      if (kSplit) out[row * ow + w + c] = acc2[i];
+  float acc1[kPer][4], acc2[kPer][4];
+
+  if (blockIdx.x >= n_heavy) {  // light: one group per sender
+    const long long row =
+        ((long long)(blockIdx.x - n_heavy) * kWarps + warp) * kGroups + grp;
+    if (row >= n_rows) return;
+    int lo = 0, hi = 0;
+    if (row < n_ranges) {
+      lo = ranges[2 * row];
+      hi = ranges[2 * row + 1];
     }
+    if (hi - lo > kHeavyEntries) return;  // a heavy block owns it
+    sum_entries<kSplit, kVec, kG, kPer>(slots, vals, branch, w, lo, hi, 1,
+                                        gl, acc1, acc2);
+    float* __restrict__ orow = out + row * ow;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = 4 * (gl + kG * i);
+      store4<kVec>(orow, c, w, acc1[i]);
+      if (kSplit) store4<kVec>(orow + w, c, w, acc2[i]);
+    }
+    return;
+  }
+
+  // Heavy sender: warp `warp` takes the warp-th of kWarps contiguous chunks
+  // of its entries; the groups of the warp stride over the chunk.
+  __shared__ float s_part[kWarps][kWP];
+  const int r = heavy[blockIdx.x];
+  const int lo = ranges[2 * r];
+  const int hi = ranges[2 * r + 1];
+  const int chunk = (hi - lo + kWarps - 1) / kWarps;
+  const int wlo = min(hi, lo + warp * chunk);
+  const int whi = min(hi, wlo + chunk);
+  sum_entries<kSplit, kVec, kG, kPer>(slots, vals, branch, w, wlo + grp, whi,
+                                      kGroups, gl, acc1, acc2);
+  // merge the groups: a butterfly over lane distances kG, ..., 16 (a sum of
+  // two floats is the same on both partners)
+#pragma unroll
+  for (int o = kG; o < 32; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc1[i][j] += __shfl_xor_sync(kFull, acc1[i][j], o);
+        if (kSplit) acc2[i][j] += __shfl_xor_sync(kFull, acc2[i][j], o);
+      }
+  float* __restrict__ orow = out + (long long)r * ow;
+#pragma unroll
+  for (int half = 0; half < (kSplit ? 2 : 1); ++half) {
+    if (lane < kG) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s_part[warp][4 * (gl + kG * i) + j] = half ? acc2[i][j] : acc1[i][j];
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < w; c += blockDim.x) {
+      float s = 0.f;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) s += s_part[v][c];
+      __stcs(orow + half * w + c, s);
+    }
+    __syncthreads();  // s_part is reused by the next half
   }
 }
 
-template <bool kSplit>
+template <bool kSplit, bool kVec>
 cudaError_t launch(const void* ranges, const void* slots, const void* vals,
-                   const void* branch, int w, int n_ranges, int n_rows,
-                   void* out, cudaStream_t st) {
-  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
-#define BGNN_LAUNCH(PER)                                                     \
-  slot_reduce_kernel<kSplit, PER><<<grid, block, 0, st>>>(                   \
-      static_cast<const int32_t*>(ranges), static_cast<const int32_t*>(slots), \
-      static_cast<const float*>(vals), static_cast<const uint8_t*>(branch),  \
-      w, n_ranges, n_rows, static_cast<float*>(out))
-  if (w <= 32) {
-    BGNN_LAUNCH(1);
+                   const void* branch, const void* heavy, int n_heavy, int w,
+                   int n_ranges, int n_rows, void* out, cudaStream_t st) {
+  const dim3 block(kWarps * 32);
+#define BGNN_LAUNCH(G, PER)                                                  \
+  slot_reduce_kernel<kSplit, kVec, G, PER>                                   \
+      <<<dim3(n_heavy + (n_rows + kWarps * (32 / G) - 1) /                   \
+                            (kWarps * (32 / G))),                            \
+         block, 0, st>>>(                                                    \
+          static_cast<const int32_t*>(ranges),                               \
+          static_cast<const int32_t*>(slots),                                \
+          static_cast<const float*>(vals),                                   \
+          static_cast<const uint8_t*>(branch),                               \
+          static_cast<const int32_t*>(heavy), n_heavy, w, n_ranges, n_rows,  \
+          static_cast<float*>(out))
+  // G = min(32, ⌈W/4⌉) rounded up to a power of two; 4·G·PER >= W
+  if (w <= 4) {
+    BGNN_LAUNCH(1, 1);
+  } else if (w <= 8) {
+    BGNN_LAUNCH(2, 1);
+  } else if (w <= 16) {
+    BGNN_LAUNCH(4, 1);
+  } else if (w <= 32) {
+    BGNN_LAUNCH(8, 1);
   } else if (w <= 64) {
-    BGNN_LAUNCH(2);
+    BGNN_LAUNCH(16, 1);
   } else if (w <= 128) {
-    BGNN_LAUNCH(4);
+    BGNN_LAUNCH(32, 1);
   } else if (w <= 256) {
-    BGNN_LAUNCH(8);
+    BGNN_LAUNCH(32, 2);
   } else {
-    BGNN_LAUNCH(16);
+    BGNN_LAUNCH(32, 4);
   }
 #undef BGNN_LAUNCH
   return cudaGetLastError();
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 }  // namespace
 
 extern "C" int slot_reduce(const void* ranges, const void* slots,
-                           const void* vals, const void* branch, int w,
+                           const void* vals, const void* branch,
+                           const void* heavy, int n_heavy, int w,
                            int n_ranges, int n_rows, void* out,
                            void* stream) {
-  if (w < 1 || w > kMaxW || n_ranges < 0 || n_rows < 1) {
+  if (w < 1 || w > kMaxW || n_ranges < 0 || n_rows < 1 || n_heavy < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc =
-      branch != nullptr
-          ? launch<true>(ranges, slots, vals, branch, w, n_ranges, n_rows,
-                         out, st)
-          : launch<false>(ranges, slots, vals, branch, w, n_ranges, n_rows,
-                          out, st);
+  const bool vec = w % 4 == 0 && aligned16(vals) && aligned16(out);
+  cudaError_t rc;
+  if (branch != nullptr) {
+    rc = vec ? launch<true, true>(ranges, slots, vals, branch, heavy, n_heavy,
+                                  w, n_ranges, n_rows, out, st)
+             : launch<true, false>(ranges, slots, vals, branch, heavy,
+                                   n_heavy, w, n_ranges, n_rows, out, st);
+  } else {
+    rc = vec ? launch<false, true>(ranges, slots, vals, branch, heavy,
+                                   n_heavy, w, n_ranges, n_rows, out, st)
+             : launch<false, false>(ranges, slots, vals, branch, heavy,
+                                    n_heavy, w, n_ranges, n_rows, out, st);
+  }
   return static_cast<int>(rc);
 }
+
+extern "C" int slot_reduce_heavy_entries() { return kHeavyEntries; }

@@ -22,6 +22,13 @@ real slots, in the same order. Masked edges and pad slots are left out.
 It is not a padded ``[B, Et]`` grid: on a hub graph a few hundred
 senders own ~850 slots each, and a padded sender layout would give every
 block a tile that wide.
+
+Both indexes list their heavy rows: ``dst_heavy`` the destination rows
+with more than :data:`HEAVY_SLOTS` slots in their run, ``src_heavy`` the
+senders with more than that many CSR entries. The concatenated attention
+forward and the sender reduce give each heavy row a thread block of its
+own and every other row a warp or part of one (``csrc/attention_fwd.cu``,
+``csrc/slot_reduce.cu``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,12 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+# Slots (or CSR entries) above which a row is heavy. The kernels test the
+# same bound (kHeavySlots in csrc/attention_fwd.cu, kHeavyEntries in
+# csrc/slot_reduce.cu, which give their reason); ops/fused_kernels.py
+# checks at load time that the three agree.
+HEAVY_SLOTS = 128
 
 
 class PaddedLayout(NamedTuple):
@@ -41,6 +54,8 @@ class PaddedLayout(NamedTuple):
     dst_ranges: torch.Tensor   # [B*nb, 2] int32: flat slot range per row
     src_ranges: torch.Tensor   # [N_send, 2] int32: CSR range per sender
     src_slots: torch.Tensor    # [real slots] int32: dst slot per CSR entry
+    dst_heavy: torch.Tensor    # [H_dst] int32: rows with > HEAVY_SLOTS slots
+    src_heavy: torch.Tensor    # [H_src] int32: senders with > HEAVY_SLOTS
     node_block: int
     tile_e: int
     num_blocks: int
@@ -110,6 +125,13 @@ def _sender_csr_np(slot_src: np.ndarray, num_senders: int):
     return ranges, src_slots
 
 
+def heavy_rows_np(ranges: np.ndarray) -> np.ndarray:
+    """Rows of a ``[n, 2]`` range array whose run holds more than
+    :data:`HEAVY_SLOTS` slots, ascending, int32."""
+    return np.flatnonzero(ranges[:, 1] - ranges[:, 0] > HEAVY_SLOTS
+                          ).astype(np.int32)
+
+
 def _layout_from_np(arrs, num_nodes_padded: int, node_block: int,
                     device, num_senders: int) -> PaddedLayout:
     slot_src, ranges, tile_e, num_blocks = arrs
@@ -119,6 +141,8 @@ def _layout_from_np(arrs, num_nodes_padded: int, node_block: int,
         dst_ranges=torch.from_numpy(ranges).to(device),
         src_ranges=torch.from_numpy(src_ranges).to(device),
         src_slots=torch.from_numpy(src_slots).to(device),
+        dst_heavy=torch.from_numpy(heavy_rows_np(ranges)).to(device),
+        src_heavy=torch.from_numpy(heavy_rows_np(src_ranges)).to(device),
         node_block=node_block,
         tile_e=tile_e,
         num_blocks=num_blocks,

@@ -32,11 +32,12 @@ torch ops. No wrapper records autograd: the gradients come from the
 autograd Functions of ``ops/fused_attention.py``, whose backwards launch
 the backward kernels.
 
-The kernels are built at first use, all sources in one ``nvcc`` call for
-``sm_90a``, into one library under ``bridged_gnn_tpu_torch/_build/`` and
-loaded with ``ctypes``. Each wrapper counts its launches (``launches``,
-and per attention width in ``launches_by_d``); :func:`record_launches`
-also times them with CUDA events.
+The kernels are built at first use for ``sm_90a``, one ``nvcc`` per
+source started together, linked into one library under
+``bridged_gnn_tpu_torch/_build/`` and loaded with ``ctypes``. Each wrapper
+counts its launches (``launches``, and per attention width in
+``launches_by_d``); :func:`record_launches` also times them with CUDA
+events.
 """
 
 from __future__ import annotations
@@ -54,14 +55,18 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from bridged_gnn_tpu_torch.ops.blocked_segment import PaddedLayout, slot_rows
+from bridged_gnn_tpu_torch.ops.blocked_segment import (
+    HEAVY_SLOTS,
+    PaddedLayout,
+    slot_rows,
+)
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG_DIR / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 _MAX_D = 256
 
@@ -87,10 +92,26 @@ def _nvcc() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: List[List[str]], what: str) -> None:
+    """Run the commands at once; raise with the output of those that
+    fail."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{' '.join(c)} (exit {p.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError(f"nvcc failed to build {what}:\n"
+                           + "\n".join(failed))
+
+
 def build_kernels() -> Tuple[Path, float]:
-    """Compile every ``csrc/*.cu`` in one ``nvcc`` call into one library,
-    unless that library is up to date (one hash over all the sources and
-    the flags).
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` per source, all started
+    together) and link them into one library, unless that library is up
+    to date (one hash over all the sources and the flags).
 
     Returns the library's path and the seconds the build took (0 when the
     library was already built). Raises with the compiler's output if
@@ -102,15 +123,20 @@ def build_kernels() -> Tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in SOURCES]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {[s.name for s in SOURCES]} (exit "
-            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                  for src, o in zip(SOURCES, objs)],
+                 str([s.name for s in SOURCES]))
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]], "the kernel library")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib)
     return lib, time.perf_counter() - t0
 
@@ -122,18 +148,28 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     head = [p] * 8 + [f] + [i] * 5
     # ... out, ex|alpha, [den], stream
     lib.attention_sel_fwd.argtypes = head + [p, p, p, p]
-    lib.attention_fwd.argtypes = head + [p, p, p]
+    # ... dst_heavy, n_heavy, out, alpha, stream
+    lib.attention_fwd.argtypes = head + [p, i, p, p, p]
     # ... ex, den, dout, dm, dud, da_part, n_parts, slot_c, stream
     lib.attention_sel_bwd.argtypes = head + [p] * 6 + [i, p, p]
     # ... alpha, dout, dm, dud, da_part, n_parts, stream
     lib.attention_bwd.argtypes = head + [p] * 5 + [i, p]
-    # src_ranges, src_slots, vals, branch, w, n_ranges, n_rows, out, stream
-    lib.slot_reduce.argtypes = [p] * 4 + [i] * 3 + [p, p]
-    lib.attention_bwd_rows_per_block.argtypes = []
+    # src_ranges, src_slots, vals, branch, src_heavy, n_heavy, w, n_ranges,
+    # n_rows, out, stream
+    lib.slot_reduce.argtypes = [p] * 5 + [i] * 4 + [p, p]
+    consts = (lib.attention_bwd_rows_per_block, lib.attention_fwd_heavy_slots,
+              lib.slot_reduce_heavy_entries)
+    for fn in consts:
+        fn.argtypes = []
     for fn in (lib.attention_sel_fwd, lib.attention_fwd,
                lib.attention_sel_bwd, lib.attention_bwd, lib.slot_reduce,
-               lib.attention_bwd_rows_per_block):
+               *consts):
         fn.restype = i
+    bounds = (lib.attention_fwd_heavy_slots(), lib.slot_reduce_heavy_entries())
+    if bounds != (HEAVY_SLOTS, HEAVY_SLOTS):
+        raise RuntimeError(
+            f"the kernels' heavy-row bounds {bounds} differ from the "
+            f"layouts' HEAVY_SLOTS = {HEAVY_SLOTS}")
     return lib
 
 
@@ -162,10 +198,10 @@ def _check_tensors(dev, floats: dict, others: dict) -> None:
 def _check_inputs(lay: PaddedLayout, u1, u2, ud, central, a1, a2) -> None:
     _check_tensors(u1.device, dict(u1=u1, u2=u2, ud=ud, a1=a1, a2=a2),
                    dict(central=central, slot_src=lay.slot_src,
-                        dst_ranges=lay.dst_ranges))
+                        dst_ranges=lay.dst_ranges, dst_heavy=lay.dst_heavy))
     if central.dtype != torch.bool:
         raise TypeError(f"central must be bool, got {central.dtype}")
-    for name in ("slot_src", "dst_ranges"):
+    for name in ("slot_src", "dst_ranges", "dst_heavy"):
         if getattr(lay, name).dtype != torch.int32:
             raise TypeError(f"layout {name} must be int32")
     if u1.dim() != 2 or u2.shape != u1.shape:
@@ -254,18 +290,26 @@ def record_launches(keep_inputs: bool = False):
 def _launch(wrapper, d: int, args: List, inputs: tuple, dev) -> None:
     """Launch ``wrapper``'s kernel with the C arguments ``args`` on the
     current stream of ``dev`` and count the launch under width ``d``;
-    ``inputs`` are the wrapper's own arguments, for recording."""
+    ``inputs`` are the wrapper's own arguments, for recording.
+
+    The stream comes as a raw handle (``_cuda_getCurrentRawStream``, as
+    PyTorch's own generated kernels take it) and the device guard is set
+    only when ``dev`` is not the current device: both keep the host's work
+    per launch, which the card waits on when it is idle, small."""
     entry = getattr(_kernel_lib(), wrapper.__name__)
     recording = _recording
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    guard = (contextlib.nullcontext() if index == torch.cuda.current_device()
+             else torch.cuda.device(index))
+    with guard:
         if recording is not None:
+            stream = torch.cuda.current_stream(index)
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record(stream)
         wrapper.launches += 1
         wrapper.launches_by_d[d] = wrapper.launches_by_d.get(d, 0) + 1
-        rc = entry(*args, stream.cuda_stream)
+        rc = entry(*args, torch._C._cuda_getCurrentRawStream(index))
         if recording is not None:
             stop.record(stream)
             records, keep_inputs = recording
@@ -458,7 +502,9 @@ def attention_fwd(
     n_out, d = central.shape[0], u1.shape[1]
     out = torch.empty(n_out, 2 * d, device=u1.device)
     alpha = torch.empty(lay.slot_src.shape[0], device=u1.device)
-    args = _attention_args(*inputs) + [o.data_ptr() for o in (out, alpha)]
+    args = (_attention_args(*inputs)
+            + [lay.dst_heavy.data_ptr(), lay.dst_heavy.shape[0]]
+            + [o.data_ptr() for o in (out, alpha)])
     _launch(attention_fwd, d, args, inputs, u1.device)
     return out, alpha
 
@@ -553,7 +599,8 @@ def slot_reduce(
     _forward_only(vals=vals)
     if vals.device.type != "cuda":
         return slot_reduce_plain(*inputs)
-    others = dict(src_ranges=lay.src_ranges, src_slots=lay.src_slots)
+    others = dict(src_ranges=lay.src_ranges, src_slots=lay.src_slots,
+                  src_heavy=lay.src_heavy)
     if branch is not None:
         others["branch"] = branch
     _check_tensors(vals.device, dict(vals=vals), others)
@@ -564,7 +611,7 @@ def slot_reduce(
     if branch is not None and (branch.dtype != torch.uint8
                                or list(branch.shape) != [n_slots]):
         raise ValueError(f"branch must be uint8 [{n_slots}]")
-    for name in ("src_ranges", "src_slots"):
+    for name in ("src_ranges", "src_slots", "src_heavy"):
         if getattr(lay, name).dtype != torch.int32:
             raise TypeError(f"layout {name} must be int32")
     if not lay.sender_bound <= n_rows:
@@ -574,6 +621,7 @@ def slot_reduce(
                       device=vals.device)
     args = [lay.src_ranges.data_ptr(), lay.src_slots.data_ptr(),
             vals.data_ptr(), None if branch is None else branch.data_ptr(),
+            lay.src_heavy.data_ptr(), lay.src_heavy.shape[0],
             w, lay.src_ranges.shape[0], n_rows, out.data_ptr()]
     _launch(slot_reduce, w if branch is not None else w // 2, args, inputs,
             vals.device)

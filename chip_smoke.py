@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
 3. kernel phase: one predict on each graph records its kernel launches
    with their inputs (the main path's real layouts and tensors, D=64 and
    D=8); each recorded call is replayed through the kernel and its plain
-   PyTorch version on the card (f32, rtol and atol 1e-4), timed with CUDA
-   events, and set beside its bound counted from its own inputs;
+   PyTorch version on the card (f32, rtol and atol 1e-4), launched twice
+   to give bit-identical outputs, timed with CUDA events, and set beside
+   its bound counted from its own inputs;
 4. serving, single layout: ``KTGNNPredictor`` on the bench graph
    (131,072 nodes, 2M edges before ``to_undirected``; KT-GNN hidden 64,
    2 layers, batch norm, 8 classes, seeded weights and BN statistics):
@@ -31,7 +32,7 @@ Phases, in order; any failure exits non-zero:
    call is replayed through the kernel and its plain version on the card
    (f32, rtol 1e-4 and atol 1e-4 times the output's largest magnitude:
    the gradients are small and each sums up to thousands of terms that
-   cancel),
+   cancel), twice to give bit-identical outputs,
    timed with CUDA events, set beside its bound, and the sender reduce
    beside ``index_add_``; one backward of the whole model run twice must
    give bit-identical gradients;
@@ -42,7 +43,13 @@ Phases, in order; any failure exits non-zero:
    the first;
 9. training, degree tiers: the same on the hub graph for 5 epochs, the
    concatenated forward and backward on every tier (>= 2 tiers);
-10. card vs CPU: 2 epochs at dropout 0 from the same seeded init on the
+10. one traced run per graph: ``train_ktgnn`` for 2 epochs under
+   ``torch.profiler`` (CPU and CUDA activities), each epoch marked from
+   the epoch timer's opening synchronize to the work's end; for the last
+   epoch one line with the top 15 device operations by device time, the
+   hand-written kernels' share of the epoch and the device's busy share
+   (the union of device-op intervals over the epoch's wall time);
+11. card vs CPU: 2 epochs at dropout 0 from the same seeded init on the
    card and on the CPU (plain versions), on each graph; per-epoch losses
    within rtol 1e-4, final weights and BN statistics within rtol 1e-3 and
    atol 1e-5.
@@ -53,7 +60,9 @@ inside the serving run (``per``: "predict"); the backwards' counts are
 those of the training phases and their ``ms`` the kernel's time per
 epoch inside the training run (``per``: "epoch"). Each count is set to 0
 just before its phase. ``plain_ms``, ``bound_ms`` and ``library_ms`` sum
-the replayed calls of one predict or one training step.
+the replayed calls of one predict or one training step; a replayed call's
+time counts the wrapper's host work (``ms_replayed``) and, apart, only the
+card's (``ms_replayed_device``, ``library_device_ms``).
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -62,12 +71,16 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from unittest import mock
 
 import numpy as np
 
@@ -79,12 +92,16 @@ LOGPROB_ATOL = 1e-4      # card vs CPU log-probabilities
 LOSS_RTOL = 1e-4         # card vs CPU training losses
 WEIGHT_RTOL, WEIGHT_ATOL = 1e-3, 1e-5   # card vs CPU weights after training
 KERNEL_REPS = 25
+SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's clock: holds the card while
+                           # the host enqueues KERNEL_REPS calls
 PLAIN_REPS = 20          # the backward phase's plain versions
 PREDICT_REPS = 10
 TRAIN_EPOCHS = 10        # phase 8, single layout
 TIERED_EPOCHS = 5        # phase 9
-PARITY_EPOCHS = 2        # phase 10
-PARITY_NODES = BENCH["n"]   # phase 10 graph size
+TRACE_EPOCHS = 2         # phase 10
+TRACE_TOP = 15           # device operations listed per traced epoch
+PARITY_EPOCHS = 2        # phase 11
+PARITY_NODES = BENCH["n"]   # phase 11 graph size
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside tensor cores
 
@@ -159,6 +176,27 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def cuda_device_ms(fn, reps: int) -> float:
+    """Device time per call: ``reps`` calls enqueued behind a sleep kernel
+    that keeps the card busy while the host enqueues them, then run back
+    to back between two events, so the wrapper's host work (which
+    :func:`cuda_ms` counts, the card idling meanwhile) is left out."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def kernel_bound(inputs, concat: bool):
@@ -289,6 +327,9 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
                  scaled=False, plain_reps=5, library=None):
     """Replay each recorded call through the kernel and its plain version
     on the card; returns per-call records with errors, times and bounds.
+    ``ms`` is :func:`cuda_ms` (the wrapper's host work included) and
+    ``device_ms`` :func:`cuda_device_ms`; the library call, where given,
+    gets both.
 
     Integer outputs must be equal. Float outputs must agree within rtol
     ``RTOL`` and atol ``ATOL``, times the output's largest magnitude when
@@ -303,10 +344,15 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
     for i, rec in enumerate(calls):
         inputs = rec["inputs"]
         got = _outs(wrapper(*inputs))
+        again = _outs(wrapper(*inputs))
         torch.cuda.synchronize()
         want = _outs(plain(*inputs))
         layout = next(j for j, lay in enumerate(layouts) if lay is inputs[0])
         where = f"{name} at D={rec['d']}, layout {layout}"
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise RuntimeError(f"{where}: two launches on the same inputs "
+                               "differ")
+        del again
         abs_err = rel_err = norm_err = 0.0
         for g, w in zip(got, want):
             if not g.is_floating_point():
@@ -328,6 +374,7 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
                     f"{where} disagrees with its plain version: max abs "
                     f"err {float(diff.max()):.3g} (atol {atol:.3g})")
         ms = cuda_ms(lambda: wrapper(*inputs), KERNEL_REPS)
+        device_ms = cuda_device_ms(lambda: wrapper(*inputs), KERNEL_REPS)
         plain_ms = cuda_ms(lambda: plain(*inputs), plain_reps, warmup=1)
         if bound is None:
             t_bytes, t_ops, real = kernel_bound(inputs,
@@ -338,7 +385,7 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
         out = dict(
             call=i, layout=layout, d=rec["d"], tile_e=lay.tile_e,
             blocks=lay.num_blocks, slots=int(lay.slot_src.numel()),
-            real_slots=real, ms=ms, plain_ms=plain_ms,
+            real_slots=real, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             max_abs_err=abs_err, max_rel_err=rel_err,
@@ -352,6 +399,7 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
                 raise RuntimeError(f"{where}: the library call disagrees "
                                    "with the plain version")
             out["library_ms"] = cuda_ms(lib_call, KERNEL_REPS)
+            out["library_device_ms"] = cuda_device_ms(lib_call, KERNEL_REPS)
             del lib
         records.append(out)
         del got, want
@@ -447,10 +495,12 @@ def serve_phase(name, pred, data, model, kernel, expect_tiered: bool,
     if err > LOGPROB_ATOL:
         raise RuntimeError(f"{name}: card vs CPU log-probs differ by "
                            f"{err:.3g} > {LOGPROB_ATOL}")
+    lays = [t.lay_dst for t in tiers] if tiers else [pred.adj.fast_fn.lay_dst]
     return dict(
         phase=name, layouts=n_layouts,
-        tile_e=[t.lay_dst.tile_e for t in tiers] if tiers
-        else [pred.adj.fast_fn.lay_dst.tile_e],
+        tile_e=[lay.tile_e for lay in lays],
+        heavy_rows=[int(lay.dst_heavy.numel()) for lay in lays],
+        heavy_senders=[int(lay.src_heavy.numel()) for lay in lays],
         edges=int(pred.graph.num_edges), nodes=n,
         kernel=kernel.__name__, launches=launches,
         launches_per_predict=per_predict,
@@ -642,8 +692,95 @@ def train_phase(name, data, cfg, tiered: bool, n_layouts: int,
     )
 
 
+_HAND_KERNEL = re.compile(r"attention_\w*_kernel|slot_reduce_kernel")
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_phase(name, data, cfg) -> dict:
+    """Phase 10: ``train_ktgnn`` under ``torch.profiler`` with each epoch
+    marked; reads the last epoch's device operations from the Chrome
+    trace. The mark opens after the epoch timer's first synchronize and
+    closes after a synchronize at the epoch's end, so the epoch's device
+    work lies inside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from bridged_gnn_tpu_torch.train import stage2
+    from bridged_gnn_tpu_torch.utils.profiling import EpochTimer
+
+    mark = "chip_smoke.epoch"
+    timers = []
+
+    class MarkedTimer(EpochTimer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            timers.append(self)
+
+        def __enter__(self):
+            super().__enter__()
+            self._mark = record_function(mark)
+            self._mark.__enter__()
+            return self
+
+        def __exit__(self, *exc):
+            self._sync()
+            self._mark.__exit__(*exc)
+            return super().__exit__(*exc)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with mock.patch.object(stage2, "EpochTimer", MarkedTimer), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        ) as prof:
+            stage2.train_ktgnn(data, cfg, device="cuda")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = [e for e in (trace["traceEvents"] if isinstance(trace, dict)
+                          else trace) if e.get("ph") == "X"]
+    windows = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in events if e.get("name") == mark
+                     and e.get("cat") != "gpu_user_annotation")
+    if len(windows) != cfg.num_epoch:
+        raise RuntimeError(f"{name}: the trace marks {len(windows)} epochs, "
+                           f"not {cfg.num_epoch}")
+    t0, t1 = windows[-1]
+    ops = []   # (name, start, end) of device ops inside the last epoch, µs
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS:
+            continue
+        a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        if b > t0 and a < t1:
+            ops.append((e["name"], max(a, t0), min(b, t1)))
+    if not ops:
+        raise RuntimeError(f"{name}: the traced epoch ran no device op")
+    by_name = {}
+    for op, a, b in ops:
+        ms, n = by_name.get(op, (0.0, 0))
+        by_name[op] = (ms + (b - a) / 1e3, n + 1)
+    busy, end = 0.0, t0
+    for _, a, b in sorted(ops, key=lambda o: o[1]):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    wall_ms = (t1 - t0) / 1e3
+    hand = {op: v for op, v in by_name.items() if _HAND_KERNEL.search(op)}
+    hand_ms = sum(ms for ms, _ in hand.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP]
+    return dict(
+        phase=name, epochs=cfg.num_epoch,
+        epoch_ms_traced=wall_ms,
+        epoch_ms_timer=[t * 1e3 for t in timers[0].times],
+        device_ops=len(ops), device_ms=sum(b - a for _, a, b in ops) / 1e3,
+        busy_ms=busy / 1e3, busy_share=busy / 1e3 / wall_ms,
+        hand_kernels_ms=hand_ms, hand_kernels_share=hand_ms / wall_ms,
+        hand_kernel_launches=sum(n for _, n in hand.values()),
+        top=[dict(name=op[:120], ms=ms, count=n) for op, (ms, n) in top],
+    )
+
+
 def parity_phase(name, data, cfg):
-    """Phase 10: the same seeded run on the card and on the CPU."""
+    """Phase 11: the same seeded run on the card and on the CPU."""
     import torch
 
     from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
@@ -684,10 +821,13 @@ def summary_row(name, source, replaces, recs, launches, ms, per, card):
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in recs),
         ms=ms, ms_replayed=sum(r["ms"] for r in recs),
+        ms_replayed_device=sum(r["device_ms"] for r in recs),
         plain_ms=sum(r["plain_ms"] for r in recs),
         bound_ms=sum(r["bound_ms"] for r in recs),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None if None in lib else sum(lib), per=per, card=card,
+        library_ms=None if None in lib else sum(lib),
+        library_device_ms=None if None in lib
+        else sum(r["library_device_ms"] for r in recs), per=per, card=card,
     )
 
 
@@ -812,7 +952,14 @@ def main() -> int:
     log(json.dumps(dict(card=card, **train_tiered)))
     torch.cuda.empty_cache()
 
-    # 10. card vs CPU, dropout 0, same seeded init
+    # 10. one traced run per graph
+    for name, data in (("trace_single", bench), ("trace_tiered", hub)):
+        log(json.dumps(dict(card=card, **trace_phase(
+            name, data, Stage2Config(num_epoch=TRACE_EPOCHS,
+                                     to_undirected=True)))))
+        torch.cuda.empty_cache()
+
+    # 11. card vs CPU, dropout 0, same seeded init
     small = (bench if PARITY_NODES == BENCH["n"]
              else make_benchmark_graph(**dict(BENCH, n=PARITY_NODES)))
     pcfg = Stage2Config(num_epoch=PARITY_EPOCHS, dropout=0.0,

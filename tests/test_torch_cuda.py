@@ -327,3 +327,100 @@ def test_cuda_trainer_launches_kernels(rng, method):
     for h_got, h_want in zip(got["history"], want["history"]):
         for key in ("loss", "loss_t2"):
             assert abs(h_got[key] - h_want[key]) <= 1e-4 * abs(h_want[key])
+
+
+# ------------------------------------------------- heavy rows and senders
+
+HEAVY = tbs.HEAVY_SLOTS
+
+
+def _edge_case_layout(rng, device="cpu"):
+    """node_block 16 over 64 rows whose runs hold 0, 1, L, L+1 and 5L
+    slots (rows 0-4), L+1 with ~30% masked (row 5), 2L all masked (row 6)
+    and 3L as the last row of block 0 (row 15); rows 20-22 take 5L, L and
+    L+1 slots from senders 1, 2 and 3 alone, so sender 1 and 3 are heavy
+    and sender 2 sits on the bound; rows 32-47 are light, block 3 is
+    empty. Other senders are drawn from [4, 64)."""
+    count = {0: 0, 1: 1, 2: HEAVY, 3: HEAVY + 1, 4: 5 * HEAVY,
+             5: HEAVY + 1, 6: 2 * HEAVY, 15: 3 * HEAVY,
+             20: 5 * HEAVY, 21: HEAVY, 22: HEAVY + 1}
+    count.update({r: int(rng.integers(0, 40)) for r in range(32, 48)})
+    r = np.concatenate([np.full(c, row) for row, c in sorted(count.items())])
+    s = rng.integers(4, 64, size=len(r))
+    em = rng.random(len(r)) < 0.9
+    for row, keep in ((5, 0.7), (6, 0.0)):
+        em[r == row] = rng.random(count[row]) < keep
+    for row, snd in ((20, 1), (21, 2), (22, 3)):
+        s[r == row], em[r == row] = snd, True
+    return tbs.make_blocked_ops(s, r, em, 64, node_block=16,
+                                device=device).lay_dst
+
+
+def _poison(dev, *shapes):
+    """Hand the caching allocator NaN-filled blocks of these shapes, so an
+    output element the kernel fails to write shows up."""
+    filled = [torch.full(shape, float("nan"), device=dev) for shape in shapes]
+    del filled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 63, 64, 256])
+def test_cuda_attention_fwd_heavy_rows(rng, d):
+    """The concatenated forward against its plain version (rtol and atol
+    1e-4) on light rows, heavy rows, a heavy row with masked slots, one
+    with every slot masked, a heavy last row of a block (its pad tail must
+    be zeroed) and empty rows; two launches give bit-identical outputs.
+    Where D % 4 == 0 a u1 table 4 bytes off 16-byte alignment takes the
+    scalar-load path and must agree too."""
+    dev = _need_cuda()
+    lay = _edge_case_layout(rng, dev)
+    assert lay.dst_heavy.tolist() == [3, 4, 5, 6, 15, 20, 22]
+    args = list(_args(rng, 64, 64, d, dev))
+    n_slots = lay.slot_src.shape[0]
+    variants = [args]
+    if d % 4 == 0:
+        buf = torch.empty(64 * d + 1, device=dev)
+        u1 = buf[1:].view(64, d)
+        u1.copy_(args[0])
+        assert u1.data_ptr() % 16 != 0 and u1.is_contiguous()
+        variants.append([u1] + args[1:])
+    for a in variants:
+        want = fk.attention_fwd_plain(lay, *a, SLOPE)
+        runs = []
+        for _ in range(2):
+            _poison(dev, (64, 2 * d), (n_slots,))
+            before = fk.attention_fwd.launches
+            runs.append(fk.attention_fwd(lay, *a, SLOPE))
+            assert fk.attention_fwd.launches == before + 1
+        torch.cuda.synchronize()
+        for g_, again, w_ in zip(*runs, want):
+            assert torch.equal(g_, again)
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("w", [1, 16, 128, 512])
+def test_cuda_slot_reduce_heavy_senders(rng, w, split):
+    """The sender reduce against its plain version on heavy senders (5L
+    and L+1 entries), a sender on the bound, light and empty senders, with
+    and without the branch split: f32 rtol 1e-5 and atol 1e-5 times the
+    output's largest magnitude (sums of up to 640 random rows in another
+    order); two launches give bit-identical outputs."""
+    dev = _need_cuda()
+    lay = _edge_case_layout(rng, dev)
+    assert lay.src_heavy.tolist() == [1, 3]
+    n_slots = lay.slot_src.shape[0]
+    vals = torch.from_numpy(
+        rng.normal(size=(n_slots, w)).astype(np.float32)).to(dev)
+    branch = (torch.from_numpy((rng.random(n_slots) < 0.5).astype(np.uint8))
+              .to(dev) if split else None)
+    want = fk.slot_reduce_plain(lay, vals, 64, branch)
+    runs = []
+    for _ in range(2):
+        _poison(dev, tuple(want.shape))
+        runs.append(fk.slot_reduce(lay, vals, 64, branch))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    scale = float(want.abs().max())
+    torch.testing.assert_close(runs[0], want, rtol=1e-5, atol=1e-5 * scale)

@@ -1,0 +1,97 @@
+"""Time the main-path calls of the port's concatenated attention forward
+and sender reduce, for any checkout of the port, on one GPU.
+
+    python3 tools/torch_kernel_replay.py [PORT_ROOT]
+
+PORT_ROOT is the directory that holds the ``bridged_gnn_tpu_torch`` to
+time (default: this checkout). The script records, as ``chip_smoke.py``
+phases 3 and 7 do, the ``attention_fwd`` calls of one predict on the hub
+graph and the ``slot_reduce`` calls of one training step on the bench and
+the hub graph, then replays each call on its recorded inputs and prints
+one JSON line per call: ``ms`` (``chip_smoke.cuda_ms``: the wrapper's host
+work included) and ``device_ms`` (``chip_smoke.cuda_device_ms``: the
+card's time alone), and for the reduce the same two of ``index_add_`` on
+the same inputs. Timing two checkouts in turns in one run compares their
+kernels on one card. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import copy
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+NAMES = ("attention_sel_fwd", "attention_fwd", "attention_sel_bwd",
+         "attention_bwd", "slot_reduce")
+
+
+def main(argv) -> int:
+    root = Path(argv[1]).resolve() if len(argv) > 1 else REPO
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    # this checkout's chip_smoke.py, whatever PORT_ROOT holds
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_timing", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    from bridged_gnn_tpu_torch.data.synthetic import make_benchmark_graph
+    from bridged_gnn_tpu_torch.serve import KTGNNPredictor
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, train_step
+
+    card = cs.card_line()
+    print(card, flush=True)
+    bench = make_benchmark_graph(**cs.BENCH)
+    hub = cs.hub_graph(bench, cs.BENCH["seed"])
+
+    def emit(kernel, graph, layouts, rec, fn, library=None):
+        inputs = rec["inputs"]
+        row = dict(kernel=kernel, graph=graph, d=rec["d"],
+                   layout=next(i for i, lay in enumerate(layouts)
+                               if lay is inputs[0]),
+                   ms=cs.cuda_ms(lambda: fn(*inputs), cs.KERNEL_REPS),
+                   device_ms=cs.cuda_device_ms(lambda: fn(*inputs),
+                                               cs.KERNEL_REPS))
+        if library is not None:
+            call = library(inputs)
+            row.update(library_ms=cs.cuda_ms(call, cs.KERNEL_REPS),
+                       library_device_ms=cs.cuda_device_ms(
+                           call, cs.KERNEL_REPS))
+        print(json.dumps(dict(row, port=str(root), card=card)), flush=True)
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    model = cs.seeded_model(cs.BENCH["num_classes"], cs.BENCH["dim"],
+                            cs.BENCH["seed"])
+    pred = KTGNNPredictor(copy.deepcopy(model), None, hub, device="cuda")
+    layouts = [t.lay_dst for t in pred.adj.tiered_fn.tiers]
+    with torch.inference_mode():
+        for rec in cs.record_run(pred.predict, ("attention_fwd",)):
+            emit("attention_fwd", "hub", layouts, rec, fk.attention_fwd)
+    del pred, layouts
+
+    cfg = Stage2Config(to_undirected=True)
+    for graph, data in (("bench", bench), ("hub", hub)):
+        g, adj, net, opt, gen = cs.train_setup(data, cfg)
+        recs = cs.record_run(
+            lambda: train_step(net, g, adj, opt, cfg.Lambda, gen), NAMES)
+        layouts = cs.layouts_of(adj)
+        with torch.no_grad():
+            for rec in recs:
+                if rec["name"] == "slot_reduce":
+                    emit("slot_reduce", graph, layouts, rec, fk.slot_reduce,
+                         cs.reduce_library)
+        del g, adj, net, opt, recs, layouts
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
