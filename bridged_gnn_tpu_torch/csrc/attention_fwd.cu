@@ -77,12 +77,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lane_groups.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;   // selective kernel
 constexpr int kCatWarps = 16;       // concatenated kernel, light or heavy block
-constexpr int kHeavySlots = 128;    // see the header; = HEAVY_SLOTS in Python
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -191,51 +191,6 @@ attention_sel_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender/-1
 
 // ------------------------------------------------------------- concatenated
 
-// Columns held by lane gl of a group of kG lanes: 4·(gl + kG·i) + j for
-// i < kPer, j < 4; the padded width is 4·kG·kPer. kStream marks data read
-// once (evict-first in L2), so that it leaves the cache to the u tables.
-template <bool kVec, bool kStream = false>
-__device__ __forceinline__ void load4(const float* __restrict__ p, int c,
-                                      int d, float (&v)[4]) {
-  if (kVec) {  // d % 4 == 0 and p 16-byte aligned: c < d covers c + 3
-    if (c < d) {
-      const float4* q = reinterpret_cast<const float4*>(p + c);
-      const float4 t = kStream ? __ldcs(q) : *q;
-      v[0] = t.x;
-      v[1] = t.y;
-      v[2] = t.z;
-      v[3] = t.w;
-    } else {
-      v[0] = v[1] = v[2] = v[3] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = c + j < d ? (kStream ? __ldcs(p + c + j) : p[c + j]) : 0.f;
-  }
-}
-
-// Output rows are written once and not read again here: streaming stores.
-template <bool kVec>
-__device__ __forceinline__ void store4(float* __restrict__ p, int c, int d,
-                                       const float (&v)[4]) {
-  if (kVec) {
-    if (c < d) __stcs(reinterpret_cast<float4*>(p + c),
-                      make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (c + j < d) __stcs(p + c + j, v[j]);
-  }
-}
-
-template <int kG>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = kG / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
 // Online-softmax state of one lane: the running max and sum (equal on all
 // lanes of a group) and the lane's columns of both accumulators.
 template <int kPer>
@@ -243,13 +198,6 @@ struct CatState {
   float mx, den;
   float acc1[kPer][4], acc2[kPer][4];
 };
-
-// Light rows per warp: at D <= 8 a row of the main path (~33 slots) would
-// leave most of a warp's 16 or 32 groups idle, so 2 (or, at D <= 4, 4) rows
-// share a warp, each on a sub-warp of 32/kRows lanes.
-__host__ __device__ constexpr int light_rows_per_warp(int g) {
-  return g == 1 ? 4 : (g == 2 ? 2 : 1);
-}
 
 // The kSub lanes of a sub-warp walk the slots [lo, hi) of one destination:
 // group g of its kSub/kG groups takes slots lo + g + kSub/kG·t, two per
@@ -535,10 +483,6 @@ attention_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
     __stcs(slot_w + k, alpha_of(slot_w[k], mx, den_safe));
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
 }  // namespace
 
 extern "C" int attention_sel_fwd(const void* src, const void* ranges,
@@ -612,25 +556,23 @@ extern "C" int attention_fwd(const void* src, const void* ranges,
   } else {                      \
     BGNN_LAUNCH(G, PER, false); \
   }
-  // G = min(32, ⌈D/4⌉) rounded up to a power of two; 4·G·PER >= D
-  if (d <= 4) {
-    BGNN_LAUNCH_VEC(1, 1)
-  } else if (d <= 8) {
-    BGNN_LAUNCH_VEC(2, 1)
-  } else if (d <= 16) {
-    BGNN_LAUNCH_VEC(4, 1)
-  } else if (d <= 32) {
-    BGNN_LAUNCH_VEC(8, 1)
-  } else if (d <= 64) {
-    BGNN_LAUNCH_VEC(16, 1)
-  } else if (d <= 128) {
-    BGNN_LAUNCH_VEC(32, 1)
-  } else {
-    BGNN_LAUNCH_VEC(32, 2)
+  switch (group_lanes(d)) {
+    case 1: BGNN_LAUNCH_VEC(1, 1) break;
+    case 2: BGNN_LAUNCH_VEC(2, 1) break;
+    case 4: BGNN_LAUNCH_VEC(4, 1) break;
+    case 8: BGNN_LAUNCH_VEC(8, 1) break;
+    case 16: BGNN_LAUNCH_VEC(16, 1) break;
+    default:
+      if (d <= 128) {
+        BGNN_LAUNCH_VEC(32, 1)
+      } else {
+        BGNN_LAUNCH_VEC(32, 2)
+      }
   }
 #undef BGNN_LAUNCH_VEC
 #undef BGNN_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
+// The heavy-row bound of both attention sources (lane_groups.cuh).
 extern "C" int attention_fwd_heavy_slots() { return kHeavySlots; }

@@ -1,0 +1,85 @@
+// Lane-group helpers shared by the attention kernels (attention_fwd.cu,
+// attention_bwd.cu).
+//
+// A destination row's lanes split into groups of kG lanes; lane gl of a
+// group holds columns 4·(gl + kG·i) + j for i < kPer, j < 4, so the padded
+// width is 4·kG·kPer. Loads and stores move those 4 columns at once: 16-byte
+// vector accesses when kVec (D % 4 == 0 and the tensor 16-byte aligned),
+// scalar ones otherwise.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+// A row with more than kHeavySlots slots gets a thread block of its own
+// (the reason is in attention_fwd.cu's header); = HEAVY_SLOTS in Python.
+constexpr int kHeavySlots = 128;
+
+// kStream marks data read once (evict-first in L2), so that it leaves the
+// cache to the u tables.
+template <bool kVec, bool kStream = false>
+__device__ __forceinline__ void load4(const float* __restrict__ p, int c,
+                                      int d, float (&v)[4]) {
+  if (kVec) {  // d % 4 == 0 and p 16-byte aligned: c < d covers c + 3
+    if (c < d) {
+      const float4* q = reinterpret_cast<const float4*>(p + c);
+      const float4 t = kStream ? __ldcs(q) : *q;
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = c + j < d ? (kStream ? __ldcs(p + c + j) : p[c + j]) : 0.f;
+  }
+}
+
+// Output rows are written once and not read again: streaming stores.
+template <bool kVec>
+__device__ __forceinline__ void store4(float* __restrict__ p, int c, int d,
+                                       const float (&v)[4]) {
+  if (kVec) {
+    if (c < d) __stcs(reinterpret_cast<float4*>(p + c),
+                      make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < d) __stcs(p + c + j, v[j]);
+  }
+}
+
+// G = min(32, ⌈D/4⌉) rounded up to a power of two: the lanes of one group.
+// The launchers switch on it and take kPer = 2 at G = 32 past D = 128, so
+// that 4·G·kPer >= D.
+__host__ __device__ constexpr int group_lanes(int d) {
+  return d <= 4 ? 1 : d <= 8 ? 2 : d <= 16 ? 4 : d <= 32 ? 8
+         : d <= 64 ? 16 : 32;
+}
+
+template <int kG>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = kG / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Light rows per warp: at D <= 8 a row of the main path (~33 slots) would
+// leave most of a warp's 16 or 32 groups idle, so 2 (or, at D <= 4, 4) rows
+// share a warp, each on a sub-warp of 32/kRows lanes.
+__host__ __device__ constexpr int light_rows_per_warp(int g) {
+  return g == 1 ? 4 : (g == 2 ? 2 : 1);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+}  // namespace

@@ -8,14 +8,15 @@
 //                with the dst-slot -> src-slot reorder (dm_flat[src_from_dst])
 //                that the JAX caller ran before the Pallas call.
 //
-// It computes, for every sender row r over its CSR entries k,
-//   out[r] = Σ_k vals[slots[k]]                      ([n_rows, W]),
-// reading the dst-ordered slot rows by index. With a per-slot branch flag
-// (the selective backward's slot_c) each W-wide row goes to one half of a
-// [n_rows, 2W] output: out[r, :W] when the slot's destination is central,
-// out[r, W:] otherwise. That folds in _gather_sel_vjp's [dm·c ‖ dm·(1−c)]
-// without an [S, 2D] temporary. Senders without entries, and rows past the
-// CSR, get zero.
+// It computes, for every sender row r over its CSR entries k, reading the
+// dst-ordered slot rows by index and splitting them by the per-slot branch
+// flag b (a backward's slot_c),
+//   out[r] = [Σ_{k: b=1} vals[slots[k]] ‖ Σ_{k: b=0} vals[slots[k]]]
+// ([n_rows, 2W]): a slot's W-wide row goes to out[r, :W] when its
+// destination is central and to out[r, W:] otherwise. That folds in the
+// [dm·c ‖ dm·(1−c)] of _gather_sel_vjp and the 2D-wide dm of
+// _attention_bwd_kernel without an [S, 2D] temporary. Senders without
+// entries, and rows past the CSR, get zero.
 //
 // Design for the card. The TPU kernel reduced a padded src-keyed [B, Et]
 // grid with one-hot matmuls. Here the index is a CSR by sender over the real
@@ -98,10 +99,10 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int c, int w,
 }
 
 // One group sums the entries k0, k0 + stride, ... below hi, in that order,
-// into acc1 (branch 1, or every entry without the split) and acc2 (branch
-// 0). Lane gl of the group holds columns 4·(gl + kG·i) + j. The slot ids of
-// the next kU entries are requested before this step's rows are added.
-template <bool kSplit, bool kVec, int kG, int kPer>
+// into acc1 (branch 1) and acc2 (branch 0). Lane gl of the group holds
+// columns 4·(gl + kG·i) + j. The slot ids of the next kU entries are
+// requested before this step's rows are added.
+template <bool kVec, int kG, int kPer>
 __device__ __forceinline__ void sum_entries(
     const int32_t* __restrict__ slots, const float* __restrict__ vals,
     const uint8_t* __restrict__ branch, int w, int k0, int hi, int stride,
@@ -126,7 +127,7 @@ __device__ __forceinline__ void sum_entries(
       next[u] = ku < hi ? __ldcs(slots + ku) : -1;
     }
 #pragma unroll
-    for (int u = 0; u < kU; ++u) b[u] = !kSplit || (p[u] >= 0 && branch[p[u]]);
+    for (int u = 0; u < kU; ++u) b[u] = p[u] >= 0 && branch[p[u]];
     float v[kU][kPer][4];
 #pragma unroll
     for (int u = 0; u < kU; ++u)
@@ -159,15 +160,15 @@ __device__ __forceinline__ void sum_entries(
   }
 }
 
-template <bool kSplit, bool kVec, int kG, int kPer>
+template <bool kVec, int kG, int kPer>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
                    const int32_t* __restrict__ slots,   // [R] dst slot
                    const float* __restrict__ vals,      // [S, W]
-                   const uint8_t* __restrict__ branch,  // [S] (split only)
+                   const uint8_t* __restrict__ branch,  // [S]
                    const int32_t* __restrict__ heavy,   // [n_heavy] senders
                    int n_heavy, int w, int n_ranges, int n_rows,
-                   float* __restrict__ out)  // [n_rows, W] or [n_rows, 2W]
+                   float* __restrict__ out)  // [n_rows, 2W]
 {
   constexpr int kGroups = 32 / kG;
   constexpr int kWP = 4 * kG * kPer;  // padded W
@@ -175,7 +176,7 @@ slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
   const int warp = threadIdx.x >> 5;
   const int grp = lane / kG;
   const int gl = lane % kG;
-  const long long ow = kSplit ? 2 * w : w;
+  const long long ow = 2 * w;
   float acc1[kPer][4], acc2[kPer][4];
 
   if (blockIdx.x >= n_heavy) {  // light: one group per sender
@@ -188,14 +189,14 @@ slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
       hi = ranges[2 * row + 1];
     }
     if (hi - lo > kHeavyEntries) return;  // a heavy block owns it
-    sum_entries<kSplit, kVec, kG, kPer>(slots, vals, branch, w, lo, hi, 1,
-                                        gl, acc1, acc2);
+    sum_entries<kVec, kG, kPer>(slots, vals, branch, w, lo, hi, 1, gl, acc1,
+                                acc2);
     float* __restrict__ orow = out + row * ow;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int c = 4 * (gl + kG * i);
       store4<kVec>(orow, c, w, acc1[i]);
-      if (kSplit) store4<kVec>(orow + w, c, w, acc2[i]);
+      store4<kVec>(orow + w, c, w, acc2[i]);
     }
     return;
   }
@@ -209,8 +210,8 @@ slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
   const int chunk = (hi - lo + kWarps - 1) / kWarps;
   const int wlo = min(hi, lo + warp * chunk);
   const int whi = min(hi, wlo + chunk);
-  sum_entries<kSplit, kVec, kG, kPer>(slots, vals, branch, w, wlo + grp, whi,
-                                      kGroups, gl, acc1, acc2);
+  sum_entries<kVec, kG, kPer>(slots, vals, branch, w, wlo + grp, whi,
+                              kGroups, gl, acc1, acc2);
   // merge the groups: a butterfly over lane distances kG, ..., 16 (a sum of
   // two floats is the same on both partners)
 #pragma unroll
@@ -220,11 +221,11 @@ slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         acc1[i][j] += __shfl_xor_sync(kFull, acc1[i][j], o);
-        if (kSplit) acc2[i][j] += __shfl_xor_sync(kFull, acc2[i][j], o);
+        acc2[i][j] += __shfl_xor_sync(kFull, acc2[i][j], o);
       }
   float* __restrict__ orow = out + (long long)r * ow;
 #pragma unroll
-  for (int half = 0; half < (kSplit ? 2 : 1); ++half) {
+  for (int half = 0; half < 2; ++half) {
     if (lane < kG) {
 #pragma unroll
       for (int i = 0; i < kPer; ++i)
@@ -243,13 +244,13 @@ slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
   }
 }
 
-template <bool kSplit, bool kVec>
+template <bool kVec>
 cudaError_t launch(const void* ranges, const void* slots, const void* vals,
                    const void* branch, const void* heavy, int n_heavy, int w,
                    int n_ranges, int n_rows, void* out, cudaStream_t st) {
   const dim3 block(kWarps * 32);
 #define BGNN_LAUNCH(G, PER)                                                  \
-  slot_reduce_kernel<kSplit, kVec, G, PER>                                   \
+  slot_reduce_kernel<kVec, G, PER>                                           \
       <<<dim3(n_heavy + (n_rows + kWarps * (32 / G) - 1) /                   \
                             (kWarps * (32 / G))),                            \
          block, 0, st>>>(                                                    \
@@ -292,23 +293,17 @@ extern "C" int slot_reduce(const void* ranges, const void* slots,
                            const void* heavy, int n_heavy, int w,
                            int n_ranges, int n_rows, void* out,
                            void* stream) {
-  if (w < 1 || w > kMaxW || n_ranges < 0 || n_rows < 1 || n_heavy < 0) {
+  if (w < 1 || w > kMaxW || n_ranges < 0 || n_rows < 1 || n_heavy < 0 ||
+      branch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = w % 4 == 0 && aligned16(vals) && aligned16(out);
-  cudaError_t rc;
-  if (branch != nullptr) {
-    rc = vec ? launch<true, true>(ranges, slots, vals, branch, heavy, n_heavy,
-                                  w, n_ranges, n_rows, out, st)
-             : launch<true, false>(ranges, slots, vals, branch, heavy,
-                                   n_heavy, w, n_ranges, n_rows, out, st);
-  } else {
-    rc = vec ? launch<false, true>(ranges, slots, vals, branch, heavy,
-                                   n_heavy, w, n_ranges, n_rows, out, st)
-             : launch<false, false>(ranges, slots, vals, branch, heavy,
-                                    n_heavy, w, n_ranges, n_rows, out, st);
-  }
+  const cudaError_t rc =
+      vec ? launch<true>(ranges, slots, vals, branch, heavy, n_heavy, w,
+                         n_ranges, n_rows, out, st)
+          : launch<false>(ranges, slots, vals, branch, heavy, n_heavy, w,
+                          n_ranges, n_rows, out, st);
   return static_cast<int>(rc);
 }
 

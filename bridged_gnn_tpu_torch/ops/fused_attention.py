@@ -16,8 +16,11 @@ branch (``u1``/``a1`` when ``central[v]``, else ``u2``/``a2``) chosen by
 the destination's domain (reference models/KTGNN.py:263-315). The
 destination's own row ``ud`` enters each Function as an input of its own,
 built outside from the same tables; autograd sums its cotangent back into
-``u1``/``u2``. The Functions save their inputs plus per-slot scalars only
-(``ex`` and ``den``, or ``alpha``), as the JAX custom VJPs do.
+``u1``/``u2``. The Functions save their inputs, per-slot scalars
+(``ex`` and ``den``, or ``alpha``) as the JAX custom VJPs do, and their
+[n_out, D] output, from which the backward kernels take each
+destination's softmax term ``dout · out`` instead of a second pass over
+its slots.
 """
 
 from __future__ import annotations
@@ -40,16 +43,16 @@ class AttentionSel(torch.autograd.Function):
     def forward(ctx, lay, u1, u2, ud, central, a1, a2, negative_slope):
         out, ex, den = fused_kernels.attention_sel_fwd(
             lay, u1, u2, ud, central, a1, a2, negative_slope)
-        ctx.save_for_backward(u1, u2, ud, central, a1, a2, ex, den)
+        ctx.save_for_backward(u1, u2, ud, central, a1, a2, ex, den, out)
         ctx.lay, ctx.negative_slope = lay, negative_slope
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        u1, u2, ud, central, a1, a2, ex, den = ctx.saved_tensors
+        u1, u2, ud, central, a1, a2, ex, den, out = ctx.saved_tensors
         d = u1.shape[1]
         dm, dud, da, slot_c = fused_kernels.attention_sel_bwd(
-            ctx.lay, u1, u2, ud, central, a1, a2, ex, den,
+            ctx.lay, u1, u2, ud, central, a1, a2, ex, den, out,
             dout.contiguous(), ctx.negative_slope)
         # du1 and du2 in one sender-keyed reduce, split by slot branch
         du = fused_kernels.slot_reduce(ctx.lay, dm, u1.shape[0], slot_c)
@@ -70,19 +73,21 @@ class AttentionCat(torch.autograd.Function):
     def forward(ctx, lay, u1, u2, ud, central, a1, a2, negative_slope):
         out2, alpha = fused_kernels.attention_fwd(
             lay, u1, u2, ud, central, a1, a2, negative_slope)
-        ctx.save_for_backward(u1, u2, ud, central, a1, a2, alpha)
-        ctx.lay, ctx.negative_slope = lay, negative_slope
         d = u1.shape[1]
-        return torch.where(central[:, None], out2[:, :d], out2[:, d:])
+        out = torch.where(central[:, None], out2[:, :d], out2[:, d:])
+        ctx.save_for_backward(u1, u2, ud, central, a1, a2, alpha, out)
+        ctx.lay, ctx.negative_slope = lay, negative_slope
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        u1, u2, ud, central, a1, a2, alpha = ctx.saved_tensors
+        u1, u2, ud, central, a1, a2, alpha, out = ctx.saved_tensors
         d = u1.shape[1]
-        dm, dud, da = fused_kernels.attention_bwd(
-            ctx.lay, u1, u2, ud, central, a1, a2, alpha, dout.contiguous(),
-            ctx.negative_slope)
-        du = fused_kernels.slot_reduce(ctx.lay, dm, u1.shape[0])
+        dm, dud, da, slot_c = fused_kernels.attention_bwd(
+            ctx.lay, u1, u2, ud, central, a1, a2, alpha, out,
+            dout.contiguous(), ctx.negative_slope)
+        # du1 and du2 in one sender-keyed reduce, split by slot branch
+        du = fused_kernels.slot_reduce(ctx.lay, dm, u1.shape[0], slot_c)
         return (None, du[:, :d], du[:, d:], dud, None, da[:d], da[d:],
                 None)
 

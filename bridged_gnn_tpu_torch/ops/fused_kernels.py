@@ -63,6 +63,7 @@ from bridged_gnn_tpu_torch.ops.blocked_segment import (
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG_DIR / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG_DIR / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -111,13 +112,14 @@ def _run_all(cmds: List[List[str]], what: str) -> None:
 def build_kernels() -> Tuple[Path, float]:
     """Compile every ``csrc/*.cu`` (one ``nvcc`` per source, all started
     together) and link them into one library, unless that library is up
-    to date (one hash over all the sources and the flags).
+    to date (one hash over all the sources, the ``csrc/*.cuh`` headers they
+    include and the flags).
 
     Returns the library's path and the seconds the build took (0 when the
     library was already built). Raises with the compiler's output if
     ``nvcc`` fails."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     lib = BUILD_DIR / f"bgnn_kernels-{h.hexdigest()[:16]}.so"
     if lib.exists():
@@ -150,23 +152,27 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.attention_sel_fwd.argtypes = head + [p, p, p, p]
     # ... dst_heavy, n_heavy, out, alpha, stream
     lib.attention_fwd.argtypes = head + [p, i, p, p, p]
-    # ... ex, den, dout, dm, dud, da_part, n_parts, slot_c, stream
-    lib.attention_sel_bwd.argtypes = head + [p] * 6 + [i, p, p]
-    # ... alpha, dout, dm, dud, da_part, n_parts, stream
-    lib.attention_bwd.argtypes = head + [p] * 5 + [i, p]
+    # ... dst_heavy, n_heavy, ex, den, out, dout, dm, dud, da_part,
+    # n_parts, slot_c, stream
+    lib.attention_sel_bwd.argtypes = head + [p, i] + [p] * 7 + [i, p, p]
+    # ... dst_heavy, n_heavy, alpha, out, dout, dm, dud, da_part, n_parts,
+    # slot_c, stream
+    lib.attention_bwd.argtypes = head + [p, i] + [p] * 6 + [i, p, p]
     # src_ranges, src_slots, vals, branch, src_heavy, n_heavy, w, n_ranges,
     # n_rows, out, stream
     lib.slot_reduce.argtypes = [p] * 5 + [i] * 4 + [p, p]
-    consts = (lib.attention_bwd_rows_per_block, lib.attention_fwd_heavy_slots,
-              lib.slot_reduce_heavy_entries)
+    # n_rows_layout, n_heavy, d
+    lib.attention_bwd_grid.argtypes = [i] * 3
+    # the attention sources share one heavy bound (csrc/lane_groups.cuh)
+    consts = (lib.attention_fwd_heavy_slots, lib.slot_reduce_heavy_entries)
     for fn in consts:
         fn.argtypes = []
     for fn in (lib.attention_sel_fwd, lib.attention_fwd,
                lib.attention_sel_bwd, lib.attention_bwd, lib.slot_reduce,
-               *consts):
+               lib.attention_bwd_grid, *consts):
         fn.restype = i
-    bounds = (lib.attention_fwd_heavy_slots(), lib.slot_reduce_heavy_entries())
-    if bounds != (HEAVY_SLOTS, HEAVY_SLOTS):
+    bounds = tuple(fn() for fn in consts)
+    if bounds != (HEAVY_SLOTS,) * len(consts):
         raise RuntimeError(
             f"the kernels' heavy-row bounds {bounds} differ from the "
             f"layouts' HEAVY_SLOTS = {HEAVY_SLOTS}")
@@ -235,10 +241,12 @@ def _check_inputs(lay: PaddedLayout, u1, u2, ud, central, a1, a2) -> None:
 
 def _check_residuals(lay: PaddedLayout, u1, central, **floats) -> None:
     """The backward's per-slot weights (``ex``/``alpha`` [S]), the
-    selective ``den`` [n_out] and ``dout`` [n_out, D]."""
+    selective ``den`` [n_out], the forward's ``out`` and ``dout`` [n_out,
+    D]."""
     _check_tensors(u1.device, floats, {})
     n_out, d, n_slots = central.shape[0], u1.shape[1], lay.slot_src.shape[0]
-    want = dict(ex=[n_slots], alpha=[n_slots], den=[n_out], dout=[n_out, d])
+    want = dict(ex=[n_slots], alpha=[n_slots], den=[n_out], out=[n_out, d],
+                dout=[n_out, d])
     for name, t in floats.items():
         if list(t.shape) != want[name]:
             raise ValueError(
@@ -381,23 +389,25 @@ def attention_fwd_plain(
     return out, alpha
 
 
-def _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha, dout,
+def _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha, out, dout,
                negative_slope):
     """Shared math of the two backward plain versions, from the per-slot
-    ``alpha`` (0 on pad and masked slots): the D-wide ``dm`` of the
-    selected branch, ``dud``, ``[da1 ‖ da2]`` and the slots' branch."""
+    ``alpha`` (0 on pad and masked slots) and the forward's ``out``: the
+    D-wide ``dm`` of the selected branch, ``dud``, ``[da1 ‖ da2]`` and
+    the slots' branch as uint8. Each destination's softmax term
+    ``S_v = Σ_k α_k (m_k · dout_v)`` is ``dout_v · out_v``, as in the
+    kernels."""
     n_out, d = central.shape[0], u1.shape[1]
     row, valid = slot_rows(lay)
     c = central[row] & valid
     s = lay.slot_src.clamp(min=0).long()
     m = torch.where(c[:, None], u1[s], u2[s])
     go = dout[row]
-    t = alpha * (m * go).sum(-1)
-    seg = t.new_zeros(n_out).index_add(0, row, t)
-    dl = t - alpha * seg[row]
+    seg = (dout * out).sum(-1)
+    dl = alpha * (m * go).sum(-1) - alpha * seg[row]
     z = m + ud[row]
     h = torch.nn.functional.leaky_relu(z, negative_slope)
-    g = torch.where(z > 0, 1.0, negative_slope)
+    g = torch.where(z > 0, torch.ones_like(z), negative_slope)
     a_sel = torch.where(c[:, None], a1, a2)
     dz = torch.where(valid[:, None], dl[:, None] * a_sel * g, 0.0)
     dm = torch.where(valid[:, None], alpha[:, None] * go + dz, 0.0)
@@ -405,40 +415,35 @@ def _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha, dout,
     dlh = dl[:, None] * h
     da = torch.cat([torch.where(c[:, None], dlh, 0.0).sum(0),
                     torch.where((valid & ~c)[:, None], dlh, 0.0).sum(0)])
-    return dm, dud, da, c
+    return dm, dud, da, c.to(torch.uint8)
 
 
 def attention_sel_bwd_plain(
     lay: PaddedLayout, u1: torch.Tensor, u2: torch.Tensor, ud: torch.Tensor,
     central: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
-    ex: torch.Tensor, den: torch.Tensor, dout: torch.Tensor,
-    negative_slope: float = 0.1,
+    ex: torch.Tensor, den: torch.Tensor, out: torch.Tensor,
+    dout: torch.Tensor, negative_slope: float = 0.1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`attention_sel_bwd`."""
     row, valid = slot_rows(lay)
     alpha = torch.where(valid, ex / den[row], 0.0)
-    dm, dud, da, c = _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha,
-                                dout, negative_slope)
-    return dm, dud, da, c.to(torch.uint8)
+    return _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha, out, dout,
+                      negative_slope)
 
 
 def attention_bwd_plain(
     lay: PaddedLayout, u1: torch.Tensor, u2: torch.Tensor, ud: torch.Tensor,
     central: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
-    alpha: torch.Tensor, dout: torch.Tensor, negative_slope: float = 0.1,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    alpha: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    negative_slope: float = 0.1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`attention_bwd`."""
-    dm, dud, da, c = _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha,
-                                dout, negative_slope)
-    zero = torch.zeros_like(dm)
-    dm2 = torch.where(c[:, None], torch.cat([dm, zero], 1),
-                      torch.cat([zero, dm], 1))
-    return dm2, dud, da
+    return _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha, out, dout,
+                      negative_slope)
 
 
 def slot_reduce_plain(
-    lay: PaddedLayout, vals: torch.Tensor, n_rows: int,
-    branch: Optional[torch.Tensor] = None,
+    lay: PaddedLayout, vals: torch.Tensor, n_rows: int, branch: torch.Tensor,
 ) -> torch.Tensor:
     """Plain version of :func:`slot_reduce`."""
     r = lay.src_ranges.long()
@@ -446,9 +451,8 @@ def slot_reduce_plain(
         torch.arange(r.shape[0], device=vals.device), r[:, 1] - r[:, 0])
     p = lay.src_slots.long()
     v = vals[p]
-    if branch is not None:
-        b = branch[p].bool()[:, None]
-        v = torch.cat([torch.where(b, v, 0.0), torch.where(b, 0.0, v)], 1)
+    b = branch[p].bool()[:, None]
+    v = torch.cat([torch.where(b, v, 0.0), torch.where(b, 0.0, v)], 1)
     return v.new_zeros(n_rows, v.shape[1]).index_add(0, sender, v)
 
 
@@ -509,107 +513,103 @@ def attention_fwd(
     return out, alpha
 
 
-def _bwd_outputs(lay, u1, central, dm_width: int):
-    """dm [S, dm_width], dud [n_out, D] and one [da1 ‖ da2] partial row
-    per thread block of the backward kernels."""
+def _bwd_launch(wrapper, lay, u1, u2, ud, central, a1, a2, residuals,
+                negative_slope, inputs):
+    """Allocate a backward kernel's outputs — ``dm`` [S, D], ``dud``
+    [n_out, D], one ``[da1 ‖ da2]`` partial row per thread block (the
+    library gives the grid size) and ``slot_c`` [S] — launch it, and
+    return them with the partials summed in block order."""
     dev, d = u1.device, u1.shape[1]
-    rows = lay.num_blocks * lay.node_block
-    per_block = _kernel_lib().attention_bwd_rows_per_block()
-    n_parts = -(-rows // per_block)
-    return (torch.empty(lay.slot_src.shape[0], dm_width, device=dev),
-            torch.empty(central.shape[0], d, device=dev),
-            torch.empty(n_parts, 2 * d, device=dev), n_parts)
+    n_slots = lay.slot_src.shape[0]
+    n_parts = _kernel_lib().attention_bwd_grid(
+        lay.num_blocks * lay.node_block, lay.dst_heavy.shape[0], d)
+    dm = torch.empty(n_slots, d, device=dev)
+    dud = torch.empty(central.shape[0], d, device=dev)
+    parts = torch.empty(n_parts, 2 * d, device=dev)
+    slot_c = torch.empty(n_slots, dtype=torch.uint8, device=dev)
+    args = (_attention_args(lay, u1, u2, ud, central, a1, a2, negative_slope)
+            + [lay.dst_heavy.data_ptr(), lay.dst_heavy.shape[0]]
+            + [t.data_ptr() for t in (*residuals, dm, dud, parts)]
+            + [n_parts, slot_c.data_ptr()])
+    _launch(wrapper, d, args, inputs, dev)
+    return dm, dud, parts.sum(0), slot_c
 
 
 def attention_sel_bwd(
     lay: PaddedLayout, u1: torch.Tensor, u2: torch.Tensor, ud: torch.Tensor,
     central: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
-    ex: torch.Tensor, den: torch.Tensor, dout: torch.Tensor,
-    negative_slope: float = 0.1,
+    ex: torch.Tensor, den: torch.Tensor, out: torch.Tensor,
+    dout: torch.Tensor, negative_slope: float = 0.1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Selective fused attention backward over one padded layout.
 
     The forward's arguments, its residuals ``ex`` [B·Et] and ``den``
-    [n_out] (:func:`attention_sel_fwd`), and the output cotangent ``dout``
-    [n_out, D]. Returns ``dm`` [B·Et, D] (each slot's sender-row
-    cotangent; 0 on pad and masked slots), ``dud`` [n_out, D] (the
-    cotangent of ``ud``), ``da`` [2D] = ``[da1 ‖ da2]`` and ``slot_c``
-    [B·Et] uint8 (1 where the slot's destination is central; 0 on pad and
-    masked slots), which :func:`slot_reduce` takes as its branch."""
-    inputs = (lay, u1, u2, ud, central, a1, a2, ex, den, dout,
+    [n_out] and its output ``out`` [n_out, D] (:func:`attention_sel_fwd`),
+    and the output cotangent ``dout`` [n_out, D]. Returns ``dm`` [B·Et, D]
+    (each slot's sender-row cotangent; 0 on pad and masked slots), ``dud``
+    [n_out, D] (the cotangent of ``ud``), ``da`` [2D] = ``[da1 ‖ da2]``
+    and ``slot_c`` [B·Et] uint8 (1 where the slot's destination is
+    central; 0 on pad and masked slots), which :func:`slot_reduce` takes
+    as its branch."""
+    inputs = (lay, u1, u2, ud, central, a1, a2, ex, den, out, dout,
               negative_slope)
-    _forward_only(u1=u1, u2=u2, ud=ud, a1=a1, a2=a2, dout=dout)
+    _forward_only(u1=u1, u2=u2, ud=ud, a1=a1, a2=a2, out=out, dout=dout)
     if u1.device.type != "cuda":
         return attention_sel_bwd_plain(*inputs)
     _check_inputs(lay, u1, u2, ud, central, a1, a2)
-    _check_residuals(lay, u1, central, ex=ex, den=den, dout=dout)
-    d = u1.shape[1]
-    dm, dud, parts, n_parts = _bwd_outputs(lay, u1, central, d)
-    slot_c = torch.empty(lay.slot_src.shape[0], dtype=torch.uint8,
-                         device=u1.device)
-    args = (_attention_args(lay, u1, u2, ud, central, a1, a2, negative_slope)
-            + [t.data_ptr() for t in (ex, den, dout, dm, dud, parts)]
-            + [n_parts, slot_c.data_ptr()])
-    _launch(attention_sel_bwd, d, args, inputs, u1.device)
-    return dm, dud, parts.sum(0), slot_c
+    _check_residuals(lay, u1, central, ex=ex, den=den, out=out, dout=dout)
+    return _bwd_launch(attention_sel_bwd, lay, u1, u2, ud, central, a1, a2,
+                       (ex, den, out, dout), negative_slope, inputs)
 
 
 def attention_bwd(
     lay: PaddedLayout, u1: torch.Tensor, u2: torch.Tensor, ud: torch.Tensor,
     central: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
-    alpha: torch.Tensor, dout: torch.Tensor, negative_slope: float = 0.1,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    alpha: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    negative_slope: float = 0.1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Concatenated fused attention backward over one padded layout.
 
     The forward's arguments, its residual ``alpha`` [B·Et]
-    (:func:`attention_fwd`) and the cotangent ``dout`` [n_out, D] of the
-    destination's branch of its output. Returns ``dm`` [B·Et, 2D]
-    (``[du1 row ‖ du2 row]`` per slot, the unselected half 0; 0 on pad and
-    masked slots), ``dud`` [n_out, D] and ``da`` [2D] = ``[da1 ‖ da2]``."""
-    inputs = (lay, u1, u2, ud, central, a1, a2, alpha, dout, negative_slope)
-    _forward_only(u1=u1, u2=u2, ud=ud, a1=a1, a2=a2, dout=dout)
+    (:func:`attention_fwd`), the destination's branch ``out`` [n_out, D]
+    of its output and that branch's cotangent ``dout`` [n_out, D].
+    Returns what :func:`attention_sel_bwd` returns: ``dm`` [B·Et, D] in
+    the destination's branch, ``dud``, ``da`` and the slots' branch
+    ``slot_c``."""
+    inputs = (lay, u1, u2, ud, central, a1, a2, alpha, out, dout,
+              negative_slope)
+    _forward_only(u1=u1, u2=u2, ud=ud, a1=a1, a2=a2, out=out, dout=dout)
     if u1.device.type != "cuda":
         return attention_bwd_plain(*inputs)
     _check_inputs(lay, u1, u2, ud, central, a1, a2)
-    _check_residuals(lay, u1, central, alpha=alpha, dout=dout)
-    d = u1.shape[1]
-    dm, dud, parts, n_parts = _bwd_outputs(lay, u1, central, 2 * d)
-    args = (_attention_args(lay, u1, u2, ud, central, a1, a2, negative_slope)
-            + [t.data_ptr() for t in (alpha, dout, dm, dud, parts)]
-            + [n_parts])
-    _launch(attention_bwd, d, args, inputs, u1.device)
-    return dm, dud, parts.sum(0)
+    _check_residuals(lay, u1, central, alpha=alpha, out=out, dout=dout)
+    return _bwd_launch(attention_bwd, lay, u1, u2, ud, central, a1, a2,
+                       (alpha, out, dout), negative_slope, inputs)
 
 
 def slot_reduce(
-    lay: PaddedLayout, vals: torch.Tensor, n_rows: int,
-    branch: Optional[torch.Tensor] = None,
+    lay: PaddedLayout, vals: torch.Tensor, n_rows: int, branch: torch.Tensor,
 ) -> torch.Tensor:
     """Sender-keyed reduce of per-slot rows over one padded layout.
 
-    ``vals`` [B·Et, W]: one row per dst-layout slot (a backward's ``dm``).
-    Returns ``out`` [n_rows, W] with ``out[r] = Σ vals[k]`` over the real
-    slots ``k`` whose sender is ``r``, summed in the layout's sender-CSR
-    order. With ``branch`` ([B·Et] uint8, :func:`attention_sel_bwd`'s
-    ``slot_c``) it returns [n_rows, 2W]: a slot's row goes to ``[:, :W]``
-    where its branch is 1 and to ``[:, W:]`` where it is 0. The launch
-    counts under width ``W`` with ``branch`` and ``W/2`` without (the
-    attention's D either way)."""
+    ``vals`` [B·Et, W]: one row per dst-layout slot (a backward's ``dm``);
+    ``branch`` [B·Et] uint8: the slot's branch (the backward's ``slot_c``).
+    Returns ``out`` [n_rows, 2W] = ``[du1 ‖ du2]``: ``out[r, :W]`` sums
+    ``vals[k]`` over the real slots ``k`` whose sender is ``r`` and whose
+    branch is 1, ``out[r, W:]`` those whose branch is 0, each in the
+    layout's sender-CSR order. The launch counts under width ``W``."""
     inputs = (lay, vals, n_rows, branch)
     _forward_only(vals=vals)
     if vals.device.type != "cuda":
         return slot_reduce_plain(*inputs)
-    others = dict(src_ranges=lay.src_ranges, src_slots=lay.src_slots,
-                  src_heavy=lay.src_heavy)
-    if branch is not None:
-        others["branch"] = branch
-    _check_tensors(vals.device, dict(vals=vals), others)
+    _check_tensors(vals.device, dict(vals=vals),
+                   dict(src_ranges=lay.src_ranges, src_slots=lay.src_slots,
+                        src_heavy=lay.src_heavy, branch=branch))
     n_slots, w = lay.slot_src.shape[0], vals.shape[-1]
     if vals.dim() != 2 or vals.shape[0] != n_slots or not 1 <= w <= 2 * _MAX_D:
         raise ValueError(f"vals must be [{n_slots}, W] with 1 <= W <= "
                          f"{2 * _MAX_D}, got {list(vals.shape)}")
-    if branch is not None and (branch.dtype != torch.uint8
-                               or list(branch.shape) != [n_slots]):
+    if branch.dtype != torch.uint8 or list(branch.shape) != [n_slots]:
         raise ValueError(f"branch must be uint8 [{n_slots}]")
     for name in ("src_ranges", "src_slots", "src_heavy"):
         if getattr(lay, name).dtype != torch.int32:
@@ -617,14 +617,12 @@ def slot_reduce(
     if not lay.sender_bound <= n_rows:
         raise ValueError(f"n_rows is {n_rows}; the layout has senders up to "
                          f"{lay.sender_bound - 1}")
-    out = torch.empty(n_rows, 2 * w if branch is not None else w,
-                      device=vals.device)
+    out = torch.empty(n_rows, 2 * w, device=vals.device)
     args = [lay.src_ranges.data_ptr(), lay.src_slots.data_ptr(),
-            vals.data_ptr(), None if branch is None else branch.data_ptr(),
+            vals.data_ptr(), branch.data_ptr(),
             lay.src_heavy.data_ptr(), lay.src_heavy.shape[0],
             w, lay.src_ranges.shape[0], n_rows, out.data_ptr()]
-    _launch(slot_reduce, w if branch is not None else w // 2, args, inputs,
-            vals.device)
+    _launch(slot_reduce, w, args, inputs, vals.device)
     return out
 
 

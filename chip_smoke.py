@@ -241,12 +241,13 @@ def bwd_bound(inputs, concat: bool):
     :func:`kernel_bound` counts a forward: the sender index of every real
     slot, the slot ranges, the sender rows the slots reach (distinct
     (sender, branch) pairs: both kernels read the destination's branch
-    only), the own row, output cotangent, flag (and, selective, den) of
-    every destination with a real slot, the per-slot weight (ex or α) of
-    every real slot and the two logit vectors; the outputs dm (every
-    slot, D or 2D wide), dud, da and (selective) the slots' branch flags
-    are written once. Operations: 13·D per real slot (two
-    dot products, leaky-relu and its gate, dz, dm, dud and da)."""
+    only), the own row, output cotangent, forward output, flag (and,
+    selective, den) of every destination with a real slot, the per-slot
+    weight (ex or α) of every real slot and the two logit vectors; the
+    outputs dm (every slot, D wide), the slots' branch flags (one byte
+    each), dud and da are written once. Operations: 13·D per real slot
+    (dα, leaky-relu and its gate, dz, dm, dud and da) and 2·D per
+    destination with a real slot (S_v = dout · out)."""
     import torch
 
     from bridged_gnn_tpu_torch.ops.blocked_segment import slot_rows
@@ -261,24 +262,23 @@ def bwd_bound(inputs, concat: bool):
     n_slots = int(lay.slot_src.numel())
     f32 = 4
     read = (real * 4 + lay.dst_ranges.numel() * 4 + rows_read * d * f32
-            + dst_read * (2 * d * f32 + 1 + (0 if concat else f32))
+            + dst_read * (3 * d * f32 + 1 + (0 if concat else f32))
             + real * f32 + 2 * d * f32)
-    written = (n_slots * (2 if concat else 1) * d * f32 + n_out * d * f32
-               + 2 * d * f32 + (0 if concat else n_slots))
-    flops = real * d * 13
+    written = (n_slots * (d * f32 + 1) + n_out * d * f32 + 2 * d * f32)
+    flops = real * d * 13 + dst_read * d * 2
     return ((read + written) / HBM_BYTES_PER_S * 1e3,
             flops / F32_FLOPS_PER_S * 1e3, real)
 
 
 def reduce_bound(inputs):
     """Least time for one sender-keyed reduce: the CSR ranges and slot
-    ids, one W-wide row (and, split, one branch flag) per real slot read,
-    the output written once; one add per element of every row read."""
-    lay, vals, n_rows, branch = inputs
+    ids, one W-wide row and one branch flag per real slot read, the
+    [n_rows, 2W] output written once; one add per element of every row
+    read."""
+    lay, vals, n_rows, _ = inputs
     real, w = int(lay.src_slots.numel()), vals.shape[1]
-    read = (lay.src_ranges.numel() * 4 + real * 4 + real * w * 4
-            + (real if branch is not None else 0))
-    written = n_rows * w * (2 if branch is not None else 1) * 4
+    read = lay.src_ranges.numel() * 4 + real * 4 + real * w * 4 + real
+    written = n_rows * w * 2 * 4
     return (((read + written) / HBM_BYTES_PER_S * 1e3,
              real * w / F32_FLOPS_PER_S * 1e3, real))
 
@@ -293,7 +293,7 @@ def reduce_library(inputs):
     lay, vals, n_rows, branch = inputs
     sender = lay.slot_src.long().clamp(min=0)
     w = vals.shape[1]
-    if branch is None:
+    if branch is None:  # older checkouts' branch-less reduce (replay tool)
         idx, rows = sender, n_rows
     else:
         idx, rows = 2 * sender + (1 - branch.long()), 2 * n_rows

@@ -32,6 +32,7 @@ from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph
 from tests.test_torch_cuda import random_edges, skewed_data
 from tests.test_torch_fused_kernels import (
     CASES,
+    N,
     N_PAD,
     SLOPE,
     _inputs,
@@ -109,13 +110,11 @@ def _blocks(a, lay_j):
     return jnp.asarray(pad.reshape(b, nb, -1))
 
 
-@pytest.mark.parametrize("nb,pattern,d", CASES)
-def test_sel_bwd_plain_matches_pallas_interpret(rng, nb, pattern, d):
-    """Per-slot dm, dud and [da1 ‖ da2] of the selective backward against
-    _attention_sel_bwd_kernel; the slots are the same in both layouts."""
-    lay_j, lay_t = _layouts(rng, nb)
-    inp = _inputs(rng, N_PAD, N_PAD, d, nb, pattern)
-    dout = _dout(rng, N_PAD, d)
+def _check_sel_bwd(lay_j, lay_t, inp, dout):
+    """The selective plain backward (``S_v`` from the forward's ``out``)
+    against _attention_sel_bwd_kernel (``S_v`` as its segment sum of
+    α·dα); returns the port's outputs and the slots' rows."""
+    nb, d = lay_j.node_block, inp["u1"].shape[1]
     _, alpha_j = _jax_sel_kernel(lay_j, inp)
     b, et = lay_j.num_blocks, lay_j.tile_e
     dm_j, dud_j, da_j = _attention_sel_bwd_call(
@@ -124,28 +123,31 @@ def test_sel_bwd_plain_matches_pallas_interpret(rng, nb, pattern, d):
         jnp.asarray(alpha_j.reshape(b, et, 1).astype(np.float32)),
         _blocks(dout, lay_j), nb, SLOPE, interpret=True)
     args = _port_args(inp)
-    _, ex, den = fk.attention_sel_fwd_plain(lay_t, *args, SLOPE)
-    dm, dud, da, slot_c = fk.attention_sel_bwd_plain(
-        lay_t, *args, ex, den, torch.from_numpy(dout), SLOPE)
-    _, valid = tbs.slot_rows(lay_t)
+    out, ex, den = fk.attention_sel_fwd_plain(lay_t, *args, SLOPE)
+    got = fk.attention_sel_bwd_plain(lay_t, *args, ex, den, out,
+                                     torch.from_numpy(dout), SLOPE)
+    dm, dud, da, slot_c = got
+    row, valid = tbs.slot_rows(lay_t)
     valid = valid.numpy()
     np.testing.assert_allclose(
         dm.numpy()[valid], np.asarray(dm_j).reshape(b * et, d)[valid], **TOL)
     assert np.all(dm.numpy()[~valid] == 0)
     assert np.all(slot_c.numpy()[~valid] == 0)
+    np.testing.assert_array_equal(slot_c.numpy()[valid],
+                                  inp["central"][row.numpy()[valid]])
     np.testing.assert_allclose(
-        dud.numpy(), np.asarray(dud_j).reshape(-1, d)[:N_PAD], **TOL)
+        dud.numpy(), np.asarray(dud_j).reshape(-1, d)[:len(dout)], **TOL)
     np.testing.assert_allclose(
         da.numpy(), np.asarray(da_j)[:, 0].sum(0), **TOL)
+    return got, out, row.numpy(), valid
 
 
-@pytest.mark.parametrize("nb,pattern,d", CASES)
-def test_concat_bwd_plain_matches_pallas_interpret(rng, nb, pattern, d):
-    """Per-slot dm (2D wide, unselected half 0), dud and [da1 ‖ da2] of
-    the concatenated backward against _attention_bwd_kernel."""
-    lay_j, lay_t = _layouts(rng, nb)
-    inp = _inputs(rng, N_PAD, N_PAD, d, nb, pattern)
-    dout = _dout(rng, N_PAD, d)
+def _check_concat_bwd(lay_j, lay_t, inp, dout):
+    """The concatenated plain backward against _attention_bwd_kernel: the
+    port's D-wide ``dm`` is the selected half of the TPU kernel's 2D
+    ``dm``, whose other half is zero, and ``slot_c`` is the destination's
+    flag on real slots."""
+    d = inp["u1"].shape[1]
     _, alpha_j = _jax_concat_kernel(lay_j, inp)
     b, et = lay_j.num_blocks, lay_j.tile_e
     u_cat = np.concatenate([inp["u1"], inp["u2"]], axis=1)
@@ -158,15 +160,22 @@ def test_concat_bwd_plain_matches_pallas_interpret(rng, nb, pattern, d):
         jnp.asarray(alpha_j.reshape(b, et).astype(np.float32)),
         jnp.asarray(dout), negative_slope=SLOPE, interpret=True)
     args = _port_args(inp)
-    _, alpha = fk.attention_fwd_plain(lay_t, *args, SLOPE)
-    dm, dud, da = fk.attention_bwd_plain(
-        lay_t, *args, alpha, torch.from_numpy(dout), SLOPE)
-    _, valid = tbs.slot_rows(lay_t)
-    valid = valid.numpy()
-    np.testing.assert_allclose(
-        dm.numpy()[valid], np.asarray(dm_j).reshape(b * et, 2 * d)[valid],
-        **TOL)
+    out2, alpha = fk.attention_fwd_plain(lay_t, *args, SLOPE)
+    out = torch.where(args[3][:, None], out2[:, :d], out2[:, d:])
+    got = fk.attention_bwd_plain(lay_t, *args, alpha, out,
+                                 torch.from_numpy(dout), SLOPE)
+    dm, dud, da, slot_c = got
+    row, valid = tbs.slot_rows(lay_t)
+    row, valid = row.numpy(), valid.numpy()
+    c_slot = inp["central"][row] & valid
+    dm_j = np.asarray(dm_j).reshape(b * et, 2 * d)
+    sel = np.where(c_slot[:, None], dm_j[:, :d], dm_j[:, d:])
+    other = np.where(c_slot[:, None], dm_j[:, d:], dm_j[:, :d])
+    assert np.all(other[valid] == 0)
+    assert dm.shape == (b * et, d)
+    np.testing.assert_allclose(dm.numpy()[valid], sel[valid], **TOL)
     assert np.all(dm.numpy()[~valid] == 0)
+    np.testing.assert_array_equal(slot_c.numpy(), c_slot)
     c = inp["central"][:, None]
     np.testing.assert_allclose(
         dud.numpy(), np.where(c, np.asarray(du1_j), np.asarray(du2_j)),
@@ -174,6 +183,56 @@ def test_concat_bwd_plain_matches_pallas_interpret(rng, nb, pattern, d):
     np.testing.assert_allclose(
         da.numpy(), np.concatenate([np.asarray(da1_j), np.asarray(da2_j)]),
         **TOL)
+    return got, out, row, valid
+
+
+@pytest.mark.parametrize("nb,pattern,d", CASES)
+def test_sel_bwd_plain_matches_pallas_interpret(rng, nb, pattern, d):
+    """Per-slot dm and slot_c, dud and [da1 ‖ da2] of the selective
+    backward against _attention_sel_bwd_kernel; the slots are the same in
+    both layouts. The port takes each destination's softmax term as
+    dout · out, the TPU kernel as a segment sum over its slots."""
+    lay_j, lay_t = _layouts(rng, nb)
+    inp = _inputs(rng, N_PAD, N_PAD, d, nb, pattern)
+    _check_sel_bwd(lay_j, lay_t, inp, _dout(rng, N_PAD, d))
+
+
+@pytest.mark.parametrize("nb,pattern,d", CASES)
+def test_concat_bwd_plain_matches_pallas_interpret(rng, nb, pattern, d):
+    """Per-slot dm (D wide, in the destination's branch) and slot_c, dud
+    and [da1 ‖ da2] of the concatenated backward against
+    _attention_bwd_kernel, whose dm is 2D wide with the unselected half
+    zero."""
+    lay_j, lay_t = _layouts(rng, nb)
+    inp = _inputs(rng, N_PAD, N_PAD, d, nb, pattern)
+    _check_concat_bwd(lay_j, lay_t, inp, _dout(rng, N_PAD, d))
+
+
+@pytest.mark.parametrize("form", ["sel", "concat"])
+def test_bwd_plain_destination_without_real_slot(rng, form):
+    """Destinations whose slots are all masked, and destinations with no
+    slot at all, have out_v = 0 and so S_v = 0: their dud is zero, their
+    slots' dm and slot_c are zero, and the rest still matches the TPU
+    kernel."""
+    s, r, em = random_edges(rng, n=N, n_pad=N_PAD)
+    hot = np.bincount(r[em], minlength=N_PAD)
+    masked = np.argsort(-hot, kind="stable")[:3]   # rows with many slots
+    em = em & ~np.isin(r, masked)
+    lay_j = jbs.make_blocked_ops(s, r, em, N_PAD, node_block=16).lay_dst
+    lay_t = tbs.make_blocked_ops(s, r, em, N_PAD, node_block=16).lay_dst
+    inp = _inputs(rng, N_PAD, N_PAD, 8, 16, "blocks")
+    check = _check_sel_bwd if form == "sel" else _check_concat_bwd
+    (dm, dud, _, slot_c), out, row, valid = check(
+        lay_j, lay_t, inp, _dout(rng, N_PAD, 8))
+    empty = np.setdiff1d(np.arange(N_PAD), row[valid])
+    assert set(masked) <= set(empty) and len(empty) > len(masked)
+    assert np.all(out.numpy()[empty] == 0)
+    assert np.all(dud.numpy()[empty] == 0)
+    lo_hi = lay_t.dst_ranges.numpy()[masked]
+    for lo, hi in lo_hi:
+        assert hi > lo
+        assert np.all(dm.numpy()[lo:hi] == 0)
+        assert np.all(slot_c.numpy()[lo:hi] == 0)
 
 
 @pytest.mark.parametrize("nb", [16, 64, 128])
@@ -182,14 +241,16 @@ def test_slot_reduce_plain_matches_pallas_interpret(rng, nb, split):
     """The sender-keyed reduce of dst-ordered slot rows against
     _reduce_kernel over the JAX src-keyed layout fed ``dm[src_from_dst]``
     (with the branch split: ``[dm·c ‖ dm·(1−c)]``, as _gather_sel_vjp
-    builds it)."""
+    builds it). Without the split every real slot is in branch 1: the
+    first half of the output is the JAX reduce of ``dm`` itself and the
+    second half is zero."""
     s, r, em = random_edges(rng, n=50, n_pad=N_PAD)
     ops_j = jbs.make_blocked_ops(s, r, em, N_PAD, node_block=nb)
     lay_t = tbs.make_blocked_ops(s, r, em, N_PAD, node_block=nb).lay_dst
     n_slots, w = lay_t.slot_src.shape[0], 8
     real = lay_t.slot_src.numpy() >= 0
     dm = rng.normal(size=(n_slots, w)).astype(np.float32) * real[:, None]
-    branch = (rng.random(n_slots) < 0.5) & real
+    branch = ((rng.random(n_slots) < 0.5) if split else True) & real
     vals = (np.concatenate([dm * branch[:, None], dm * ~branch[:, None]], 1)
             if split else dm)
     lay_s = ops_j.lay_src
@@ -198,10 +259,12 @@ def test_slot_reduce_plain_matches_pallas_interpret(rng, nb, split):
         lay_s, jnp.asarray(vals[sfd].reshape(lay_s.num_blocks,
                                              lay_s.tile_e, -1)),
         interpret=True)
-    got = fk.slot_reduce_plain(
-        lay_t, torch.from_numpy(dm), N_PAD,
-        torch.from_numpy(branch.astype(np.uint8)) if split else None)
-    assert got.shape == (N_PAD, 2 * w if split else w)
+    got = fk.slot_reduce_plain(lay_t, torch.from_numpy(dm), N_PAD,
+                               torch.from_numpy(branch.astype(np.uint8)))
+    assert got.shape == (N_PAD, 2 * w)
+    if not split:
+        assert np.all(got.numpy()[:, w:] == 0)
+        got = got[:, :w]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

@@ -77,27 +77,37 @@ def _small_layout(rng, device="cpu"):
 
 def _all_calls(rng, lay, d, device="cpu", n_in=None):
     """One argument tuple per kernel wrapper on ``lay`` at width ``d``:
-    random tables, the forwards' residuals from their plain versions, a
-    random output cotangent, and the selective backward's slot rows and
-    branch for the reduce."""
+    random tables, the forwards' residuals and outputs from their plain
+    versions, a random output cotangent, and each backward's slot rows
+    and branch for the reduce."""
     n_in = n_in or max(lay.sender_bound, 1)
     base = _args(rng, n_in, lay.num_nodes_padded, d, device)
-    u1, u2, ud, c, a1, a2 = base
-    _, ex, den = fk.attention_sel_fwd_plain(lay, *base, SLOPE)
-    _, alpha = fk.attention_fwd_plain(lay, *base, SLOPE)
     dout = torch.from_numpy(rng.normal(
         size=(lay.num_nodes_padded, d)).astype(np.float32)).to(device)
-    dm, _, _, slot_c = fk.attention_sel_bwd_plain(lay, *base, ex, den, dout,
+    sel, cat = _bwd_residuals(lay, base)
+    dm, _, _, slot_c = fk.attention_sel_bwd_plain(lay, *base, *sel, dout,
                                                   SLOPE)
-    dm2, _, _ = fk.attention_bwd_plain(lay, *base, alpha, dout, SLOPE)
+    dm2, _, _, slot_c2 = fk.attention_bwd_plain(lay, *base, *cat, dout,
+                                                SLOPE)
     return [
         (fk.attention_sel_fwd, (lay, *base, SLOPE)),
         (fk.attention_fwd, (lay, *base, SLOPE)),
-        (fk.attention_sel_bwd, (lay, *base, ex, den, dout, SLOPE)),
-        (fk.attention_bwd, (lay, *base, alpha, dout, SLOPE)),
+        (fk.attention_sel_bwd, (lay, *base, *sel, dout, SLOPE)),
+        (fk.attention_bwd, (lay, *base, *cat, dout, SLOPE)),
         (fk.slot_reduce, (lay, dm, n_in, slot_c)),
-        (fk.slot_reduce, (lay, dm2, n_in, None)),
+        (fk.slot_reduce, (lay, dm2, n_in, slot_c2)),
     ]
+
+
+def _bwd_residuals(lay, base):
+    """What the two backwards take from their forwards, by the plain
+    versions: ``(ex, den, out)`` and ``(alpha, out)``, ``out`` being the
+    destination's branch."""
+    out, ex, den = fk.attention_sel_fwd_plain(lay, *base, SLOPE)
+    out2, alpha = fk.attention_fwd_plain(lay, *base, SLOPE)
+    c, d = base[3], base[0].shape[1]
+    return ((ex, den, out),
+            (alpha, torch.where(c[:, None], out2[:, :d], out2[:, d:])))
 
 
 _PLAIN = {
@@ -247,12 +257,13 @@ def _card_layouts(rng, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 8, 64, 256])
 def test_cuda_backward_kernels_match_plain(rng, d):
-    """The two backward kernels and the sender-keyed reduce (with and
-    without the branch split) against their plain versions on the card,
-    f32 at rtol 1e-4 and atol 1e-4 times the output's largest magnitude:
-    a hub row's dud and a hub sender's reduce each sum thousands of terms
-    that cancel, in another order than the plain version's. The slots'
-    branch flags exactly."""
+    """The two backward kernels (taking the forward's ``out``, both
+    writing a D-wide dm and the slots' branch) and the sender-keyed reduce
+    of each one's dm by its branch against their plain versions on
+    the card, f32 at rtol 1e-4 and atol 1e-4 times the output's largest
+    magnitude: a hub row's dud and a hub sender's reduce each sum
+    thousands of terms that cancel, in another order than the plain
+    version's. The slots' branch flags exactly."""
     dev = _need_cuda()
     for lay in _card_layouts(rng, dev):
         for wrapper, args in _all_calls(rng, lay, d, dev)[2:]:
@@ -275,7 +286,9 @@ def test_cuda_backward_kernels_match_plain(rng, d):
 @pytest.mark.cuda
 def test_cuda_backward_is_deterministic(rng):
     """Two backwards of each attention Function on the same inputs give
-    bit-identical gradients (no atomics anywhere in the kernels)."""
+    bit-identical gradients (no atomics anywhere in the kernels); the
+    concatenated one goes through the D-wide dm and the split reduce,
+    and both agree with the plain versions' gradients."""
     dev = _need_cuda()
     from bridged_gnn_tpu_torch.ops.fused_attention import (
         AttentionCat,
@@ -285,17 +298,22 @@ def test_cuda_backward_is_deterministic(rng):
     lay = _hub_layout(rng, dev)
     u1, u2, ud, c, a1, a2 = _args(rng, 64, 64, 64, dev)
     cot = torch.randn(64, 64, device=dev)
+    lay_cpu = tbs.PaddedLayout(*(x.cpu() if torch.is_tensor(x) else x
+                                 for x in lay))
     for fn in (AttentionSel, AttentionCat):
         grads = []
-        for _ in range(2):
-            leaves = [t.clone().requires_grad_() for t in (u1, u2, ud, a1,
-                                                           a2)]
+        for lay_, dev_ in ((lay, dev), (lay, dev), (lay_cpu, "cpu")):
+            leaves = [t.to(dev_).clone().requires_grad_()
+                      for t in (u1, u2, ud, a1, a2)]
             p1, p2, pd, q1, q2 = leaves
-            out = fn.apply(lay, p1, p2, pd, c, q1, q2, SLOPE)
-            (out * cot).sum().backward()
+            out = fn.apply(lay_, p1, p2, pd, c.to(dev_), q1, q2, SLOPE)
+            (out * cot.to(dev_)).sum().backward()
             grads.append([t.grad for t in leaves])
-        for g0, g1 in zip(*grads):
+        for g0, g1, want in zip(*grads):
             assert torch.equal(g0, g1)
+            torch.testing.assert_close(
+                g0.cpu(), want, rtol=1e-4,
+                atol=1e-4 * float(want.abs().max()))
 
 
 @pytest.mark.cuda
@@ -404,7 +422,7 @@ def test_cuda_attention_fwd_heavy_rows(rng, d):
 def test_cuda_slot_reduce_heavy_senders(rng, w, split):
     """The sender reduce against its plain version on heavy senders (5L
     and L+1 entries), a sender on the bound, light and empty senders, with
-    and without the branch split: f32 rtol 1e-5 and atol 1e-5 times the
+    the branch split and with every slot in branch 1: f32 rtol 1e-5 and atol 1e-5 times the
     output's largest magnitude (sums of up to 640 random rows in another
     order); two launches give bit-identical outputs."""
     dev = _need_cuda()
@@ -414,7 +432,7 @@ def test_cuda_slot_reduce_heavy_senders(rng, w, split):
     vals = torch.from_numpy(
         rng.normal(size=(n_slots, w)).astype(np.float32)).to(dev)
     branch = (torch.from_numpy((rng.random(n_slots) < 0.5).astype(np.uint8))
-              .to(dev) if split else None)
+              if split else torch.ones(n_slots, dtype=torch.uint8)).to(dev)
     want = fk.slot_reduce_plain(lay, vals, 64, branch)
     runs = []
     for _ in range(2):
@@ -424,3 +442,53 @@ def test_cuda_slot_reduce_heavy_senders(rng, w, split):
     assert torch.equal(runs[0], runs[1])
     scale = float(want.abs().max())
     torch.testing.assert_close(runs[0], want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 63, 64, 256])
+@pytest.mark.parametrize("form", ["sel", "concat"])
+def test_cuda_attention_bwd_heavy_rows(rng, form, d):
+    """Both backwards against their plain versions (rtol 1e-4, atol 1e-4
+    times the output's largest magnitude; slot_c exactly) on light rows,
+    heavy rows (a block each, merged in warp order), a heavy row with
+    masked slots, one with every slot masked, a heavy last row of a block
+    (its pad tail must be zeroed) and empty rows; two launches give
+    bit-identical outputs. Outputs land in NaN-filled memory, so an
+    element left unwritten shows. Where D % 4 == 0 a u1 table 4 bytes off
+    16-byte alignment takes the scalar path and must agree too."""
+    dev = _need_cuda()
+    lay = _edge_case_layout(rng, dev)
+    assert lay.dst_heavy.tolist() == [3, 4, 5, 6, 15, 20, 22]
+    args = list(_args(rng, 64, 64, d, dev))
+    dout = torch.from_numpy(
+        rng.normal(size=(64, d)).astype(np.float32)).to(dev)
+    wrapper, plain = ((fk.attention_sel_bwd, fk.attention_sel_bwd_plain)
+                      if form == "sel"
+                      else (fk.attention_bwd, fk.attention_bwd_plain))
+    n_slots = lay.slot_src.shape[0]
+    variants = [args]
+    if d % 4 == 0:
+        buf = torch.empty(64 * d + 1, device=dev)
+        u1 = buf[1:].view(64, d)
+        u1.copy_(args[0])
+        assert u1.data_ptr() % 16 != 0 and u1.is_contiguous()
+        variants.append([u1] + args[1:])
+    for a in variants:
+        sel, cat = _bwd_residuals(lay, a)
+        inputs = (lay, *a, *(sel if form == "sel" else cat), dout, SLOPE)
+        want = plain(*inputs)
+        runs = []
+        for _ in range(2):
+            _poison(dev, (n_slots, d), (64, d), (n_slots // 4 + 1,))
+            before = wrapper.launches
+            runs.append(wrapper(*inputs))
+            assert wrapper.launches == before + 1
+        torch.cuda.synchronize()
+        for g_, again, w_ in zip(*runs, want):
+            assert g_.shape == w_.shape and g_.dtype == w_.dtype
+            assert torch.equal(g_, again)
+            if g_.dtype == torch.uint8:
+                assert torch.equal(g_, w_)
+            else:
+                torch.testing.assert_close(
+                    g_, w_, rtol=1e-4, atol=1e-4 * float(w_.abs().max()))

@@ -1,7 +1,8 @@
 """PyTorch port, the layouts' heavy-row lists: which destination rows and
 senders get a thread block of their own in the concatenated attention
-forward and the sender reduce, and the chunked sums those blocks take,
-checked on the CPU against plain counts and the plain versions."""
+forward, the two attention backwards and the sender reduce, and the
+chunked sums and merges those blocks take, checked on the CPU against
+plain counts and the plain versions."""
 
 import numpy as np
 import pytest
@@ -16,13 +17,16 @@ from bridged_gnn_tpu_torch.train.stage2 import to_undirected_np
 from tests.test_torch_cuda import (
     SLOPE,
     _args,
+    _bwd_residuals,
+    _edge_case_layout,
     _hub_layout,
     random_edges,
     skewed_data,
 )
 
 L = tbs.HEAVY_SLOTS
-WARPS = 16   # warps of a heavy block in csrc/attention_fwd.cu, slot_reduce.cu
+WARPS = 16   # warps of a heavy block in csrc/attention_{fwd,bwd}.cu and
+             # csrc/slot_reduce.cu
 
 
 def _hub_graph(rng, n, undirected):
@@ -108,20 +112,21 @@ def test_heavy_bound_is_inclusive(rng):
 def test_chunked_sender_sums_equal_plain_reduce(rng, w, split):
     """Each heavy sender's entries summed in L-sized chunks, then the
     chunks in order (as a heavy block's warps merge), equal the plain
-    reduce to 1e-6 relative."""
+    reduce to 1e-6 relative; without the split every slot is in branch 1
+    and the second half is zero."""
     lay = _hub_layout(rng)
     assert lay.src_heavy.numel() > 0
     n_slots = lay.slot_src.shape[0]
     vals = torch.from_numpy(rng.normal(size=(n_slots, w)).astype(np.float32))
     branch = (torch.from_numpy((rng.random(n_slots) < 0.5).astype(np.uint8))
-              if split else None)
+              if split else torch.ones(n_slots, dtype=torch.uint8))
     want = fk.slot_reduce_plain(lay, vals, 64, branch)
     ranges, slots = lay.src_ranges.numpy(), lay.src_slots.numpy()
     v = vals.double().numpy()
     for snd in lay.src_heavy.tolist():
         entries = slots[ranges[snd, 0]:ranges[snd, 1]]
         assert len(entries) > L
-        total = np.zeros(2 * w if split else w)
+        total = np.zeros(2 * w)
         for c0 in range(0, len(entries), L):
             part = entries[c0:c0 + L]
             if split:
@@ -129,7 +134,7 @@ def test_chunked_sender_sums_equal_plain_reduce(rng, w, split):
                 total += np.concatenate([v[part[b]].sum(0),
                                          v[part[~b]].sum(0)])
             else:
-                total += v[part].sum(0)
+                total[:w] += v[part].sum(0)
         np.testing.assert_allclose(want[snd].numpy(), total, rtol=1e-6,
                                    atol=1e-6 * np.abs(total).max())
 
@@ -180,3 +185,65 @@ def test_heavy_row_state_merge_equals_plain_forward(rng, d):
         want_alpha = np.where(src >= 0, np.exp(logit - mx) / den, 0.0)
         np.testing.assert_allclose(alpha[lo:hi].numpy(), want_alpha,
                                    rtol=1e-4, atol=1e-7)
+
+
+def _bwd_chunk(src, w, m, go, ov, dst, a, den):
+    """dud and da of one chunk of a row's slots, in f64, with the row's
+    softmax term S_v = dout · out taken from the whole row."""
+    ok = src >= 0
+    alpha = np.where(ok, w / den, 0.0)
+    dl = alpha * (m @ go) - alpha * (go @ ov)
+    z = m + dst
+    gate = np.where(z > 0, 1.0, SLOPE)
+    h = np.where(z >= 0, z, SLOPE * z)
+    dz = dl[:, None] * a * gate
+    return dz.sum(0), (dl[:, None] * h).sum(0), alpha[:, None] * go + dz
+
+
+@pytest.mark.parametrize("form", ["sel", "concat"])
+@pytest.mark.parametrize("d", [1, 8, 64])
+def test_heavy_row_bwd_merge_equals_plain_backward(rng, form, d):
+    """Each heavy row split into the block's contiguous warp chunks, each
+    chunk's dud and da partials taken alone and summed in warp order (the
+    heavy block's merge), gives the plain backward's dud row, the row's
+    share of [da1 ‖ da2] (the plain backward with dout zero on every
+    other row) and its slots' dm. All in f64, to 1e-9: the heavy rows of
+    the edge-case layout include rows whose every slot reads one sender,
+    where dα = S_v and the true gradient is 0, so f32 would compare
+    rounding noise."""
+    lay = _edge_case_layout(rng)
+    base = tuple(t.double() if t.is_floating_point() else t
+                 for t in _args(rng, 64, 64, d))
+    u1, u2, ud, c, a1, a2 = base
+    sel, cat = _bwd_residuals(lay, base)
+    res = sel if form == "sel" else cat
+    plain = (fk.attention_sel_bwd_plain if form == "sel"
+             else fk.attention_bwd_plain)
+    dout = torch.from_numpy(rng.normal(size=(64, d)))
+    out = res[-1]
+    assert lay.dst_heavy.numel() == 7
+    for row in lay.dst_heavy.tolist():
+        only = torch.zeros_like(dout)
+        only[row] = dout[row]
+        dm, dud, da, _ = plain(lay, *base, *res, only, SLOPE)
+        lo, hi = lay.dst_ranges[row].tolist()
+        src = lay.slot_src[lo:hi].numpy()
+        is_c = bool(c[row])
+        m = (u1 if is_c else u2).numpy()[np.clip(src, 0, None)]
+        w = res[0].numpy()[lo:hi]
+        den = float(res[1][row]) if form == "sel" else 1.0
+        a = (a1 if is_c else a2).numpy()
+        chunk = -(-(hi - lo) // WARPS)
+        parts = [_bwd_chunk(src[w0:w0 + chunk], w[w0:w0 + chunk],
+                            m[w0:w0 + chunk], dout[row].numpy(),
+                            out[row].numpy(), ud[row].numpy(), a, den)
+                 for w0 in range(0, hi - lo, chunk)]
+        dm_row = np.concatenate([p[2] for p in parts])
+        dm_row[src < 0] = 0.0
+        for got, want in ((dud[row], sum(p[0] for p in parts)),
+                          (da[:d] if is_c else da[d:],
+                           sum(p[1] for p in parts)),
+                          (dm[lo:hi], dm_row)):
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-9,
+                                       atol=1e-9)
+        assert np.all((da[d:] if is_c else da[:d]).numpy() == 0)

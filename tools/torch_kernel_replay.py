@@ -1,18 +1,25 @@
-"""Time the main-path calls of the port's concatenated attention forward
-and sender reduce, for any checkout of the port, on one GPU.
+"""Time the main-path calls of the port's concatenated attention forward,
+the two attention backwards and the sender reduce, for any checkout of
+the port, on one GPU.
 
     python3 tools/torch_kernel_replay.py [PORT_ROOT]
 
 PORT_ROOT is the directory that holds the ``bridged_gnn_tpu_torch`` to
 time (default: this checkout). The script records, as ``chip_smoke.py``
 phases 3 and 7 do, the ``attention_fwd`` calls of one predict on the hub
-graph and the ``slot_reduce`` calls of one training step on the bench and
-the hub graph, then replays each call on its recorded inputs and prints
-one JSON line per call: ``ms`` (``chip_smoke.cuda_ms``: the wrapper's host
-work included) and ``device_ms`` (``chip_smoke.cuda_device_ms``: the
-card's time alone), and for the reduce the same two of ``index_add_`` on
-the same inputs. Timing two checkouts in turns in one run compares their
-kernels on one card. Exits non-zero without a CUDA device.
+graph and the backward (``attention_sel_bwd`` on the bench graph,
+``attention_bwd`` on the hub graph) and ``slot_reduce`` calls of one
+training step on each graph, then replays each call on its recorded
+inputs and prints one JSON line per call: ``ms`` (``chip_smoke.cuda_ms``:
+the wrapper's host work included) and ``device_ms``
+(``chip_smoke.cuda_device_ms``: the card's time alone), and for the
+reduce the same two of ``index_add_`` on the same inputs. Per graph one
+more line (``kernel``: "backward+reduce") sums the step's backward and
+reduce calls, so that checkouts that split the work between the two
+differently (a 2D-wide ``dm`` reduced without a branch, or a D-wide one
+with it) are compared on the same gradient. Timing two checkouts in turns
+in one run compares their kernels on one card. Exits non-zero without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ def main(argv) -> int:
                        library_device_ms=cs.cuda_device_ms(
                            call, cs.KERNEL_REPS))
         print(json.dumps(dict(row, port=str(root), card=card)), flush=True)
+        return row
 
     from bridged_gnn_tpu_torch.ops import fused_kernels as fk
 
@@ -83,11 +91,23 @@ def main(argv) -> int:
         recs = cs.record_run(
             lambda: train_step(net, g, adj, opt, cfg.Lambda, gen), NAMES)
         layouts = cs.layouts_of(adj)
+        bwd = (fk.attention_bwd if adj.fast_fn is None
+               else fk.attention_sel_bwd)
+        step = dict(kernel="backward+reduce", graph=graph, calls=0, ms=0.0,
+                    device_ms=0.0)
         with torch.no_grad():
             for rec in recs:
                 if rec["name"] == "slot_reduce":
-                    emit("slot_reduce", graph, layouts, rec, fk.slot_reduce,
-                         cs.reduce_library)
+                    row = emit("slot_reduce", graph, layouts, rec,
+                               fk.slot_reduce, cs.reduce_library)
+                elif rec["name"] == bwd.__name__:
+                    row = emit(bwd.__name__, graph, layouts, rec, bwd)
+                else:
+                    continue
+                step["calls"] += 1
+                step["ms"] += row["ms"]
+                step["device_ms"] += row["device_ms"]
+        print(json.dumps(dict(step, port=str(root), card=card)), flush=True)
         del g, adj, net, opt, recs, layouts
         torch.cuda.empty_cache()
     return 0
