@@ -72,6 +72,17 @@
 //   No atomics: every sum is taken in a fixed order, so two launches on the
 //   same inputs give bit-identical outputs.
 //
+// Wide rows. Past kLaneGroupColumns = 256 columns a lane group cannot hold a
+// row in registers, so those widths take attention_bwd_wide_kernel, chosen
+// at launch. A block takes kWideRows rows in turn; per row it reduces S_v,
+// then its warps take the slots in turn and store each slot's dl (from dα,
+// reduced over all D columns) in a per-slot scratch the wrapper allocates
+// for wide widths only, with the slot's branch flag; then each thread takes
+// the columns c, c + 256, ... and walks the row's slots in order, writing dm
+// and summing dud and da. Each block's da partial row accumulates its rows
+// in row order, each thread on its own columns. Every sender row is read
+// twice: plain, not fast; the main path's widths never take it.
+//
 // Build: see attention_fwd.cu.
 
 #include <cuda_runtime.h>
@@ -82,7 +93,9 @@
 
 namespace {
 
-constexpr int kWarps = 16;  // warps per block, light or heavy
+constexpr int kWarps = 16;      // warps per block, light or heavy
+constexpr int kWideWarps = 8;   // warps per block of the wide path
+constexpr int kWideRows = 16;   // destination rows per block of the wide path
 
 // Per-lane state of one destination row: its own rows' columns and the
 // row's dud and da accumulators.
@@ -400,8 +413,110 @@ attention_bwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
   }
 }
 
-// One block per heavy row, then one per kWarps·kRows light rows.
+// D > kLaneGroupColumns: kWideRows destination rows per block, in turn (see
+// the header). `scratch` [S] takes each slot's dl.
+template <bool kConcat>
+__global__ void __launch_bounds__(kWideWarps * 32)
+attention_bwd_wide_kernel(const int32_t* __restrict__ src,
+                          const int32_t* __restrict__ ranges,
+                          const float* __restrict__ u1,
+                          const float* __restrict__ u2,
+                          const float* __restrict__ ud,
+                          const bool* __restrict__ central,
+                          const float* __restrict__ a1,
+                          const float* __restrict__ a2, float slope, int d,
+                          int n_rows_layout, int n_out, int node_block,
+                          int tile_e, const float* __restrict__ slot_w,
+                          const float* __restrict__ den,
+                          const float* __restrict__ out,
+                          const float* __restrict__ dout,
+                          float* __restrict__ dm, float* __restrict__ dud,
+                          float* __restrict__ da_part,
+                          uint8_t* __restrict__ slot_c,
+                          float* __restrict__ scratch) {
+  __shared__ float s_red[kWideWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // the block's [da1 ‖ da2] partial: the thread of column c owns entries c
+  // and d + c, so it adds its rows' sums there without a barrier
+  float* __restrict__ part = da_part + (long long)blockIdx.x * 2 * d;
+  for (int c = threadIdx.x; c < d; c += blockDim.x)
+    part[c] = part[d + c] = 0.f;
+  const int r0 = blockIdx.x * kWideRows;
+  const int r1 = min(n_rows_layout, r0 + kWideRows);
+  for (int row = r0; row < r1; ++row) {
+    const int lo = ranges[2 * row];
+    const int hi = ranges[2 * row + 1];
+    zero_tail<false>(dm, slot_c, row, hi, d, node_block, tile_e, threadIdx.x,
+                     blockDim.x);
+    if (row >= n_out) continue;  // the whole block
+    const bool is_c = central[row];
+    const float* __restrict__ tab = is_c ? u1 : u2;
+    const float* __restrict__ a = is_c ? a1 : a2;
+    const float* __restrict__ go = dout + (long long)row * d;
+    const float* __restrict__ urow = ud + (long long)row * d;
+    const float den_v = kConcat ? 1.f : den[row];
+    // S_v = dout[v] · out[v]: each warp by a butterfly, the warps in order
+    float s = 0.f;
+    for (int c = threadIdx.x; c < d; c += blockDim.x)
+      s += go[c] * out[(long long)row * d + c];
+    s = group_sum<32>(s);
+    if (lane == 0) s_red[warp] = s;
+    __syncthreads();
+    float s_v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWideWarps; ++w) s_v += s_red[w];
+
+    // 1. each slot's dl and branch flag, the warps taking the slots in turn
+    for (int k = lo + warp; k < hi; k += kWideWarps) {
+      const int sk = src[k];
+      float dl = 0.f;  // 0 on a masked slot, and so are dz and dm
+      if (sk >= 0) {
+        const float* __restrict__ m = tab + (long long)sk * d;
+        float p = 0.f;
+        for (int c = lane; c < d; c += 32) p += m[c] * go[c];
+        p = group_sum<32>(p);
+        const float al = kConcat ? slot_w[k] : slot_w[k] / den_v;
+        dl = al * p - al * s_v;
+      }
+      if (lane == 0) {
+        scratch[k] = dl;
+        slot_c[k] = sk >= 0 && is_c ? 1 : 0;
+      }
+    }
+    __syncthreads();  // publishes dl; s_red is free again
+
+    // 2. each thread's columns of dm, dud and da, the slots in order
+    for (int c = threadIdx.x; c < d; c += blockDim.x) {
+      const float g = go[c];
+      const float u = urow[c];
+      const float av = a[c];
+      float dud_c = 0.f, da_c = 0.f;
+      for (int k = lo; k < hi; ++k) {
+        const int sk = src[k];
+        float v = 0.f;
+        if (sk >= 0) {
+          const float al = kConcat ? slot_w[k] : slot_w[k] / den_v;
+          const float dl = scratch[k];
+          const float z = tab[(long long)sk * d + c] + u;
+          const float dz = dl * av * (z > 0.f ? 1.f : slope);
+          v = al * g + dz;
+          dud_c += dz;
+          da_c += dl * (z >= 0.f ? z : slope * z);
+        }
+        __stcs(dm + (long long)k * d + c, v);
+      }
+      __stcs(dud + (long long)row * d + c, dud_c);
+      part[(is_c ? 0 : d) + c] += da_c;
+    }
+  }
+}
+
+// One block per heavy row, then one per kWarps·kRows light rows; wide
+// widths one per kWideRows rows.
 int grid_size(int n_rows_layout, int n_heavy, int d) {
+  if (d > kLaneGroupColumns)
+    return (n_rows_layout + kWideRows - 1) / kWideRows;
   const int per = kWarps * light_rows_per_warp(group_lanes(d));
   return n_heavy + (n_rows_layout + per - 1) / per;
 }
@@ -414,11 +529,29 @@ cudaError_t launch(const void* src, const void* ranges, const void* u1,
                    const void* heavy, int n_heavy, const void* slot_w,
                    const void* den, const void* out, const void* dout,
                    void* dm, void* dud, void* da_part, int n_parts,
-                   void* slot_c, void* stream) {
-  if (d < 1 || d > 256 || n_rows_layout < 1 || n_out > n_rows_layout ||
+                   void* slot_c, void* scratch, void* stream) {
+  if (d < 1 || n_rows_layout < 1 || n_out > n_rows_layout ||
       node_block < 1 || tile_e < 1 || n_heavy < 0 ||
-      n_parts != grid_size(n_rows_layout, n_heavy, d)) {
+      n_parts != grid_size(n_rows_layout, n_heavy, d) ||
+      (d > kLaneGroupColumns && scratch == nullptr)) {
     return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d > kLaneGroupColumns) {
+    attention_bwd_wide_kernel<kConcat>
+        <<<dim3(n_parts), dim3(kWideWarps * 32), 0, st>>>(
+            static_cast<const int32_t*>(src),
+            static_cast<const int32_t*>(ranges),
+            static_cast<const float*>(u1), static_cast<const float*>(u2),
+            static_cast<const float*>(ud), static_cast<const bool*>(central),
+            static_cast<const float*>(a1), static_cast<const float*>(a2),
+            slope, d, n_rows_layout, n_out, node_block, tile_e,
+            static_cast<const float*>(slot_w), static_cast<const float*>(den),
+            static_cast<const float*>(out), static_cast<const float*>(dout),
+            static_cast<float*>(dm), static_cast<float*>(dud),
+            static_cast<float*>(da_part), static_cast<uint8_t*>(slot_c),
+            static_cast<float*>(scratch));
+    return cudaGetLastError();
   }
   const bool vec = d % 4 == 0 && aligned16(u1) && aligned16(u2) &&
                    aligned16(ud) && aligned16(a1) && aligned16(a2) &&
@@ -426,7 +559,6 @@ cudaError_t launch(const void* src, const void* ranges, const void* u1,
                    aligned16(dud);
   const dim3 grid(n_parts);
   const dim3 block(kWarps * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BGNN_LAUNCH(G, PER, VEC)                                             \
   attention_bwd_kernel<G, PER, VEC, kConcat><<<grid, block, 0, st>>>(        \
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(ranges), \
@@ -479,11 +611,11 @@ extern "C" int attention_sel_bwd(const void* src, const void* ranges,
                                  const void* ex, const void* den,
                                  const void* out, const void* dout, void* dm,
                                  void* dud, void* da_part, int n_parts,
-                                 void* slot_c, void* stream) {
+                                 void* slot_c, void* scratch, void* stream) {
   return static_cast<int>(launch<false>(
       src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,
       n_out, node_block, tile_e, heavy, n_heavy, ex, den, out, dout, dm, dud,
-      da_part, n_parts, slot_c, stream));
+      da_part, n_parts, slot_c, scratch, stream));
 }
 
 extern "C" int attention_bwd(const void* src, const void* ranges,
@@ -495,9 +627,9 @@ extern "C" int attention_bwd(const void* src, const void* ranges,
                              const void* alpha, const void* out,
                              const void* dout, void* dm, void* dud,
                              void* da_part, int n_parts, void* slot_c,
-                             void* stream) {
+                             void* scratch, void* stream) {
   return static_cast<int>(launch<true>(
       src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,
       n_out, node_block, tile_e, heavy, n_heavy, alpha, nullptr, out, dout,
-      dm, dud, da_part, n_parts, slot_c, stream));
+      dm, dud, da_part, n_parts, slot_c, scratch, stream));
 }

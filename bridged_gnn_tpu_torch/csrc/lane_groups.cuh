@@ -18,6 +18,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // A row with more than kHeavySlots slots gets a thread block of its own
 // (the reason is in attention_fwd.cu's header); = HEAVY_SLOTS in Python.
 constexpr int kHeavySlots = 128;
+// The widest row a lane group holds in registers: 32 lanes of kPer = 2 ×
+// 4 columns. Wider rows take each attention kernel's wide path, chosen at
+// launch; = LANE_GROUP_COLUMNS in Python.
+constexpr int kLaneGroupColumns = 256;
 
 // kStream marks data read once (evict-first in L2), so that it leaves the
 // cache to the u tables.
@@ -58,7 +62,7 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int c, int d,
 
 // G = min(32, ⌈D/4⌉) rounded up to a power of two: the lanes of one group.
 // The launchers switch on it and take kPer = 2 at G = 32 past D = 128, so
-// that 4·G·kPer >= D.
+// that 4·G·kPer >= D up to kLaneGroupColumns.
 __host__ __device__ constexpr int group_lanes(int d) {
   return d <= 4 ? 1 : d <= 8 ? 2 : d <= 16 ? 4 : d <= 32 ? 8
          : d <= 64 ? 16 : 32;

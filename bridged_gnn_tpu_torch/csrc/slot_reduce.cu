@@ -42,6 +42,9 @@
 //     branch flag, row), so a 128-entry sender takes ~50 µs, about one wave
 //     of a bench-size call; the main path's ordinary senders (at most ~70
 //     entries) stay light and only hub senders (~850) go heavy.
+//   * Column chunks. A lane group holds 4·G·kPer columns, at most 512; a
+//     wider W is reduced in column chunks of 512, each a pass over the
+//     sender's entries (plain, not fast; the main path's widths take one).
 // Every sum is taken in a fixed order (a light sender's in CSR order, as
 // before), with no atomics: two launches give bit-identical outputs.
 //
@@ -62,7 +65,6 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 16;          // warps per block, light or heavy
 constexpr int kHeavyEntries = 128;  // see the header; = HEAVY_SLOTS in Python
-constexpr int kMaxW = 512;
 
 // Every slot row is read once and every output row written once: streaming
 // (evict-first) loads and stores keep L2 for the index and the flags.
@@ -100,13 +102,13 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int c, int w,
 
 // One group sums the entries k0, k0 + stride, ... below hi, in that order,
 // into acc1 (branch 1) and acc2 (branch 0). Lane gl of the group holds
-// columns 4·(gl + kG·i) + j. The slot ids of the next kU entries are
-// requested before this step's rows are added.
+// columns c0 + 4·(gl + kG·i) + j of the chunk starting at c0. The slot ids
+// of the next kU entries are requested before this step's rows are added.
 template <bool kVec, int kG, int kPer>
 __device__ __forceinline__ void sum_entries(
     const int32_t* __restrict__ slots, const float* __restrict__ vals,
-    const uint8_t* __restrict__ branch, int w, int k0, int hi, int stride,
-    int gl, float (&acc1)[kPer][4], float (&acc2)[kPer][4]) {
+    const uint8_t* __restrict__ branch, int w, int c0, int k0, int hi,
+    int stride, int gl, float (&acc1)[kPer][4], float (&acc2)[kPer][4]) {
   constexpr int kU = 4 / kPer;  // entries in flight per group
 #pragma unroll
   for (int i = 0; i < kPer; ++i)
@@ -134,7 +136,7 @@ __device__ __forceinline__ void sum_entries(
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
         if (p[u] >= 0) {
-          load4<kVec>(vals + (long long)p[u] * w, 4 * (gl + kG * i), w,
+          load4<kVec>(vals + (long long)p[u] * w, c0 + 4 * (gl + kG * i), w,
                       v[u][i]);
         } else {
 #pragma unroll
@@ -171,7 +173,7 @@ slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
                    float* __restrict__ out)  // [n_rows, 2W]
 {
   constexpr int kGroups = 32 / kG;
-  constexpr int kWP = 4 * kG * kPer;  // padded W
+  constexpr int kWP = 4 * kG * kPer;  // padded W, the width of a chunk
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int grp = lane / kG;
@@ -189,14 +191,16 @@ slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
       hi = ranges[2 * row + 1];
     }
     if (hi - lo > kHeavyEntries) return;  // a heavy block owns it
-    sum_entries<kVec, kG, kPer>(slots, vals, branch, w, lo, hi, 1, gl, acc1,
-                                acc2);
     float* __restrict__ orow = out + row * ow;
+    for (int c0 = 0; c0 < w; c0 += kWP) {
+      sum_entries<kVec, kG, kPer>(slots, vals, branch, w, c0, lo, hi, 1, gl,
+                                  acc1, acc2);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = 4 * (gl + kG * i);
-      store4<kVec>(orow, c, w, acc1[i]);
-      store4<kVec>(orow + w, c, w, acc2[i]);
+      for (int i = 0; i < kPer; ++i) {
+        const int c = c0 + 4 * (gl + kG * i);
+        store4<kVec>(orow, c, w, acc1[i]);
+        store4<kVec>(orow + w, c, w, acc2[i]);
+      }
     }
     return;
   }
@@ -210,37 +214,40 @@ slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
   const int chunk = (hi - lo + kWarps - 1) / kWarps;
   const int wlo = min(hi, lo + warp * chunk);
   const int whi = min(hi, wlo + chunk);
-  sum_entries<kVec, kG, kPer>(slots, vals, branch, w, wlo + grp, whi,
-                              kGroups, gl, acc1, acc2);
-  // merge the groups: a butterfly over lane distances kG, ..., 16 (a sum of
-  // two floats is the same on both partners)
-#pragma unroll
-  for (int o = kG; o < 32; o <<= 1)
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc1[i][j] += __shfl_xor_sync(kFull, acc1[i][j], o);
-        acc2[i][j] += __shfl_xor_sync(kFull, acc2[i][j], o);
-      }
   float* __restrict__ orow = out + (long long)r * ow;
+  for (int c0 = 0; c0 < w; c0 += kWP) {
+    sum_entries<kVec, kG, kPer>(slots, vals, branch, w, c0, wlo + grp, whi,
+                                kGroups, gl, acc1, acc2);
+    // merge the groups: a butterfly over lane distances kG, ..., 16 (a sum
+    // of two floats is the same on both partners)
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (lane < kG) {
+    for (int o = kG; o < 32; o <<= 1)
 #pragma unroll
       for (int i = 0; i < kPer; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s_part[warp][4 * (gl + kG * i) + j] = half ? acc2[i][j] : acc1[i][j];
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < w; c += blockDim.x) {
-      float s = 0.f;
+        for (int j = 0; j < 4; ++j) {
+          acc1[i][j] += __shfl_xor_sync(kFull, acc1[i][j], o);
+          acc2[i][j] += __shfl_xor_sync(kFull, acc2[i][j], o);
+        }
 #pragma unroll
-      for (int v = 0; v < kWarps; ++v) s += s_part[v][c];
-      __stcs(orow + half * w + c, s);
+    for (int half = 0; half < 2; ++half) {
+      if (lane < kG) {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s_part[warp][4 * (gl + kG * i) + j] =
+                half ? acc2[i][j] : acc1[i][j];
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < min(kWP, w - c0); c += blockDim.x) {
+        float s = 0.f;
+#pragma unroll
+        for (int v = 0; v < kWarps; ++v) s += s_part[v][c];
+        __stcs(orow + half * w + c0 + c, s);
+      }
+      __syncthreads();  // s_part is reused by the next half or chunk
     }
-    __syncthreads();  // s_part is reused by the next half
   }
 }
 
@@ -260,7 +267,8 @@ cudaError_t launch(const void* ranges, const void* slots, const void* vals,
           static_cast<const uint8_t*>(branch),                               \
           static_cast<const int32_t*>(heavy), n_heavy, w, n_ranges, n_rows,  \
           static_cast<float*>(out))
-  // G = min(32, ⌈W/4⌉) rounded up to a power of two; 4·G·PER >= W
+  // G = min(32, ⌈W/4⌉) rounded up to a power of two; 4·G·PER >= W up to
+  // W = 512, wider W in chunks of 512
   if (w <= 4) {
     BGNN_LAUNCH(1, 1);
   } else if (w <= 8) {
@@ -293,7 +301,7 @@ extern "C" int slot_reduce(const void* ranges, const void* slots,
                            const void* heavy, int n_heavy, int w,
                            int n_ranges, int n_rows, void* out,
                            void* stream) {
-  if (w < 1 || w > kMaxW || n_ranges < 0 || n_rows < 1 || n_heavy < 0 ||
+  if (w < 1 || n_ranges < 0 || n_rows < 1 || n_heavy < 0 ||
       branch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,10 +25,10 @@ block a tile that wide.
 
 Both indexes list their heavy rows: ``dst_heavy`` the destination rows
 with more than :data:`HEAVY_SLOTS` slots in their run, ``src_heavy`` the
-senders with more than that many CSR entries. The concatenated attention
-forward and the sender reduce give each heavy row a thread block of its
-own and every other row a warp or part of one (``csrc/attention_fwd.cu``,
-``csrc/slot_reduce.cu``).
+senders with more than that many CSR entries. The attention kernels and
+the sender reduce give each heavy row a thread block of its own and
+every other row a warp or part of one (``csrc/attention_fwd.cu``,
+``csrc/attention_bwd.cu``, ``csrc/slot_reduce.cu``).
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ import numpy as np
 import torch
 
 # Slots (or CSR entries) above which a row is heavy. The kernels test the
-# same bound (kHeavySlots in csrc/attention_fwd.cu, kHeavyEntries in
-# csrc/slot_reduce.cu, which give their reason); ops/fused_kernels.py
+# same bound (kHeavySlots in csrc/lane_groups.cuh, kHeavyEntries in
+# csrc/slot_reduce.cu, whose headers give the reason); ops/fused_kernels.py
 # checks at load time that the three agree.
 HEAVY_SLOTS = 128
 

@@ -26,11 +26,15 @@ so raw ``ex`` differs from the TPU's by a per-block factor while
 ``α = ex / den`` and the outputs agree.
 
 A wrapper launches its kernel for CUDA tensors and runs its plain version
-for CPU tensors; nothing else picks between the two. The plain versions
-take the same arguments and compute the same function in straightforward
-torch ops. No wrapper records autograd: the gradients come from the
-autograd Functions of ``ops/fused_attention.py``, whose backwards launch
-the backward kernels.
+for CPU tensors; nothing else picks between the two. Every kernel takes
+any width: past :data:`LANE_GROUP_COLUMNS` the attention kernels switch
+to their wide path at launch. The plain versions take the same arguments and
+compute the same function in straightforward torch ops, walking the slots
+in chunks of whole layout blocks so that a wide ``D`` on a large graph
+holds no more than a chunk's ``[slots, D]`` temporaries at once. No
+wrapper records autograd: the gradients come from the autograd Functions
+of ``ops/fused_attention.py``, whose backwards launch the backward
+kernels.
 
 The kernels are built at first use for ``sm_90a``, one ``nvcc`` per
 source started together, linked into one library under
@@ -69,7 +73,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-Xcompiler", "-fPIC",
 )
-_MAX_D = 256
+# The widest row the attention kernels' lane groups hold in registers
+# (kLaneGroupColumns in csrc/lane_groups.cuh, checked at load time): wider
+# rows take the kernels' wide path, whose backward needs a per-slot scratch.
+LANE_GROUP_COLUMNS = 256
+# Elements of one [slots, D] temporary of a plain version (see above).
+_PLAIN_CHUNK = 1 << 25
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -146,36 +155,37 @@ def build_kernels() -> Tuple[Path, float]:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,
-    # n_out, node_block, tile_e
-    head = [p] * 8 + [f] + [i] * 5
-    # ... out, ex|alpha, [den], stream
+    # n_out, node_block, tile_e, dst_heavy, n_heavy
+    head = [p] * 8 + [f] + [i] * 5 + [p, i]
+    # ... out, ex, den, stream
     lib.attention_sel_fwd.argtypes = head + [p, p, p, p]
-    # ... dst_heavy, n_heavy, out, alpha, stream
-    lib.attention_fwd.argtypes = head + [p, i, p, p, p]
-    # ... dst_heavy, n_heavy, ex, den, out, dout, dm, dud, da_part,
-    # n_parts, slot_c, stream
-    lib.attention_sel_bwd.argtypes = head + [p, i] + [p] * 7 + [i, p, p]
-    # ... dst_heavy, n_heavy, alpha, out, dout, dm, dud, da_part, n_parts,
-    # slot_c, stream
-    lib.attention_bwd.argtypes = head + [p, i] + [p] * 6 + [i, p, p]
+    # ... out, alpha, stream
+    lib.attention_fwd.argtypes = head + [p, p, p]
+    # ... ex, den, out, dout, dm, dud, da_part, n_parts, slot_c, scratch,
+    # stream
+    lib.attention_sel_bwd.argtypes = head + [p] * 7 + [i, p, p, p]
+    # ... alpha, out, dout, dm, dud, da_part, n_parts, slot_c, scratch,
+    # stream
+    lib.attention_bwd.argtypes = head + [p] * 6 + [i, p, p, p]
     # src_ranges, src_slots, vals, branch, src_heavy, n_heavy, w, n_ranges,
     # n_rows, out, stream
     lib.slot_reduce.argtypes = [p] * 5 + [i] * 4 + [p, p]
     # n_rows_layout, n_heavy, d
     lib.attention_bwd_grid.argtypes = [i] * 3
-    # the attention sources share one heavy bound (csrc/lane_groups.cuh)
-    consts = (lib.attention_fwd_heavy_slots, lib.slot_reduce_heavy_entries)
-    for fn in consts:
+    # the attention sources share their bounds (csrc/lane_groups.cuh)
+    consts = ((lib.attention_fwd_heavy_slots, HEAVY_SLOTS),
+              (lib.slot_reduce_heavy_entries, HEAVY_SLOTS),
+              (lib.attention_lane_group_columns, LANE_GROUP_COLUMNS))
+    for fn, _ in consts:
         fn.argtypes = []
     for fn in (lib.attention_sel_fwd, lib.attention_fwd,
                lib.attention_sel_bwd, lib.attention_bwd, lib.slot_reduce,
-               lib.attention_bwd_grid, *consts):
+               lib.attention_bwd_grid, *(fn for fn, _ in consts)):
         fn.restype = i
-    bounds = tuple(fn() for fn in consts)
-    if bounds != (HEAVY_SLOTS,) * len(consts):
-        raise RuntimeError(
-            f"the kernels' heavy-row bounds {bounds} differ from the "
-            f"layouts' HEAVY_SLOTS = {HEAVY_SLOTS}")
+    for fn, want in consts:
+        if fn() != want:
+            raise RuntimeError(
+                f"the kernels' {fn.__name__} is {fn()}, Python's {want}")
     return lib
 
 
@@ -215,8 +225,8 @@ def _check_inputs(lay: PaddedLayout, u1, u2, ud, central, a1, a2) -> None:
             f"u1 and u2 must be equal [N, D]; got {list(u1.shape)} and "
             f"{list(u2.shape)}")
     n_in, d = u1.shape
-    if not 1 <= d <= _MAX_D:
-        raise ValueError(f"D must be in [1, {_MAX_D}], got {d}")
+    if d < 1:
+        raise ValueError(f"D must be at least 1, got {d}")
     n_out = central.shape[0]
     n_rows = lay.num_blocks * lay.node_block
     if central.dim() != 1 or n_out > n_rows:
@@ -334,31 +344,51 @@ def _attention_args(lay, u1, u2, ud, central, a1, a2, negative_slope):
         u1.data_ptr(), u2.data_ptr(), ud.data_ptr(), central.data_ptr(),
         a1.data_ptr(), a2.data_ptr(), float(negative_slope), u1.shape[1],
         lay.num_blocks * lay.node_block, central.shape[0], lay.node_block,
-        lay.tile_e,
+        lay.tile_e, lay.dst_heavy.data_ptr(), lay.dst_heavy.shape[0],
     ]
 
 
 # ------------------------------------------------------------ plain versions
 
 
-def _plain_softmax(lay, u1, u2, ud, central, a1, a2, negative_slope):
-    """Per-slot ``ex`` under the per-destination max, the destination
-    sums ``den`` (0 ⇒ 1), the slot rows and the gathered sender rows."""
-    n_out = central.shape[0]
+def _block_chunks(lay: PaddedLayout, width: int):
+    """Flat slot ranges of whole layout blocks, about ``_PLAIN_CHUNK //
+    width`` slots each. A destination's slots never leave its block, so
+    every per-destination sum of a chunk is complete."""
+    per = max(1, _PLAIN_CHUNK // (lay.tile_e * max(width, 1)))
+    for b0 in range(0, lay.num_blocks, per):
+        yield slice(b0 * lay.tile_e,
+                    min(b0 + per, lay.num_blocks) * lay.tile_e)
+
+
+def _plain_fwd(lay, u1, u2, ud, central, a1, a2, negative_slope, concat):
+    """Shared forward of the two plain versions: per-slot ``ex`` under the
+    per-destination max (0 on pad and masked slots), the destination sums
+    ``den`` (0 ⇒ 1), and ``Σ ex·m / den`` over the selected branch's
+    sender rows ([n_out, D]) or over both tables' ([n_out, 2D])."""
+    n_out, d = central.shape[0], u1.shape[1]
     row, valid = slot_rows(lay)
-    c = central[row] & valid
-    s = lay.slot_src.clamp(min=0).long()
-    m1, m2 = u1[s], u2[s]
-    m = torch.where(c[:, None], m1, m2)
-    h = torch.nn.functional.leaky_relu(m + ud[row], negative_slope)
-    logit = torch.where(c, (h * a1).sum(-1), (h * a2).sum(-1))
-    logit = torch.where(valid, logit, float("-inf"))
-    mx = logit.new_full((n_out,), float("-inf")).scatter_reduce(
-        0, row, logit, reduce="amax")
-    ex = torch.where(valid, torch.exp(logit - mx[row]), 0.0)
-    den = ex.new_zeros(n_out).index_add(0, row, ex)
+    ex = u1.new_zeros(lay.slot_src.shape[0])
+    den = u1.new_zeros(n_out)
+    acc = u1.new_zeros(n_out, 2 * d if concat else d)
+    for sl in _block_chunks(lay, 2 * d if concat else d):
+        r, v = row[sl], valid[sl]
+        c = central[r] & v
+        s = lay.slot_src[sl].clamp(min=0).long()
+        m1, m2 = u1[s], u2[s]
+        m = torch.where(c[:, None], m1, m2)
+        h = torch.nn.functional.leaky_relu(m + ud[r], negative_slope)
+        logit = torch.where(c, (h * a1).sum(-1), (h * a2).sum(-1))
+        logit = torch.where(v, logit, float("-inf"))
+        mx = logit.new_full((n_out,), float("-inf")).scatter_reduce(
+            0, r, logit, reduce="amax")
+        e = torch.where(v, torch.exp(logit - mx[r]), 0.0)
+        ex[sl] = e
+        den.index_add_(0, r, e)
+        acc.index_add_(0, r, e[:, None] * (torch.cat([m1, m2], dim=1)
+                                           if concat else m))
     den = torch.where(den == 0, 1.0, den)
-    return ex, den, row, m, m1, m2
+    return acc / den[:, None], ex, den, row
 
 
 def attention_sel_fwd_plain(
@@ -367,11 +397,9 @@ def attention_sel_fwd_plain(
     negative_slope: float = 0.1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`attention_sel_fwd`."""
-    ex, den, row, m, _, _ = _plain_softmax(
-        lay, u1, u2, ud, central, a1, a2, negative_slope)
-    n_out, d = central.shape[0], u1.shape[1]
-    acc = m.new_zeros(n_out, d).index_add(0, row, ex[:, None] * m)
-    return acc / den[:, None], ex, den
+    out, ex, den, _ = _plain_fwd(lay, u1, u2, ud, central, a1, a2,
+                                 negative_slope, concat=False)
+    return out, ex, den
 
 
 def attention_fwd_plain(
@@ -380,13 +408,9 @@ def attention_fwd_plain(
     negative_slope: float = 0.1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`attention_fwd`."""
-    ex, den, row, _, m1, m2 = _plain_softmax(
-        lay, u1, u2, ud, central, a1, a2, negative_slope)
-    alpha = ex / den[row]
-    n_out, d = central.shape[0], u1.shape[1]
-    out = m1.new_zeros(n_out, 2 * d).index_add(
-        0, row, alpha[:, None] * torch.cat([m1, m2], dim=1))
-    return out, alpha
+    out, ex, den, row = _plain_fwd(lay, u1, u2, ud, central, a1, a2,
+                                   negative_slope, concat=True)
+    return out, ex / den[row]
 
 
 def _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha, out, dout,
@@ -399,23 +423,28 @@ def _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha, out, dout,
     kernels."""
     n_out, d = central.shape[0], u1.shape[1]
     row, valid = slot_rows(lay)
-    c = central[row] & valid
-    s = lay.slot_src.clamp(min=0).long()
-    m = torch.where(c[:, None], u1[s], u2[s])
-    go = dout[row]
     seg = (dout * out).sum(-1)
-    dl = alpha * (m * go).sum(-1) - alpha * seg[row]
-    z = m + ud[row]
-    h = torch.nn.functional.leaky_relu(z, negative_slope)
-    g = torch.where(z > 0, torch.ones_like(z), negative_slope)
-    a_sel = torch.where(c[:, None], a1, a2)
-    dz = torch.where(valid[:, None], dl[:, None] * a_sel * g, 0.0)
-    dm = torch.where(valid[:, None], alpha[:, None] * go + dz, 0.0)
-    dud = dz.new_zeros(n_out, d).index_add(0, row, dz)
-    dlh = dl[:, None] * h
-    da = torch.cat([torch.where(c[:, None], dlh, 0.0).sum(0),
-                    torch.where((valid & ~c)[:, None], dlh, 0.0).sum(0)])
-    return dm, dud, da, c.to(torch.uint8)
+    dm = u1.new_empty(lay.slot_src.shape[0], d)
+    dud = u1.new_zeros(n_out, d)
+    da = u1.new_zeros(2 * d)
+    for sl in _block_chunks(lay, d):
+        r, v, al = row[sl], valid[sl], alpha[sl]
+        c = central[r] & v
+        s = lay.slot_src[sl].clamp(min=0).long()
+        m = torch.where(c[:, None], u1[s], u2[s])
+        go = dout[r]
+        dl = al * (m * go).sum(-1) - al * seg[r]
+        z = m + ud[r]
+        h = torch.nn.functional.leaky_relu(z, negative_slope)
+        g = torch.where(z > 0, torch.ones_like(z), negative_slope)
+        a_sel = torch.where(c[:, None], a1, a2)
+        dz = torch.where(v[:, None], dl[:, None] * a_sel * g, 0.0)
+        dm[sl] = torch.where(v[:, None], al[:, None] * go + dz, 0.0)
+        dud.index_add_(0, r, dz)
+        dlh = dl[:, None] * h
+        da += torch.cat([torch.where(c[:, None], dlh, 0.0).sum(0),
+                         torch.where((v & ~c)[:, None], dlh, 0.0).sum(0)])
+    return dm, dud, da, (central[row] & valid).to(torch.uint8)
 
 
 def attention_sel_bwd_plain(
@@ -445,15 +474,21 @@ def attention_bwd_plain(
 def slot_reduce_plain(
     lay: PaddedLayout, vals: torch.Tensor, n_rows: int, branch: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain version of :func:`slot_reduce`."""
+    """Plain version of :func:`slot_reduce`, over chunks of CSR entries."""
     r = lay.src_ranges.long()
     sender = torch.repeat_interleave(
         torch.arange(r.shape[0], device=vals.device), r[:, 1] - r[:, 0])
     p = lay.src_slots.long()
-    v = vals[p]
-    b = branch[p].bool()[:, None]
-    v = torch.cat([torch.where(b, v, 0.0), torch.where(b, 0.0, v)], 1)
-    return v.new_zeros(n_rows, v.shape[1]).index_add(0, sender, v)
+    w = vals.shape[1]
+    out = vals.new_zeros(n_rows, 2 * w)
+    step = max(1, _PLAIN_CHUNK // w)
+    for k0 in range(0, p.shape[0], step):
+        v = vals[p[k0:k0 + step]]
+        b = branch[p[k0:k0 + step]].bool()[:, None]
+        out.index_add_(0, sender[k0:k0 + step],
+                       torch.cat([torch.where(b, v, 0.0),
+                                  torch.where(b, 0.0, v)], 1))
+    return out
 
 
 # ---------------------------------------------------------------- wrappers
@@ -473,6 +508,8 @@ def attention_sel_fwd(
 
     Returns ``out`` [n_out, D], ``ex`` [B·Et] (per-slot softmax numerators
     under the per-destination max; 0 on pad slots) and ``den`` [n_out].
+    The kernel reads only the destination's table and gives each of the
+    layout's ``dst_heavy`` rows a thread block of its own.
     """
     inputs = (lay, u1, u2, ud, central, a1, a2, negative_slope)
     _forward_only(u1=u1, u2=u2, ud=ud, a1=a1, a2=a2)
@@ -506,9 +543,7 @@ def attention_fwd(
     n_out, d = central.shape[0], u1.shape[1]
     out = torch.empty(n_out, 2 * d, device=u1.device)
     alpha = torch.empty(lay.slot_src.shape[0], device=u1.device)
-    args = (_attention_args(*inputs)
-            + [lay.dst_heavy.data_ptr(), lay.dst_heavy.shape[0]]
-            + [o.data_ptr() for o in (out, alpha)])
+    args = _attention_args(*inputs) + [o.data_ptr() for o in (out, alpha)]
     _launch(attention_fwd, d, args, inputs, u1.device)
     return out, alpha
 
@@ -517,8 +552,10 @@ def _bwd_launch(wrapper, lay, u1, u2, ud, central, a1, a2, residuals,
                 negative_slope, inputs):
     """Allocate a backward kernel's outputs — ``dm`` [S, D], ``dud``
     [n_out, D], one ``[da1 ‖ da2]`` partial row per thread block (the
-    library gives the grid size) and ``slot_c`` [S] — launch it, and
-    return them with the partials summed in block order."""
+    library gives the grid size) and ``slot_c`` [S] — and, past
+    :data:`LANE_GROUP_COLUMNS`, the wide path's per-slot scratch; launch
+    the kernel, and return its outputs with the partials summed in block
+    order."""
     dev, d = u1.device, u1.shape[1]
     n_slots = lay.slot_src.shape[0]
     n_parts = _kernel_lib().attention_bwd_grid(
@@ -527,10 +564,12 @@ def _bwd_launch(wrapper, lay, u1, u2, ud, central, a1, a2, residuals,
     dud = torch.empty(central.shape[0], d, device=dev)
     parts = torch.empty(n_parts, 2 * d, device=dev)
     slot_c = torch.empty(n_slots, dtype=torch.uint8, device=dev)
+    scratch = (torch.empty(n_slots, device=dev) if d > LANE_GROUP_COLUMNS
+               else None)
     args = (_attention_args(lay, u1, u2, ud, central, a1, a2, negative_slope)
-            + [lay.dst_heavy.data_ptr(), lay.dst_heavy.shape[0]]
             + [t.data_ptr() for t in (*residuals, dm, dud, parts)]
-            + [n_parts, slot_c.data_ptr()])
+            + [n_parts, slot_c.data_ptr(),
+               None if scratch is None else scratch.data_ptr()])
     _launch(wrapper, d, args, inputs, dev)
     return dm, dud, parts.sum(0), slot_c
 
@@ -606,9 +645,9 @@ def slot_reduce(
                    dict(src_ranges=lay.src_ranges, src_slots=lay.src_slots,
                         src_heavy=lay.src_heavy, branch=branch))
     n_slots, w = lay.slot_src.shape[0], vals.shape[-1]
-    if vals.dim() != 2 or vals.shape[0] != n_slots or not 1 <= w <= 2 * _MAX_D:
-        raise ValueError(f"vals must be [{n_slots}, W] with 1 <= W <= "
-                         f"{2 * _MAX_D}, got {list(vals.shape)}")
+    if vals.dim() != 2 or vals.shape[0] != n_slots or w < 1:
+        raise ValueError(f"vals must be [{n_slots}, W] with W >= 1, got "
+                         f"{list(vals.shape)}")
     if branch.dtype != torch.uint8 or list(branch.shape) != [n_slots]:
         raise ValueError(f"branch must be uint8 [{n_slots}]")
     for name in ("src_ranges", "src_slots", "src_heavy"):

@@ -87,6 +87,10 @@ class KTGNNPredictor:
                     f"[0, {n})")
             if (nodes < 0).any() or (nodes >= n).any():
                 raise ValueError(f"'nodes' must be ids in [0, {n})")
+            # an indexed assignment with a repeated id keeps an unspecified
+            # one of its rows on CUDA
+            if len(np.unique(nodes)) != len(nodes):
+                raise ValueError("'nodes' must not repeat an id")
             rows = np.asarray(x, dtype=np.float32)
             if rows.shape != (len(nodes), d):
                 raise ValueError(

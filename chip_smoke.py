@@ -52,7 +52,19 @@ Phases, in order; any failure exits non-zero:
 11. card vs CPU: 2 epochs at dropout 0 from the same seeded init on the
    card and on the CPU (plain versions), on each graph; per-epoch losses
    within rtol 1e-4, final weights and BN statistics within rtol 1e-3 and
-   atol 1e-5.
+   atol 1e-5;
+12. heavy rows on a single layout: the "lead graph" (the bench graph with
+   every 10th edge's destination redrawn from the 1,024 block-leading ids
+   0, 128, ..., 131072 − 128), where the skew rule keeps one layout but
+   1,024 rows exceed the heavy bound; the selective forward calls of one
+   predict replayed as in phase 3, their count of heavy rows printed;
+13. wide widths: each of the five kernels at D = 257, 512 and 1030 (past
+   the 256 columns a lane group holds) on the bench graph's layout with
+   seeded random tables, one call each against its plain version on the
+   card (forwards at rtol and atol 1e-4; backwards and reduce at rtol
+   1e-4, atol 1e-4 × the output's largest magnitude), launched twice to
+   give bit-identical outputs, compared in row chunks (a 1030-wide ``dm``
+   is 19 GB), and timed.
 
 In the ``{"kernels": [...]}`` line the forwards' launch counts are those
 of the serving phases and their ``ms`` the kernel's time per predict
@@ -62,7 +74,9 @@ epoch inside the training run (``per``: "epoch"). Each count is set to 0
 just before its phase. ``plain_ms``, ``bound_ms`` and ``library_ms`` sum
 the replayed calls of one predict or one training step; a replayed call's
 time counts the wrapper's host work (``ms_replayed``) and, apart, only the
-card's (``ms_replayed_device``, ``library_device_ms``).
+card's (``ms_replayed_device``, ``library_device_ms``). Each row also
+lists its wide-width calls (``wide``, phase 13), and the selective
+forward's row its calls on the lead graph (``lead_layout``, phase 12).
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -87,6 +101,12 @@ import numpy as np
 BENCH = dict(n=131072, avg_degree=16, dim=128, num_classes=8, seed=0)
 HIDDEN = 64              # Stage2Config().hidden: the conv's width
 HUB_NODES = 256          # hub destinations of the tiered graph
+LEAD_BLOCK = 128         # the serving layout's node_block: the lead graph's
+                         # hubs are the first rows of its blocks
+WIDE_DS = (257, 512, 1030)   # phase 13: past the lane groups' 256 columns
+WIDE_REPS = 5            # phase 13: timed calls (a 1030-wide backward moves
+                         # ~60 GB)
+WIDE_CHUNK = 1 << 26     # phase 13: elements compared at a time
 RTOL = ATOL = 1e-4       # kernel vs plain version, f32
 LOGPROB_ATOL = 1e-4      # card vs CPU log-probabilities
 LOSS_RTOL = 1e-4         # card vs CPU training losses
@@ -125,6 +145,19 @@ def hub_graph(data: dict, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     ei = data["edge_index"].copy()
     ei[1, ::10] = rng.integers(0, HUB_NODES, size=ei[1, ::10].shape[0])
+    return dict(data, edge_index=ei)
+
+
+def lead_graph(data: dict, seed: int) -> dict:
+    """The bench graph with the destination of every 10th edge (before
+    to_undirected) replaced by one of the block-leading ids 0, LEAD_BLOCK,
+    2·LEAD_BLOCK, ...: every block of the serving layout gets one heavy
+    row, too few slots per block for the skew rule to pick tiers."""
+    rng = np.random.default_rng(seed)
+    ei = data["edge_index"].copy()
+    n_lead = data["x"].shape[0] // LEAD_BLOCK
+    ei[1, ::10] = rng.integers(0, n_lead, size=ei[1, ::10].shape[0]) \
+        * LEAD_BLOCK
     return dict(data, edge_index=ei)
 
 
@@ -404,6 +437,130 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
         records.append(out)
         del got, want
     return records
+
+
+def _row_chunks(t):
+    """Row slices of ``t`` holding about WIDE_CHUNK elements each."""
+    per = max(1, WIDE_CHUNK // max(1, t[0].numel()))
+    return [slice(i, i + per) for i in range(0, t.shape[0], per)]
+
+
+def _compare_chunked(where, got, again, want, scaled):
+    """Phase 13's comparison, in row chunks: ``got`` and ``again`` (two
+    launches) equal, ``got`` finite and within rtol ``RTOL`` and atol
+    ``ATOL`` (times ``want``'s largest magnitude when ``scaled``) of the
+    plain ``want``, integers equal. Returns (max abs err, that over the
+    largest magnitude)."""
+    import torch
+
+    parts = _row_chunks(got)
+    if not all(torch.equal(got[p], again[p]) for p in parts):
+        raise RuntimeError(f"{where}: two launches on the same inputs differ")
+    if not got.is_floating_point():
+        if not all(torch.equal(got[p], want[p]) for p in parts):
+            raise RuntimeError(f"{where}: integer output differs from the "
+                               "plain version's")
+        return 0.0, 0.0
+    w_max = max(float(want[p].abs().max()) for p in parts)
+    atol = ATOL * (w_max if scaled else 1.0)
+    err = 0.0
+    for p in parts:
+        if not torch.isfinite(got[p]).all():
+            raise RuntimeError(f"{where}: non-finite kernel output")
+        err = max(err, float((got[p] - want[p]).abs().max()))
+        if not torch.allclose(got[p], want[p], rtol=RTOL, atol=atol):
+            raise RuntimeError(f"{where} disagrees with its plain version: "
+                               f"max abs err {err:.3g} (atol {atol:.3g})")
+    return err, err / max(w_max, 1e-30)
+
+
+def check_wide(name, wrapper, plain, inputs, scaled, bound, library=None):
+    """Phase 13, one call: the kernel launched twice and its plain version
+    on the same inputs, compared by :func:`_compare_chunked`, then timed
+    (``WIDE_REPS`` calls; the plain version twice). Returns the kernel's
+    outputs and the call's record."""
+    import torch
+
+    got = _outs(wrapper(*inputs))
+    again = _outs(wrapper(*inputs))
+    torch.cuda.synchronize()
+    want = _outs(plain(*inputs))
+    d = inputs[1].shape[1]
+    where = f"{name} at D={d}"
+    errs = [_compare_chunked(f"{where}, output {i}", g, a, w, scaled)
+            for i, (g, a, w) in enumerate(zip(got, again, want))]
+    del again, want
+    torch.cuda.empty_cache()
+    lib_ms = lib_device_ms = None
+    if library is not None:
+        call = library(inputs)
+        if not torch.allclose(call(), got[0], rtol=RTOL,
+                              atol=ATOL * float(got[0].abs().max())):
+            raise RuntimeError(f"{where}: the library call disagrees with "
+                               "the kernel")
+        lib_ms = cuda_ms(call, WIDE_REPS, warmup=1)
+        lib_device_ms = cuda_device_ms(call, WIDE_REPS)
+    t_bytes, t_ops, real = bound(inputs)
+    rec = dict(
+        kernel=name, d=d, real_slots=real,
+        ms=cuda_ms(lambda: wrapper(*inputs), WIDE_REPS, warmup=1),
+        device_ms=cuda_device_ms(lambda: wrapper(*inputs), WIDE_REPS),
+        plain_ms=cuda_ms(lambda: plain(*inputs), 2, warmup=1),
+        bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        max_abs_err=max(e for e, _ in errs),
+        max_err_over_max_abs=max(e for _, e in errs),
+        library_ms=lib_ms, library_device_ms=lib_device_ms)
+    torch.cuda.empty_cache()
+    return got, rec
+
+
+def wide_phase(lay, central, seed):
+    """Phase 13: the five kernels at each of WIDE_DS on one layout, with
+    seeded random tables; each backward takes the residuals of its
+    forward's kernel call, the reduce the selective backward's dm and
+    branch. Returns the records by kernel name."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    n = central.shape[0]
+    recs = {}
+
+    def check(name, *args):
+        got, rec = check_wide(name, getattr(fk, name),
+                              getattr(fk, name + "_plain"), *args)
+        recs.setdefault(name, []).append(rec)
+        log(json.dumps(dict(phase="wide", **rec)))
+        return got
+
+    for d in WIDE_DS:
+        gen = torch.Generator(device=central.device).manual_seed(seed + d)
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=central.device)
+
+        base = (rnd(n, d), rnd(n, d), rnd(n, d), central, rnd(d), rnd(d))
+        dout = rnd(n, d)
+        out, ex, den = check("attention_sel_fwd", (lay, *base, 0.1), False,
+                             lambda i: kernel_bound(i, concat=False))
+        dm, _, _, slot_c = check(
+            "attention_sel_bwd", (lay, *base, ex, den, out, dout, 0.1), True,
+            lambda i: bwd_bound(i, concat=False))
+        del out, ex, den
+        check("slot_reduce", (lay, dm, n, slot_c), True, reduce_bound,
+              reduce_library)
+        del dm, slot_c
+        torch.cuda.empty_cache()
+        out2, alpha = check("attention_fwd", (lay, *base, 0.1), False,
+                            lambda i: kernel_bound(i, concat=True))
+        out = torch.where(central[:, None], out2[:, :d], out2[:, d:])
+        del out2
+        check("attention_bwd", (lay, *base, alpha, out, dout, 0.1), True,
+              lambda i: bwd_bound(i, concat=True))
+        del base, dout, out, alpha
+        torch.cuda.empty_cache()
+    return recs
 
 
 # ----------------------------------------------------------- serving phase
@@ -913,6 +1070,9 @@ def main() -> int:
     if http["sel_launches"] == 0:
         raise RuntimeError("HTTP phase launched no kernel")
     log(json.dumps(dict(phase="http", **http)))
+    # phase 13 runs the kernels at wide widths on the bench layout
+    bench_lay = pred.adj.fast_fn.lay_dst
+    bench_central = pred.graph.central_mask
     del pred
 
     from bridged_gnn_tpu_torch.train.stage2 import Stage2Config
@@ -968,6 +1128,44 @@ def main() -> int:
                        ("parity_tiered", hub_graph(small, BENCH["seed"]))):
         log(json.dumps(dict(card=card, **parity_phase(name, data, pcfg))))
 
+    # 12. heavy rows below the skew rule: one layout, 1,024 heavy rows
+    t0 = time.perf_counter()
+    lead = lead_graph(bench, BENCH["seed"])
+    pred_l = KTGNNPredictor(copy.deepcopy(model), None, lead, device="cuda")
+    if pred_l.adj.fast_fn is None:
+        raise RuntimeError("the lead graph must keep one layout")
+    lay_l = pred_l.adj.fast_fn.lay_dst
+    runs = lay_l.dst_ranges[:, 1] - lay_l.dst_ranges[:, 0]
+    heavy_runs = runs[lay_l.dst_heavy.long()]
+    lead_info = dict(
+        phase="lead_layout", edges=int(pred_l.graph.num_edges),
+        tile_e=lay_l.tile_e, heavy_rows=int(lay_l.dst_heavy.numel()),
+        heavy_slots_min=int(heavy_runs.min()) if len(heavy_runs) else 0,
+        heavy_slots_max=int(heavy_runs.max()) if len(heavy_runs) else 0,
+        heavy_slots_mean=float(heavy_runs.float().mean())
+        if len(heavy_runs) else 0.0,
+        setup_s=time.perf_counter() - t0)
+    log(json.dumps(dict(card=card, **lead_info)))
+    if lead_info["heavy_rows"] == 0:
+        raise RuntimeError("the lead graph's layout has no heavy row")
+    with torch.inference_mode():
+        lead_recs = check_kernel(
+            "attention_sel_fwd", fk.attention_sel_fwd,
+            fk.attention_sel_fwd_plain,
+            record_run(pred_l.predict, ("attention_sel_fwd",)), [lay_l])
+    for r in lead_recs:
+        log(json.dumps(dict(kernel="attention_sel_fwd", graph="lead",
+                            card=card, **r)))
+    del pred_l, lay_l, runs, heavy_runs
+    torch.cuda.empty_cache()
+
+    # 13. every kernel at the wide widths on the bench layout
+    t0 = time.perf_counter()
+    wide = wide_phase(bench_lay, bench_central, BENCH["seed"])
+    log(f"wide widths {WIDE_DS}: {time.perf_counter() - t0:.1f} s")
+    del bench_lay, bench_central
+    torch.cuda.empty_cache()
+
     # summary, per kernel: its launches in its main-path phase and its
     # time inside that run (per predict for the forwards, per epoch for
     # the backwards), and, summed over the replayed calls of one predict
@@ -1007,6 +1205,15 @@ def main() -> int:
     ]
     for row, phase in ((kernels[0], single), (kernels[1], tiered)):
         row["launches_per_predict_by_d"] = phase["launches_per_predict_by_d"]
+    for row in kernels:
+        row["wide"] = [{k: r[k] for k in (
+            "d", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} for r in wide[row["name"]]]
+    kernels[0]["lead_layout"] = dict(
+        heavy_rows=lead_info["heavy_rows"],
+        calls=[{k: r[k] for k in ("d", "ms", "device_ms", "plain_ms",
+                                  "bound_ms", "max_abs_err")}
+               for r in lead_recs])
     for row, phase, kname in ((kernels[0], train_single, "attention_sel_fwd"),
                               (kernels[1], train_tiered, "attention_fwd"),
                               (kernels[2], train_single, "attention_sel_bwd"),

@@ -35,6 +35,7 @@ from tests.test_torch_fused_kernels import (
     N,
     N_PAD,
     SLOPE,
+    WIDE,
     _inputs,
     _jax_concat_kernel,
     _jax_sel_kernel,
@@ -44,6 +45,17 @@ from tests.test_torch_fused_kernels import (
 )
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _close(got, want, scaled=False):
+    """``got`` against ``want`` at TOL; ``scaled`` takes atol times the
+    largest magnitude of ``want`` (at least 1), for the wide widths, where
+    dα and the da and dud sums add 257–512 products per slot and entries
+    that cancel to near zero carry f32 rounding of that size."""
+    tol = dict(TOL)
+    if scaled:
+        tol["atol"] *= max(float(np.abs(np.asarray(want)).max()), 1.0)
+    np.testing.assert_allclose(got, want, **tol)
 
 
 def _jax_sender_csr(lay_src, sfd):
@@ -110,10 +122,11 @@ def _blocks(a, lay_j):
     return jnp.asarray(pad.reshape(b, nb, -1))
 
 
-def _check_sel_bwd(lay_j, lay_t, inp, dout):
+def _check_sel_bwd(lay_j, lay_t, inp, dout, scaled=False):
     """The selective plain backward (``S_v`` from the forward's ``out``)
     against _attention_sel_bwd_kernel (``S_v`` as its segment sum of
-    α·dα); returns the port's outputs and the slots' rows."""
+    α·dα), at TOL (``scaled``: see :func:`_close`); returns the port's
+    outputs and the slots' rows."""
     nb, d = lay_j.node_block, inp["u1"].shape[1]
     _, alpha_j = _jax_sel_kernel(lay_j, inp)
     b, et = lay_j.num_blocks, lay_j.tile_e
@@ -129,24 +142,23 @@ def _check_sel_bwd(lay_j, lay_t, inp, dout):
     dm, dud, da, slot_c = got
     row, valid = tbs.slot_rows(lay_t)
     valid = valid.numpy()
-    np.testing.assert_allclose(
-        dm.numpy()[valid], np.asarray(dm_j).reshape(b * et, d)[valid], **TOL)
+    _close(dm.numpy()[valid], np.asarray(dm_j).reshape(b * et, d)[valid],
+           scaled)
     assert np.all(dm.numpy()[~valid] == 0)
     assert np.all(slot_c.numpy()[~valid] == 0)
     np.testing.assert_array_equal(slot_c.numpy()[valid],
                                   inp["central"][row.numpy()[valid]])
-    np.testing.assert_allclose(
-        dud.numpy(), np.asarray(dud_j).reshape(-1, d)[:len(dout)], **TOL)
-    np.testing.assert_allclose(
-        da.numpy(), np.asarray(da_j)[:, 0].sum(0), **TOL)
+    _close(dud.numpy(), np.asarray(dud_j).reshape(-1, d)[:len(dout)],
+           scaled)
+    _close(da.numpy(), np.asarray(da_j)[:, 0].sum(0), scaled)
     return got, out, row.numpy(), valid
 
 
-def _check_concat_bwd(lay_j, lay_t, inp, dout):
+def _check_concat_bwd(lay_j, lay_t, inp, dout, scaled=False):
     """The concatenated plain backward against _attention_bwd_kernel: the
     port's D-wide ``dm`` is the selected half of the TPU kernel's 2D
     ``dm``, whose other half is zero, and ``slot_c`` is the destination's
-    flag on real slots."""
+    flag on real slots. At TOL (``scaled``: see :func:`_close`)."""
     d = inp["u1"].shape[1]
     _, alpha_j = _jax_concat_kernel(lay_j, inp)
     b, et = lay_j.num_blocks, lay_j.tile_e
@@ -173,16 +185,14 @@ def _check_concat_bwd(lay_j, lay_t, inp, dout):
     other = np.where(c_slot[:, None], dm_j[:, d:], dm_j[:, :d])
     assert np.all(other[valid] == 0)
     assert dm.shape == (b * et, d)
-    np.testing.assert_allclose(dm.numpy()[valid], sel[valid], **TOL)
+    _close(dm.numpy()[valid], sel[valid], scaled)
     assert np.all(dm.numpy()[~valid] == 0)
     np.testing.assert_array_equal(slot_c.numpy(), c_slot)
     c = inp["central"][:, None]
-    np.testing.assert_allclose(
-        dud.numpy(), np.where(c, np.asarray(du1_j), np.asarray(du2_j)),
-        **TOL)
-    np.testing.assert_allclose(
-        da.numpy(), np.concatenate([np.asarray(da1_j), np.asarray(da2_j)]),
-        **TOL)
+    _close(dud.numpy(), np.where(c, np.asarray(du1_j), np.asarray(du2_j)),
+           scaled)
+    _close(da.numpy(), np.concatenate([np.asarray(da1_j),
+                                       np.asarray(da2_j)]), scaled)
     return got, out, row, valid
 
 
@@ -206,6 +216,20 @@ def test_concat_bwd_plain_matches_pallas_interpret(rng, nb, pattern, d):
     lay_j, lay_t = _layouts(rng, nb)
     inp = _inputs(rng, N_PAD, N_PAD, d, nb, pattern)
     _check_concat_bwd(lay_j, lay_t, inp, _dout(rng, N_PAD, d))
+
+
+@pytest.mark.parametrize("nb,d", WIDE)
+@pytest.mark.parametrize("form", ["sel", "concat"])
+def test_wide_bwd_plain_matches_pallas_interpret(rng, form, nb, d):
+    """Both plain backwards at D = 257 and 512 against the Pallas
+    kernels in interpret mode, at rtol 1e-4 and atol 1e-5 times each
+    output's largest magnitude (see :func:`_close`)."""
+    lay_j, lay_t = _layouts(rng, nb)
+    inp = _inputs(rng, N_PAD, N_PAD, d, nb, "blocks")
+    check = _check_sel_bwd if form == "sel" else _check_concat_bwd
+    (dm, _, _, _), _, _, _ = check(lay_j, lay_t, inp, _dout(rng, N_PAD, d),
+                                   scaled=True)
+    assert dm.shape[1] == d
 
 
 @pytest.mark.parametrize("form", ["sel", "concat"])
@@ -244,10 +268,21 @@ def test_slot_reduce_plain_matches_pallas_interpret(rng, nb, split):
     builds it). Without the split every real slot is in branch 1: the
     first half of the output is the JAX reduce of ``dm`` itself and the
     second half is zero."""
+    _check_slot_reduce(rng, nb, split, 8)
+
+
+@pytest.mark.parametrize("w", [257, 512])
+def test_slot_reduce_plain_wide_matches_pallas_interpret(rng, w):
+    """The same at W = 257 and 512 (the backwards' dm rows at the wide
+    widths), with the branch split."""
+    _check_slot_reduce(rng, 64, True, w)
+
+
+def _check_slot_reduce(rng, nb, split, w):
     s, r, em = random_edges(rng, n=50, n_pad=N_PAD)
     ops_j = jbs.make_blocked_ops(s, r, em, N_PAD, node_block=nb)
     lay_t = tbs.make_blocked_ops(s, r, em, N_PAD, node_block=nb).lay_dst
-    n_slots, w = lay_t.slot_src.shape[0], 8
+    n_slots = lay_t.slot_src.shape[0]
     real = lay_t.slot_src.numpy() >= 0
     dm = rng.normal(size=(n_slots, w)).astype(np.float32) * real[:, None]
     branch = ((rng.random(n_slots) < 0.5) if split else True) & real

@@ -381,6 +381,36 @@ def _poison(dev, *shapes):
     del filled
 
 
+def _check_fwd_heavy_rows(rng, d, wrapper, plain, poison):
+    """A forward against its plain version (rtol and atol 1e-4) on the
+    edge-case layout, twice into NaN-filled memory of the ``poison``
+    shapes, bit-identical; where D % 4 == 0 also with a u1 table 4 bytes
+    off 16-byte alignment (the scalar-load path)."""
+    dev = _need_cuda()
+    lay = _edge_case_layout(rng, dev)
+    assert lay.dst_heavy.tolist() == [3, 4, 5, 6, 15, 20, 22]
+    args = list(_args(rng, 64, 64, d, dev))
+    variants = [args]
+    if d % 4 == 0:
+        buf = torch.empty(64 * d + 1, device=dev)
+        u1 = buf[1:].view(64, d)
+        u1.copy_(args[0])
+        assert u1.data_ptr() % 16 != 0 and u1.is_contiguous()
+        variants.append([u1] + args[1:])
+    for a in variants:
+        want = plain(lay, *a, SLOPE)
+        runs = []
+        for _ in range(2):
+            _poison(dev, *poison(lay.slot_src.shape[0]))
+            before = wrapper.launches
+            runs.append(wrapper(lay, *a, SLOPE))
+            assert wrapper.launches == before + 1
+        torch.cuda.synchronize()
+        for g_, again, w_ in zip(*runs, want):
+            assert torch.equal(g_, again)
+            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 8, 63, 64, 256])
 def test_cuda_attention_fwd_heavy_rows(rng, d):
@@ -390,30 +420,21 @@ def test_cuda_attention_fwd_heavy_rows(rng, d):
     be zeroed) and empty rows; two launches give bit-identical outputs.
     Where D % 4 == 0 a u1 table 4 bytes off 16-byte alignment takes the
     scalar-load path and must agree too."""
-    dev = _need_cuda()
-    lay = _edge_case_layout(rng, dev)
-    assert lay.dst_heavy.tolist() == [3, 4, 5, 6, 15, 20, 22]
-    args = list(_args(rng, 64, 64, d, dev))
-    n_slots = lay.slot_src.shape[0]
-    variants = [args]
-    if d % 4 == 0:
-        buf = torch.empty(64 * d + 1, device=dev)
-        u1 = buf[1:].view(64, d)
-        u1.copy_(args[0])
-        assert u1.data_ptr() % 16 != 0 and u1.is_contiguous()
-        variants.append([u1] + args[1:])
-    for a in variants:
-        want = fk.attention_fwd_plain(lay, *a, SLOPE)
-        runs = []
-        for _ in range(2):
-            _poison(dev, (64, 2 * d), (n_slots,))
-            before = fk.attention_fwd.launches
-            runs.append(fk.attention_fwd(lay, *a, SLOPE))
-            assert fk.attention_fwd.launches == before + 1
-        torch.cuda.synchronize()
-        for g_, again, w_ in zip(*runs, want):
-            assert torch.equal(g_, again)
-            torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+    _check_fwd_heavy_rows(rng, d, fk.attention_fwd, fk.attention_fwd_plain,
+                          lambda n_slots: [(64, 2 * d), (n_slots,)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 63, 64, 256, 257])
+def test_cuda_attention_sel_fwd_heavy_rows(rng, d):
+    """The selective forward on the same rows: out, ex under each row's
+    final max (heavy blocks merge their warps' states and rescale the
+    slots they wrote) and den, against its plain version at rtol and atol
+    1e-4, bit-identical across two launches; D = 257 takes the wide
+    path."""
+    _check_fwd_heavy_rows(rng, d, fk.attention_sel_fwd,
+                          fk.attention_sel_fwd_plain,
+                          lambda n_slots: [(64, d), (n_slots,), (64,)])
 
 
 @pytest.mark.cuda
@@ -492,3 +513,38 @@ def test_cuda_attention_bwd_heavy_rows(rng, form, d):
             else:
                 torch.testing.assert_close(
                     g_, w_, rtol=1e-4, atol=1e-4 * float(w_.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [257, 512, 1030])
+def test_cuda_wide_kernels_match_plain(rng, d):
+    """All five kernels past the 256 columns a lane group holds (their
+    wide path; 1030 is not a multiple of 4 and spans more than two of the
+    reduce's 512-column chunks) against their plain versions on a single
+    layout, the hub layout (a 3000-slot row and a 2500-entry sender), the
+    edge-case layout (heavy rows, masked and empty rows, heavy senders)
+    and degree tiers: two launches into NaN-filled memory give
+    bit-identical outputs; forwards agree at rtol and atol 1e-4, the
+    backwards and the reduce at rtol 1e-4 and atol 1e-4 times the
+    output's largest magnitude, the branch flags exactly."""
+    dev = _need_cuda()
+    lays = _card_layouts(rng, dev) + [_edge_case_layout(rng, dev)]
+    for lay in lays:
+        for i, (wrapper, args) in enumerate(_all_calls(rng, lay, d, dev)):
+            want = _outputs(_PLAIN[wrapper](*args))
+            runs = []
+            for _ in range(2):
+                _poison(dev, *(tuple(w_.shape) for w_ in want))
+                before = wrapper.launches
+                runs.append(_outputs(wrapper(*args)))
+                assert wrapper.launches == before + 1
+            torch.cuda.synchronize()
+            for g_, again, w_ in zip(*runs, want):
+                assert g_.shape == w_.shape and g_.dtype == w_.dtype
+                assert torch.equal(g_, again)
+                if g_.dtype == torch.uint8:
+                    assert torch.equal(g_, w_)
+                    continue
+                scale = 1.0 if i < 2 else float(w_.abs().max())
+                torch.testing.assert_close(g_, w_, rtol=1e-4,
+                                           atol=1e-4 * scale)

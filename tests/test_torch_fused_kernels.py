@@ -170,6 +170,33 @@ def test_concat_plain_matches_pallas_interpret(rng, nb, pattern, d):
     np.testing.assert_allclose(res.numpy(), sel_out.numpy(), **TOL)
 
 
+# Widths past the 256 columns the kernels' lane groups hold (the card's
+# wide path), on the same small graph.
+WIDE = [(16, 257), (64, 512)]
+
+
+@pytest.mark.parametrize("nb,d", WIDE)
+@pytest.mark.parametrize("form", ["sel", "concat"])
+def test_wide_fwd_plain_matches_pallas_interpret(rng, form, nb, d):
+    """Both plain forwards at D = 257 and 512 against the Pallas kernels
+    in interpret mode: the destination's output row and α per slot."""
+    lay_j, lay_t = _layouts(rng, nb)
+    inp = _inputs(rng, N_PAD, N_PAD, d, nb, "blocks")
+    args = _port_args(inp)
+    if form == "sel":
+        want_out, want_alpha = _jax_sel_kernel(lay_j, inp)
+        out, ex, den = fk.attention_sel_fwd_plain(lay_t, *args, SLOPE)
+        row, valid = tbs.slot_rows(lay_t)
+        alpha = torch.where(valid, ex / den[row], 0.0)
+    else:
+        want_out, want_alpha = _jax_concat_kernel(lay_j, inp)
+        out2, alpha = fk.attention_fwd_plain(lay_t, *args, SLOPE)
+        out = torch.where(args[3][:, None], out2[:, :d], out2[:, d:])
+    assert out.shape == (N_PAD, d)
+    np.testing.assert_allclose(out.numpy(), want_out, **TOL)
+    np.testing.assert_allclose(alpha.numpy(), want_alpha, **TOL)
+
+
 @pytest.mark.parametrize("nb", [16, 64])
 def test_fused_attention_sel_matches_jax_kernel_path(rng, nb):
     """attention_sel: the port (plain on CPU) against the JAX

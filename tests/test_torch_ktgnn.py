@@ -36,10 +36,10 @@ HIDDEN, CLASSES, DIM = 16, 3, 12
 HEADS = ("source", "target", "target_hat")
 
 
-def _jax_variables(data, seed=0):
+def _jax_variables(data, seed=0, hidden=HIDDEN):
     """Flax init plus random BN affine and running statistics, so batch
     norm is not the identity; as the stage-2 --save pickle holds them."""
-    model = JKTGNN(num_classes=CLASSES, layer_num=2, hidden=HIDDEN)
+    model = JKTGNN(num_classes=CLASSES, layer_num=2, hidden=hidden)
     g = j_with_self_loops(j_graph_from_dict(dict(data)))
     variables = model.init(jax.random.PRNGKey(seed), g,
                            j_adj(g, method="blocked", node_block=128), False)
@@ -74,8 +74,8 @@ def skew_case():
     return data, jmodel, variables
 
 
-def _port_model(variables):
-    model = build_model(Stage2Config(hidden=HIDDEN), CLASSES, DIM,
+def _port_model(variables, hidden=HIDDEN):
+    model = build_model(Stage2Config(hidden=hidden), CLASSES, DIM,
                         device="cpu")
     model.load_state_dict(ktgnn_state_dict_from_flax(variables), strict=True)
     return model.eval()
@@ -131,6 +131,28 @@ def test_ktgnn_matches_jax(request, case, method):
     np.testing.assert_allclose(
         emb.numpy(), np.asarray(inter["intermediates"]["node_embeddings"][0]),
         atol=ATOL)
+
+
+def test_ktgnn_wide_hidden_matches_jax():
+    """KT-GNN at hidden 320, wider than the kernels' lane groups hold
+    (256), so the card takes their wide path: the port (plain versions on
+    the CPU) against the JAX model's fused-kernel forward, all three heads
+    within 1e-4."""
+    data = sync_data(dim=DIM, num_classes=CLASSES)
+    jmodel, variables = _jax_variables(data, hidden=320)
+    gj = j_with_self_loops(j_graph_from_dict(dict(data)))
+    aj = j_adj(gj, method="blocked", node_block=128)
+    want = jmodel.clone(fused_kernel_fwd=True, select_gather=True).apply(
+        variables, gj, aj, False)
+    gt = with_self_loops(graph_from_dict(dict(data)))
+    at = adjacency_from_graph(gt, method="blocked", node_block=128,
+                              device="cpu")
+    model = _port_model(variables, hidden=320)
+    assert model.convs[0].lin_t.weight.shape[0] == 320
+    with torch.inference_mode():
+        got = model(gt, at)
+    for g_, w_ in zip(got, want[:3]):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), atol=ATOL)
 
 
 def test_masked_batch_norm_matches_jax(rng):
@@ -372,3 +394,53 @@ def test_cli_similarity_mode_is_not_ported():
         ["--mode", "similarity", "--ckpt", "x.pkl"])
     with pytest.raises(SystemExit, match="not ported"):
         tcli.main(args)
+
+
+def test_predictor_rejects_repeated_ids(predictors):
+    """A partial feature update that names a node twice raises ValueError
+    and leaves the stored features alone: which of the repeated rows an
+    indexed assignment keeps is unspecified on CUDA. (The JAX predictor
+    accepts it.)"""
+    _, tp = predictors
+    rows = np.arange(3 * DIM, dtype=np.float32).reshape(3, DIM)
+    nodes = np.array([4, 9, 4])
+    before = tp.graph.x.clone()
+    for call in (tp.predict_live, tp.update_features):
+        with pytest.raises(ValueError, match="repeat an id"):
+            call(rows, nodes)
+    assert torch.equal(tp.graph.x, before)
+    tp.predict_live(rows, np.array([4, 9, 5]))   # distinct ids still serve
+
+
+def test_http_rejects_repeated_ids(predictors):
+    """Over HTTP, a live /v1/predict with a repeated id in ``x_nodes`` and
+    a /v1/refresh with a repeated id in ``nodes`` answer 400 and change
+    nothing."""
+    _, tp = predictors
+    app = tcli.ServingApp(predictor=tp)
+    srv = tcli.make_server(app)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        def call(path, body):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                         data=json.dumps(body).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        rows = np.ones((2, DIM), np.float32).tolist()
+        before = call("/v1/predict", {"log_probs": True})
+        for path, body in (("/v1/predict", {"x": rows, "x_nodes": [6, 6]}),
+                           ("/v1/refresh", {"x": rows, "nodes": [2, 2]})):
+            code, out = call(path, body)
+            assert code == 400 and "repeat an id" in json.dumps(out), path
+        assert call("/v1/predict", {"log_probs": True}) == before
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    assert not th.is_alive()

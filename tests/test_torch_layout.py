@@ -1,6 +1,6 @@
 """PyTorch port, the layouts' heavy-row lists: which destination rows and
-senders get a thread block of their own in the concatenated attention
-forward, the two attention backwards and the sender reduce, and the
+senders get a thread block of their own in the two attention forwards,
+the two attention backwards and the sender reduce, and the
 chunked sums and merges those blocks take, checked on the CPU against
 plain counts and the plain versions."""
 
@@ -150,20 +150,30 @@ def _softmax_state(logit, m1, m2):
     return mx, ex.sum(), ex @ np.concatenate([m1, m2], 1)
 
 
+@pytest.mark.parametrize("form", ["sel", "concat"])
 @pytest.mark.parametrize("d", [1, 8, 64])
-def test_heavy_row_state_merge_equals_plain_forward(rng, d):
+def test_heavy_row_state_merge_equals_plain_forward(rng, form, d):
     """A heavy row split into the block's contiguous warp chunks, each
     chunk's softmax state taken alone and the states merged in warp order
     under the row's maximum (the heavy block's merge), gives the plain
-    forward's output row and α, to the forward kernels' tolerance (the
-    plain version sums ~3000 slots in f32, the merge here in f64)."""
+    forward's output row and its per-slot weights: α for the
+    concatenated forward; for the selective one the destination's branch
+    of the output, ex under the row's final max (0 on masked slots) and
+    den. To the forward kernels' tolerance (the plain version sums ~3000
+    slots in f32, the merge here in f64)."""
     lay = _hub_layout(rng)
     n_in = lay.sender_bound
     u1, u2, ud, c, a1, a2 = _args(rng, n_in, lay.num_nodes_padded, d)
-    out, alpha = fk.attention_fwd_plain(lay, u1, u2, ud, c, a1, a2, SLOPE)
+    if form == "concat":
+        out, alpha = fk.attention_fwd_plain(lay, u1, u2, ud, c, a1, a2,
+                                            SLOPE)
+    else:
+        out, ex, den_out = fk.attention_sel_fwd_plain(lay, u1, u2, ud, c,
+                                                      a1, a2, SLOPE)
     assert lay.dst_heavy.numel() > 0
     for row in lay.dst_heavy.tolist():
         lo, hi = lay.dst_ranges[row].tolist()
+        assert hi - lo > L
         src = lay.slot_src[lo:hi].numpy()
         s = np.clip(src, 0, None)
         m1, m2 = u1.double().numpy()[s], u2.double().numpy()[s]
@@ -180,11 +190,19 @@ def test_heavy_row_state_merge_equals_plain_forward(rng, d):
                  for st in states]
         den = sum(st[1] * sc for st, sc in zip(states, scale)) or 1.0
         acc = sum(st[2] * sc for st, sc in zip(states, scale))
-        np.testing.assert_allclose(out[row].numpy(), acc / den, rtol=1e-4,
-                                   atol=1e-5)
-        want_alpha = np.where(src >= 0, np.exp(logit - mx) / den, 0.0)
-        np.testing.assert_allclose(alpha[lo:hi].numpy(), want_alpha,
-                                   rtol=1e-4, atol=1e-7)
+        want_ex = np.where(src >= 0, np.exp(logit - mx), 0.0)
+        if form == "concat":
+            np.testing.assert_allclose(out[row].numpy(), acc / den,
+                                       rtol=1e-4, atol=1e-5)
+            np.testing.assert_allclose(alpha[lo:hi].numpy(), want_ex / den,
+                                       rtol=1e-4, atol=1e-7)
+        else:
+            half = acc[:d] if c[row] else acc[d:]
+            np.testing.assert_allclose(out[row].numpy(), half / den,
+                                       rtol=1e-4, atol=1e-5)
+            np.testing.assert_allclose(ex[lo:hi].numpy(), want_ex,
+                                       rtol=1e-4, atol=1e-7)
+            np.testing.assert_allclose(float(den_out[row]), den, rtol=1e-4)
 
 
 def _bwd_chunk(src, w, m, go, ov, dst, a, den):

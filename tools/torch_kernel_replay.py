@@ -1,25 +1,30 @@
-"""Time the main-path calls of the port's concatenated attention forward,
-the two attention backwards and the sender reduce, for any checkout of
-the port, on one GPU.
+"""Time the port's bench predict and the main-path calls of its five
+kernels, for any checkout of the port, on one GPU.
 
     python3 tools/torch_kernel_replay.py [PORT_ROOT]
 
 PORT_ROOT is the directory that holds the ``bridged_gnn_tpu_torch`` to
-time (default: this checkout). The script records, as ``chip_smoke.py``
-phases 3 and 7 do, the ``attention_fwd`` calls of one predict on the hub
-graph and the backward (``attention_sel_bwd`` on the bench graph,
-``attention_bwd`` on the hub graph) and ``slot_reduce`` calls of one
-training step on each graph, then replays each call on its recorded
-inputs and prints one JSON line per call: ``ms`` (``chip_smoke.cuda_ms``:
-the wrapper's host work included) and ``device_ms``
-(``chip_smoke.cuda_device_ms``: the card's time alone), and for the
-reduce the same two of ``index_add_`` on the same inputs. Per graph one
-more line (``kernel``: "backward+reduce") sums the step's backward and
-reduce calls, so that checkouts that split the work between the two
-differently (a 2D-wide ``dm`` reduced without a branch, or a D-wide one
-with it) are compared on the same gradient. Timing two checkouts in turns
-in one run compares their kernels on one card. Exits non-zero without a
-CUDA device.
+time (default: this checkout). First one line (``kernel``: "predict")
+with the median and minimum of ``PREDICT_REPS`` full-graph predicts on
+the bench graph (host clock, the D2H copy included), as
+``chip_smoke.py`` phase 4 times them. Then the script records, as
+``chip_smoke.py`` phases 3, 7 and 12 do, the ``attention_sel_fwd`` calls
+of one predict on the bench graph and on the lead graph (one layout with
+1,024 heavy rows), the ``attention_fwd`` calls of one predict on the hub
+graph and, where the checkout has training (``train_step``; the first
+serving-only checkouts have not), the backward (``attention_sel_bwd`` on
+the bench graph, ``attention_bwd`` on the hub graph) and ``slot_reduce``
+calls of one training step on each graph, then replays each call on its
+recorded inputs and prints one JSON line per call: ``ms``
+(``chip_smoke.cuda_ms``: the wrapper's host work included) and
+``device_ms`` (``chip_smoke.cuda_device_ms``: the card's time alone),
+and for the reduce the same two of ``index_add_`` on the same inputs.
+Per graph one more line (``kernel``: "backward+reduce") sums the step's
+backward and reduce calls, so that checkouts that split the work between
+the two differently (a 2D-wide ``dm`` reduced without a branch, or a
+D-wide one with it) are compared on the same gradient. Timing two
+checkouts in turns in one run compares their kernels on one card. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,12 +32,15 @@ from __future__ import annotations
 import copy
 import importlib.util
 import json
+import statistics
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 NAMES = ("attention_sel_fwd", "attention_fwd", "attention_sel_bwd",
          "attention_bwd", "slot_reduce")
+PREDICT_REPS = 20
 
 
 def main(argv) -> int:
@@ -51,7 +59,6 @@ def main(argv) -> int:
 
     from bridged_gnn_tpu_torch.data.synthetic import make_benchmark_graph
     from bridged_gnn_tpu_torch.serve import KTGNNPredictor
-    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, train_step
 
     card = cs.card_line()
     print(card, flush=True)
@@ -78,12 +85,42 @@ def main(argv) -> int:
 
     model = cs.seeded_model(cs.BENCH["num_classes"], cs.BENCH["dim"],
                             cs.BENCH["seed"])
+    pred = KTGNNPredictor(copy.deepcopy(model), None, bench, device="cuda")
+    pred.predict()
+    times = []
+    for _ in range(PREDICT_REPS):
+        t = time.perf_counter()
+        pred.predict()
+        times.append((time.perf_counter() - t) * 1e3)
+    print(json.dumps(dict(kernel="predict", graph="bench",
+                          ms=statistics.median(times), ms_min=min(times),
+                          reps=PREDICT_REPS, port=str(root), card=card)),
+          flush=True)
+    lead = cs.lead_graph(bench, cs.BENCH["seed"])
+    for graph, p in (("bench", pred), ("lead", KTGNNPredictor(
+            copy.deepcopy(model), None, lead, device="cuda"))):
+        layouts = [p.adj.fast_fn.lay_dst]
+        with torch.inference_mode():
+            for rec in cs.record_run(p.predict, ("attention_sel_fwd",)):
+                emit("attention_sel_fwd", graph, layouts, rec,
+                     fk.attention_sel_fwd)
+        del p, layouts
+    del pred, lead
+    torch.cuda.empty_cache()
+
     pred = KTGNNPredictor(copy.deepcopy(model), None, hub, device="cuda")
     layouts = [t.lay_dst for t in pred.adj.tiered_fn.tiers]
     with torch.inference_mode():
         for rec in cs.record_run(pred.predict, ("attention_fwd",)):
             emit("attention_fwd", "hub", layouts, rec, fk.attention_fwd)
     del pred, layouts
+    from bridged_gnn_tpu_torch.train import stage2
+
+    if not hasattr(stage2, "train_step"):
+        print(json.dumps(dict(port=str(root), training="not in this "
+                              "checkout: no backward replayed")), flush=True)
+        return 0
+    Stage2Config, train_step = stage2.Stage2Config, stage2.train_step
 
     cfg = Stage2Config(to_undirected=True)
     for graph, data in (("bench", bench), ("hub", hub)):
