@@ -7,9 +7,12 @@ format; the reference's ``.dat`` pickle is not ported yet (ROADMAP.md
 Queue 1 item 3). Flags of options the port does not run yet raise when
 set to anything other than their default.
 
+``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the run.
+
 Example:
   python -m bridged_gnn_tpu_torch.cli.main_graph_knowledge_transfer \
-      --num_layer 2 --hidden_dim 64 --path_data g.npz --to_undirected
+      --num_layer 2 --hidden_dim 64 --path_data g.npz --to_undirected \
+      --scan_epochs 10
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 from bridged_gnn_tpu_torch.io.serialize import load_graph_npz
 from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, train_ktgnn
 from bridged_gnn_tpu_torch.utils.diagnostics import eval_bridged_graph
+from bridged_gnn_tpu_torch.utils.profiling import trace
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -66,7 +70,6 @@ def build_argparser() -> argparse.ArgumentParser:
 # flags with no Stage2Config field: their default, and the ROADMAP.md item
 # that brings the rest
 _CLI_NOT_PORTED = dict(
-    profile_dir=(None, "Queue 1 item 10 (training options)"),
     shard_layout=("halo", "Queue 1 item 9 (multi-device)"),
     halo_overlap=(False, "Queue 1 item 9 (multi-device)"),
 )
@@ -108,7 +111,12 @@ def main(args):
         memory_policy=args.memory_policy,
         n_shards=args.n_shards,
     )
-    res = train_ktgnn(data, cfg, device=args.device)
+    if args.profile_dir:
+        with trace(args.profile_dir, args.device):
+            res = train_ktgnn(data, cfg, device=args.device)
+        print(f"profiler trace written to {args.profile_dir}")
+    else:
+        res = train_ktgnn(data, cfg, device=args.device)
     print("[stage-2 best]", {k: v for k, v in res["best"].items()
                              if k != "per_head"})
     if "per_head" in res["best"]:
@@ -117,5 +125,9 @@ def main(args):
     return res
 
 
-if __name__ == "__main__":
+def cli_entry():
     main(build_argparser().parse_args())
+
+
+if __name__ == "__main__":
+    cli_entry()

@@ -272,5 +272,9 @@ def main(args) -> None:
         srv.server_close()
 
 
-if __name__ == "__main__":
+def cli_entry():
     main(build_argparser().parse_args())
+
+
+if __name__ == "__main__":
+    cli_entry()

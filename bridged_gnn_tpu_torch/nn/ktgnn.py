@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bridged_gnn_tpu_torch.graph import Graph
 from bridged_gnn_tpu_torch.nn.common import (
@@ -125,15 +126,22 @@ class KTGNN(nn.Module):
     Train/eval mode follows ``nn.Module.train``/``eval``: dropout and
     batch statistics in train mode, running statistics in eval mode.
     Dropout needs ``generator`` (on the model's device) in train mode
-    unless ``dropout`` is 0."""
+    unless ``dropout`` is 0.
+
+    ``remat=True`` (the trainer's ``memory_policy="lean"``, JAX
+    ``nn.remat(AdaptedConv)``) runs each conv of ``embed`` under
+    ``torch.utils.checkpoint``: the conv keeps none of its activations,
+    and the backward runs its forward again, kernels included. Dropout
+    stays outside the conv, so the recompute draws no random numbers."""
 
     def __init__(self, num_classes: int, in_channels: int,
                  layer_num: int = 2, hidden: int = 64, dropout: float = 0.5,
-                 use_bn: bool = True, *,
+                 use_bn: bool = True, *, remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
         self.dropout = dropout
+        self.remat = remat
         n_convs = max(layer_num - 1, 1)
         dims = [in_channels] + [hidden] * n_convs
         self.convs = nn.ModuleList(
@@ -166,7 +174,12 @@ class KTGNN(nn.Module):
         cm, nm = g.central_mask, g.node_mask
         x = g.x
         for i, conv in enumerate(self.convs):
-            x = conv(x, adj, cm, nm)
+            if self.remat and torch.is_grad_enabled():
+                # no RNG state to keep: the conv draws no random numbers
+                x = checkpoint(conv, x, adj, cm, nm, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = conv(x, adj, cm, nm)
             if self.bns is not None:
                 x = self.bns[i](x, nm)
             x = torch.relu(x)

@@ -41,7 +41,10 @@ source started together, linked into one library under
 ``bridged_gnn_tpu_torch/_build/`` and loaded with ``ctypes``. Each wrapper
 counts its launches (``launches``, and per attention width in
 ``launches_by_d``); :func:`record_launches` also times them with CUDA
-events.
+events. Inside a CUDA graph capture a wrapper counts its launch once,
+when it is captured; :func:`launch_counts` snapshots give what each
+replay launches. The C entry points only launch on the stream they are
+given and call ``cudaGetLastError``, both legal while a stream captures.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -293,7 +296,9 @@ def record_launches(keep_inputs: bool = False):
     recorded on the launch's stream around it and, with ``keep_inputs``,
     the wrapper's arguments ``inputs``, so that ``wrapper(*inputs)``
     replays the call. Costs two event records per launch while on and
-    nothing while off. Plain runs on the CPU record nothing."""
+    nothing while off. Plain runs on the CPU record nothing. A launch
+    inside a CUDA graph capture raises while it is on: events recorded
+    into a graph would time its capture, not its replays."""
     global _recording
     if _recording is not None:
         raise RuntimeError("record_launches does not nest")
@@ -321,6 +326,11 @@ def _launch(wrapper, d: int, args: List, inputs: tuple, dev) -> None:
              else torch.cuda.device(index))
     with guard:
         if recording is not None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{wrapper.__name__}: record_launches is on during a "
+                    "CUDA graph capture; count a graph's launches with "
+                    "launch_counts() around the capture instead")
             stream = torch.cuda.current_stream(index)
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
@@ -667,6 +677,13 @@ def slot_reduce(
 
 KERNEL_WRAPPERS = (attention_sel_fwd, attention_fwd, attention_sel_bwd,
                    attention_bwd, slot_reduce)
+
+
+def launch_counts() -> Dict[str, Dict[int, int]]:
+    """Every wrapper's launches by width, as a snapshot: the difference
+    of two snapshots around a CUDA graph capture is what each replay of
+    the graph launches (a replay runs no wrapper, so counts nothing)."""
+    return {fn.__name__: dict(fn.launches_by_d) for fn in KERNEL_WRAPPERS}
 
 
 def reset_launch_counts() -> None:

@@ -1,9 +1,10 @@
 """Checkpoint / resume for stage-2 training, on ``torch.save``.
 
 Port of ``bridged_gnn_tpu/train/checkpoint.py`` without orbax. A
-checkpoint holds the full training state — model, optimizer and scheduler
-state dicts, the dropout generator's state, the best-score dict and the
-epoch — so training resumes deterministically. Layout::
+checkpoint holds the full training state — model and optimizer state
+dicts (the optimizer's holds the scheduled rate), the dropout generator's
+state, the best-score dict and the epoch — so training resumes
+deterministically, in either of the trainer's modes. Layout::
 
     <dir>/step_<n>.pt   (the newest ``keep`` are kept)
 """

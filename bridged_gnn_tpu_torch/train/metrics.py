@@ -80,10 +80,13 @@ def score_from_counts(
 ) -> float:
     """`eval_metric` computed from per-class confusion counts.
 
-    Bin layout: bin c < C is class c; an optional final bin holds
-    y == -1 rows (never predicted), matching sklearn's treatment of -1 as
-    a distinct label — macro-F1 averages over bins present in y_true or
-    y_pred, exactly sklearn's label set."""
+    Bin layout: bin c < C is class c; the final bin C holds y == -1 rows
+    (never predicted), which sklearn treats as a label of its own, so the
+    macro mean runs over the bins present in y_true or y_pred, exactly
+    sklearn's label set. The arithmetic is `eval_metric`'s: F1 per label
+    is ``2·tp / (pred + true)`` and the mean takes the labels in sorted
+    order, -1 first, so both give the same float on the same rows (the
+    JAX package's ``2·P·R / (P + R)`` differs in the last bits)."""
     tp = np.asarray(tp, dtype=np.float64)
     pred_cnt = np.asarray(pred_cnt, dtype=np.float64)
     true_cnt = np.asarray(true_cnt, dtype=np.float64)
@@ -93,18 +96,18 @@ def score_from_counts(
     if metric != "f1":
         raise ValueError(
             f"counts-based scoring supports f1/acc, got {metric!r}")
-    prec = np.divide(tp, pred_cnt, out=np.zeros_like(tp),
-                     where=pred_cnt > 0)
-    rec = np.divide(tp, true_cnt, out=np.zeros_like(tp),
-                    where=true_cnt > 0)
-    denom = prec + rec
-    f1 = np.divide(2.0 * prec * rec, denom, out=np.zeros_like(tp),
+    c = len(tp) - 1
+    order = np.r_[c, 0:c]                  # label -1 first, as sorted
+    labels = np.r_[-1, 0:c]
+    present = ((true_cnt > 0) | (pred_cnt > 0))[order]
+    denom = pred_cnt + true_cnt
+    f1 = np.divide(2.0 * tp, denom, out=np.zeros_like(tp),
                    where=denom > 0)
     if f1_average == "binary":
+        _check_binary(labels[present], "f1_average='binary'")
         return float(f1[1])
     if f1_average != "macro":
         raise ValueError(
             "counts-based scoring supports f1_average in "
             f"{{'macro', 'binary'}}, got {f1_average!r}")
-    present = (true_cnt > 0) | (pred_cnt > 0)
-    return float(f1[present].mean()) if present.any() else 0.0
+    return float(f1[order][present].mean()) if present.any() else 0.0

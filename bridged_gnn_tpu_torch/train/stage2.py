@@ -14,16 +14,23 @@ Port of ``bridged_gnn_tpu/train/stage2.py`` for KT-GNN on one device
 
 Each epoch is one train step (forward in train mode, loss, backward
 through the attention kernels' autograd Functions, Adam, StepLR) and one
-eval forward; only the predictions cross to the host. Options of the JAX
-``Stage2Config`` that the port does not run yet raise
+eval forward. The per-epoch loop brings the loss and the predictions to
+the host every epoch. Scan mode (``scan_epochs > 0``, JAX
+``stage2.py:665-716,890-968``) runs :func:`_epoch_body` k epochs per host
+round trip: on the card the body is captured once in a CUDA graph and
+replayed, each epoch leaves its losses and five confusion-count tables in
+a device buffer, and the host scores them after one copy per chunk.
+Options of the JAX ``Stage2Config`` that the port does not run yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import pickle
 import time
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -36,11 +43,16 @@ from bridged_gnn_tpu_torch.graph import (
     with_self_loops,
 )
 from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN
+from bridged_gnn_tpu_torch.ops import fused_kernels
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency, adjacency_from_graph
-from bridged_gnn_tpu_torch.train.metrics import eval_metric
-from bridged_gnn_tpu_torch.train.optim import make_optimizer
+from bridged_gnn_tpu_torch.train.metrics import eval_metric, score_from_counts
+from bridged_gnn_tpu_torch.train.optim import (
+    load_optimizer_state,
+    make_optimizer,
+)
 from bridged_gnn_tpu_torch.utils.platform import resolve_device
 from bridged_gnn_tpu_torch.utils.profiling import EpochTimer
+from bridged_gnn_tpu_torch.utils.sanitizers import assert_all_finite
 
 
 @dataclasses.dataclass
@@ -70,14 +82,20 @@ class Stage2Config:
     ckpt_every: int = 50
     resume: bool = False
     save_best_path: Optional[str] = None  # pickle best-model variables
+    need_complement: bool = False   # not ported (see _NOT_PORTED)
+    # epochs per host round trip (0 = the per-epoch loop); on the card
+    # one CUDA graph of an epoch replayed k times per chunk
+    scan_epochs: int = 0
+    # "plain" keeps every activation; "lean" recomputes each embedding
+    # conv in the backward; "auto" is plain (see resolve_memory_policy)
+    memory_policy: str = "auto"
+    # raise FloatingPointError on a non-finite loss, parameter or BN
+    # statistic, every epoch (loop) or chunk (scan)
+    check_numerics: bool = False
     # options of the JAX runtime the port does not run yet; any other
     # value than the default raises (see _NOT_PORTED)
-    need_complement: bool = False
-    scan_epochs: int = 0
     matmul_precision: Optional[str] = None
     message_dtype: Optional[str] = None
-    memory_policy: str = "auto"
-    check_numerics: bool = False
     n_shards: int = 1
 
 
@@ -92,10 +110,6 @@ _NOT_PORTED = (
      "Queue 1 item 2 (bf16 messages)"),
     ("adjacency_method", ("auto", "blocked", "tiered"),
      "Queue 1 item 5 (the dense path)"),
-    ("scan_epochs", (0,), "Queue 1 item 10 (training options)"),
-    ("check_numerics", (False,), "Queue 1 item 10 (training options)"),
-    ("memory_policy", ("auto", "plain"),
-     "Queue 1 item 10 (training options)"),
     ("n_shards", (1,), "Queue 1 item 9 (multi-device)"),
 )
 
@@ -108,6 +122,16 @@ def check_ported(cfg: Stage2Config) -> None:
             raise NotImplementedError(
                 f"Stage2Config.{field}={value!r} is not ported (the port "
                 f"runs {list(ported)}); see ROADMAP.md {item}")
+    if cfg.memory_policy == "xla_plain":
+        raise NotImplementedError(
+            "Stage2Config.memory_policy='xla_plain' (the JAX package's "
+            "kernels-off tier) is not ported by design: on the card the "
+            "port always runs its kernels, and its plain versions run "
+            "only for CPU tensors; see ROADMAP.md Queue 1 item 10")
+    if cfg.memory_policy not in ("auto", "plain", "lean"):
+        raise ValueError(f"memory_policy: {cfg.memory_policy!r}")
+    if cfg.scan_epochs < 0:
+        raise ValueError(f"scan_epochs must be >= 0, got {cfg.scan_epochs}")
 
 
 def masked_nll(log_probs: torch.Tensor, y: torch.Tensor,
@@ -160,9 +184,10 @@ def prepare_stage2_graph(
 
 
 def build_model(cfg: Stage2Config, num_classes: int, in_channels: int,
-                device="cuda") -> KTGNN:
+                device="cuda", remat: bool = False) -> KTGNN:
     """KT-GNN with the torch-default init drawn from ``cfg.seed``, on
-    ``device``. Only ``model_name='KTGNN'`` is ported."""
+    ``device``; ``remat`` recomputes the embedding convs in the backward
+    (``memory_policy="lean"``). Only ``model_name='KTGNN'`` is ported."""
     if cfg.model_name != "KTGNN":
         raise ValueError(
             f"model {cfg.model_name!r} is not ported; only KTGNN is")
@@ -175,9 +200,23 @@ def build_model(cfg: Stage2Config, num_classes: int, in_channels: int,
         hidden=cfg.hidden,
         dropout=cfg.dropout,
         use_bn=cfg.use_bn,
+        remat=remat,
         generator=gen,
     )
     return model.to(dev)
+
+
+def resolve_memory_policy(cfg: Stage2Config) -> str:
+    """``"plain"`` or ``"lean"`` for ``cfg.memory_policy``. ``"auto"`` is
+    plain on every device. On the CPU that is the JAX rule (the host
+    pages; JAX ``stage2.py:321-322``). On the card lean does not lower
+    the step's peak: the peak falls in the backward, where the per-slot
+    cotangent ``[slots, hidden]`` lives beside the recomputed conv, so
+    recomputing would cost time and save no memory. chip_smoke.py phase 7
+    measured it with ``torch.cuda.max_memory_allocated`` on an NVIDIA
+    H100 80GB HBM3 (700 W), KT-GNN hidden 64 on the 131,072-node bench
+    graph: 1,990,868,480 bytes lean against 1,990,748,160 plain."""
+    return "plain" if cfg.memory_policy == "auto" else cfg.memory_policy
 
 
 def stage2_loss(model: KTGNN, g: Graph, adj: Adjacency, lam: float,
@@ -225,23 +264,163 @@ def _eval_arrays(model: KTGNN, g: Graph, adj: Adjacency, need_probs: bool):
     return preds, probs
 
 
+# ---------------------------------------------------------------- scan mode
+
+# Eager epochs before the capture, on the capture's side stream: they
+# create Adam's state, cuBLAS's workspace for that stream and the
+# allocator's blocks. They are real epochs of the run, scored as the
+# others.
+WARMUP_EPOCHS = 2
+# The five confusion-count tables of an epoch: (head, split) with heads
+# 0 source, 1 target, 2 target-hat and splits 0 train, 1 val, 2 test. The
+# first three score the splits, the last three the heads on test.
+_TABLES = ((0, 0), (2, 1), (2, 2), (0, 2), (1, 2))
+
+
+def _confusion_counts(preds: torch.Tensor, masks: torch.Tensor,
+                      y_bin: torch.Tensor, bins: int) -> torch.Tensor:
+    """[T, 3, bins] int64 ``tp``, ``pred`` and ``true`` counts of T
+    tables: table t counts the predictions ``preds[t]`` [N] over the rows
+    where ``masks[t]`` (int32, 0 or 1) is 1. ``y_bin`` holds each row's
+    class, with ``y == -1`` rows in the last bin, which no prediction
+    reaches (``score_from_counts``'s layout). As JAX ``stage2.py:665-680``
+    computes them: one-hot rows, the mask multiplied in, integer sums
+    over the rows; no atomics and nothing that waits for the device."""
+    classes = torch.arange(bins, device=y_bin.device)
+    true = (y_bin[:, None] == classes).int()                  # [N, bins]
+    pred = (preds[:, :, None] == classes).int() * masks[:, :, None]
+    return torch.stack([(pred * true).sum(1), pred.sum(1),
+                        (masks[:, :, None] * true).sum(1)], 1)
+
+
+@dataclasses.dataclass
+class _ScanRun:
+    """What :func:`_epoch_body` reads and writes. Every tensor keeps its
+    storage for the whole run, as a CUDA graph's replays need."""
+
+    model: KTGNN
+    g: Graph
+    adj: Adjacency
+    opt: torch.optim.Optimizer
+    gen: torch.Generator
+    lam: float
+    lr: torch.Tensor       # f64 [], Adam's rate for the next epoch
+    schedule: bool         # StepLR on
+    step_size: int
+    gamma: float
+    step: torch.Tensor     # int64 [], epochs done
+    masks: torch.Tensor    # int32 [5, N]: each table's split mask
+    y_bin: torch.Tensor    # int64 [N]: class, y == -1 in bin C
+    bins: int              # C + 1
+    i: torch.Tensor        # int64 [1]: the record row this epoch writes
+    record: torch.Tensor   # f64 [rows, 2 + 15·bins]: loss, loss_t2, counts
+
+
+def _scan_run(model, g, adj, opt, gen, cfg: Stage2Config, lr: torch.Tensor,
+              epochs_done: int) -> _ScanRun:
+    dev = g.x.device
+    c = g.num_classes
+    splits = torch.stack([g.train_mask, g.val_mask, g.test_mask]).int()
+    return _ScanRun(
+        model=model, g=g, adj=adj, opt=opt, gen=gen, lam=cfg.Lambda,
+        lr=lr, schedule=cfg.use_scheduler, step_size=cfg.step_size,
+        gamma=cfg.gamma,
+        step=torch.tensor(epochs_done, dtype=torch.int64, device=dev),
+        masks=splits[[m for _, m in _TABLES]],
+        y_bin=torch.where(g.y < 0, c, g.y).long(), bins=c + 1,
+        i=torch.zeros(1, dtype=torch.int64, device=dev),
+        record=torch.zeros(cfg.scan_epochs, 2 + len(_TABLES) * 3 * (c + 1),
+                           dtype=torch.float64, device=dev))
+
+
+def _epoch_body(run: _ScanRun) -> None:
+    """One epoch of scan mode, on tensors only (JAX ``stage2.py:682-716``):
+    the train step (dropout from the run's generator), Adam, StepLR's
+    step computed on the device, the eval forward, the three heads'
+    argmax and the five confusion tables; the losses and the tables go to
+    row ``i`` of the record, and ``i`` advances. Nothing in it waits for
+    the device, so a CUDA graph can capture it."""
+    loss, aux = train_step(run.model, run.g, run.adj, run.opt, run.lam,
+                           run.gen)
+    run.step += 1
+    if run.schedule:
+        # StepLR's own chained product, so the rate is the float the
+        # per-epoch loop's scheduler holds, bit for bit
+        run.lr.copy_(torch.where(run.step % run.step_size == 0,
+                                 run.lr * run.gamma, run.lr))
+    run.model.eval()
+    with torch.no_grad():
+        heads = run.model(run.g, run.adj)
+    preds = torch.stack([heads[h].argmax(1) for h, _ in _TABLES])
+    counts = _confusion_counts(preds, run.masks, run.y_bin, run.bins)
+    row = torch.cat([torch.stack([loss, aux["loss_t2"]]).double(),
+                     counts.reshape(-1).double()])
+    run.record.index_copy_(0, run.i, row[None])
+    run.i += 1
+
+
+def _capture(run: _ScanRun, stream: torch.cuda.Stream):
+    """One epoch captured in a CUDA graph on ``stream``, the dropout
+    generator registered with it; and the kernel launches each replay
+    makes, by wrapper and width. A failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(run.gen)
+    before = fused_kernels.launch_counts()
+    with torch.cuda.graph(graph, stream=stream):
+        _epoch_body(run)
+    per_replay = {}
+    for name, by_d in fused_kernels.launch_counts().items():
+        diff = {d: n - before[name].get(d, 0) for d, n in by_d.items()
+                if n != before[name].get(d, 0)}
+        if diff:
+            per_replay[name] = diff
+    return graph, per_replay
+
+
+def _use_scan(cfg: Stage2Config) -> bool:
+    """The JAX rule (``stage2.py:890-895``): scan needs counts-based
+    scores and no per-epoch best-weights copy."""
+    return (cfg.scan_epochs > 0 and cfg.metric in ("f1", "acc")
+            and cfg.f1_average in ("macro", "binary")
+            and cfg.save_best_path is None)
+
+
+# -------------------------------------------------------------- the trainer
+
+
 def train_ktgnn(
     data: Dict[str, np.ndarray],
     cfg: Optional[Stage2Config] = None,
     device="cuda",
 ) -> Dict[str, Any]:
     """Full stage-2 run on ``device``. Returns best scores, the history,
-    timing diagnostics and the final weights (``state_dict``, on the
-    CPU)."""
+    timing diagnostics, the final weights (``state_dict``, on the CPU),
+    the memory policy run and, in scan mode, ``scan``: the eager epochs,
+    the captures and replays, and each replay's kernel launches.
+
+    ``max_logit_spread`` is 0.0, as the JAX runtime returns it when its
+    probe does not run: that probe guards the TPU kernels' block-max
+    softmax shift, and the port's kernels shift by each destination's
+    own maximum, so there is nothing for it to guard."""
     cfg = cfg or Stage2Config()
     check_ported(cfg)
     dev = resolve_device(device)
     g, adj = prepare_stage2_graph(data, cfg, dev)
     num_classes = g.num_classes
-    model = build_model(cfg, num_classes, g.num_features, dev)
+    mem_mode = resolve_memory_policy(cfg)
+    if mem_mode != "plain" and cfg.log_every:
+        print(f"[memory_policy] {mem_mode} engaged (the embedding convs "
+              "recompute in the backward)")
+    model = build_model(cfg, num_classes, g.num_features, dev,
+                        remat=mem_mode == "lean")
+    use_scan = _use_scan(cfg)
+    # the loop's rate is a float that StepLR steps; scan mode's a tensor
+    # that the epoch body sets on the device (capturable Adam on a card)
+    lr = (torch.tensor(cfg.lr, dtype=torch.float64, device=dev)
+          if use_scan else cfg.lr)
     opt, sched = make_optimizer(
-        model.parameters(), cfg.lr, cfg.weight_decay, cfg.use_scheduler,
-        cfg.step_size, cfg.gamma)
+        model.parameters(), lr, cfg.weight_decay,
+        cfg.use_scheduler and not use_scan, cfg.step_size, cfg.gamma)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
     y_np = g.y.cpu().numpy()
@@ -269,35 +448,20 @@ def train_ktgnn(
                     enumerate(("source", "target", "target_hat"))}
         return scores, per_head
 
+    def check_numerics(losses, epoch):
+        if cfg.check_numerics:
+            assert_all_finite(
+                {"loss": losses, "params": dict(model.named_parameters()),
+                 "batch_stats": dict(model.named_buffers())},
+                f"train state at epoch {epoch}")
+
     best = {"train": 0.0, "val": 0.0, "test": 0.0, "loss": 666.0,
             "epoch": -1}
     best_state = None
     history = []
-    start_epoch = 1
-    ckptr = None
-    if cfg.ckpt_dir:
-        from bridged_gnn_tpu_torch.train.checkpoint import TrainCheckpointer
 
-        ckptr = TrainCheckpointer(cfg.ckpt_dir)
-        raw = ckptr.restore() if cfg.resume else None
-        if raw is not None:
-            model.load_state_dict(raw["model"])
-            opt.load_state_dict(raw["optimizer"])
-            if sched is not None:
-                sched.load_state_dict(raw["scheduler"])
-            gen.set_state(raw["generator"])
-            best = raw["best"]
-            start_epoch = int(raw["epoch"]) + 1
-
-    t_start = time.time()
-    timer = EpochTimer(dev, num_edges=g.num_edges)
-    for epoch in range(start_epoch, cfg.num_epoch + 1):
-        with timer:
-            loss, aux = train_step(model, g, adj, opt, cfg.Lambda, gen)
-            if sched is not None:
-                sched.step()
-            loss, loss_t2 = float(loss), float(aux["loss_t2"])
-            scores, per_head = evaluate()
+    def record(epoch, loss, loss_t2, scores, per_head):
+        nonlocal best_state
         history.append(dict(epoch=epoch, loss=loss, loss_t2=loss_t2,
                             **scores))
         if cfg.log_every and epoch % cfg.log_every == 0:
@@ -315,14 +479,52 @@ def train_ktgnn(
             if cfg.save_best_path:
                 best_state = {k: v.detach().cpu().clone()
                               for k, v in model.state_dict().items()}
-        if ckptr is not None and (
-            epoch % cfg.ckpt_every == 0 or epoch == cfg.num_epoch
-        ):
-            ckptr.save(epoch, dict(
-                model=model.state_dict(), optimizer=opt.state_dict(),
-                scheduler=None if sched is None else sched.state_dict(),
-                generator=gen.get_state(), best=best, epoch=epoch,
-            ))
+
+    start_epoch = 1
+    ckptr = None
+    if cfg.ckpt_dir:
+        from bridged_gnn_tpu_torch.train.checkpoint import TrainCheckpointer
+
+        ckptr = TrainCheckpointer(cfg.ckpt_dir)
+        raw = ckptr.restore() if cfg.resume else None
+        if raw is not None:
+            model.load_state_dict(raw["model"])
+            load_optimizer_state(opt, raw["optimizer"], lr)
+            gen.set_state(raw["generator"])
+            best = raw["best"]
+            start_epoch = int(raw["epoch"]) + 1
+            if sched is not None:
+                sched.last_epoch = start_epoch - 1
+
+    def save(epoch):
+        # loop and scan checkpoints are alike: StepLR's state is the
+        # rate in the optimizer's and the epoch
+        ckptr.save(epoch, dict(
+            model=model.state_dict(), optimizer=opt.state_dict(),
+            generator=gen.get_state(), best=best, epoch=epoch,
+        ))
+
+    t_start = time.time()
+    timer = EpochTimer(dev, num_edges=g.num_edges)
+    scan_info = None
+    if use_scan:
+        run = _scan_run(model, g, adj, opt, gen, cfg, lr, start_epoch - 1)
+        scan_info = _scan_loop(run, cfg, timer, start_epoch, record,
+                               check_numerics, save if ckptr else None)
+    else:
+        for epoch in range(start_epoch, cfg.num_epoch + 1):
+            with timer:
+                loss, aux = train_step(model, g, adj, opt, cfg.Lambda, gen)
+                if sched is not None:
+                    sched.step()
+                loss, loss_t2 = float(loss), float(aux["loss_t2"])
+                check_numerics(np.asarray(loss), epoch)
+                scores, per_head = evaluate()
+            record(epoch, loss, loss_t2, scores, per_head)
+            if ckptr is not None and (
+                epoch % cfg.ckpt_every == 0 or epoch == cfg.num_epoch
+            ):
+                save(epoch)
 
     if cfg.save_best_path and best_state is not None:
         from bridged_gnn_tpu_torch.io.flax_weights import (
@@ -333,14 +535,89 @@ def train_ktgnn(
             pickle.dump(flax_variables_from_ktgnn_state_dict(best_state), f)
 
     times = timer.times
+    if use_scan:
+        # the steady mean: the timer's warmup covers the chunks that
+        # carried warm-up epochs or the capture
+        mean_epoch = float(timer.steady.mean()) if times else 0.0
+    else:
+        mean_epoch = (float(np.mean(times[2:] if len(times) > 2 else times))
+                      if times else 0.0)
     return dict(
         best=best,
         history=history,
         total_time=time.time() - t_start,
-        mean_epoch_time=float(np.mean(times[2:] if len(times) > 2
-                                      else times)) if times else 0.0,
+        mean_epoch_time=mean_epoch,
         throughput=timer.summary(),
+        max_logit_spread=0.0,
+        memory_policy=mem_mode,
+        scan=scan_info,
         state_dict={k: v.detach().cpu().clone()
                     for k, v in model.state_dict().items()},
         num_edges=g.num_edges,
     )
+
+
+def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
+               start_epoch: int, record, check_numerics, save) -> dict:
+    """Scan mode's chunk loop (JAX ``stage2.py:896-968``). Each chunk of
+    ``k = min(scan_epochs, remaining)`` epochs runs :func:`_epoch_body` k
+    times, then makes one synchronize and one copy of its ``[k]`` rows of
+    losses and counts; the host scores them, records the epochs, checks
+    numerics and checkpoints.
+
+    On the card the first :data:`WARMUP_EPOCHS` epochs run eagerly on a
+    side stream, the next is captured there once, and every later epoch
+    is a replay of that graph. On the CPU every epoch runs eagerly."""
+    dev = run.g.x.device
+    on_card = dev.type == "cuda"
+    stream = torch.cuda.Stream(dev) if on_card else None
+    graph, per_replay = None, {}
+    eager = replays = 0
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream(dev))
+    with (torch.cuda.stream(stream) if on_card
+          else contextlib.nullcontext()):
+        epoch = start_epoch
+        while epoch <= cfg.num_epoch:
+            k = min(cfg.scan_epochs, cfg.num_epoch - epoch + 1)
+            captured, eager_before = False, eager
+            with timer.chunk(k):
+                run.i.zero_()
+                for _ in range(k):
+                    if not on_card or eager < WARMUP_EPOCHS:
+                        with warnings.catch_warnings():
+                            # capturable Adam warns when it steps outside
+                            # a capture, as the warm-up epochs do
+                            warnings.filterwarnings(
+                                "ignore", message=".*capturable=True")
+                            _epoch_body(run)
+                        eager += 1
+                        continue
+                    if graph is None:
+                        graph, per_replay = _capture(run, stream)
+                        captured = True
+                    graph.replay()
+                    replays += 1
+                # the chunk's one synchronize and device-to-host copy
+                rec = run.record[:k].cpu().numpy()
+                check_numerics(rec[:, :2], epoch + k - 1)
+            if (epoch == start_epoch or captured
+                    or (on_card and eager > eager_before)):
+                # the first chunk, and on the card the warm-up epochs and
+                # the capture, stay out of the steady statistics
+                timer.warmup = len(timer.times)
+            counts = rec[:, 2:].reshape(k, len(_TABLES), 3, run.bins)
+            for j in range(k):
+                sc = [score_from_counts(*counts[j, t], metric=cfg.metric,
+                                        f1_average=cfg.f1_average)
+                      for t in range(len(_TABLES))]
+                record(epoch + j, float(rec[j, 0]), float(rec[j, 1]),
+                       dict(train=sc[0], val=sc[1], test=sc[2]),
+                       dict(source=sc[3], target=sc[4], target_hat=sc[2]))
+            epoch += k
+            if save is not None:
+                save(epoch - 1)
+    if stream is not None:
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    return dict(eager_epochs=eager, captures=int(graph is not None),
+                replays=replays, launches_per_replay=per_replay)

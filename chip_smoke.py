@@ -49,7 +49,7 @@ Phases, in order; any failure exits non-zero:
    epoch one line with the top 15 device operations by device time, the
    hand-written kernels' share of the epoch and the device's busy share
    (the union of device-op intervals over the epoch's wall time);
-11. card vs CPU: 2 epochs at dropout 0 from the same seeded init on the
+11. card vs CPU: 1 epoch at dropout 0 from the same seeded init on the
    card and on the CPU (plain versions), on each graph; per-epoch losses
    within rtol 1e-4, final weights and BN statistics within rtol 1e-3 and
    atol 1e-5;
@@ -64,7 +64,28 @@ Phases, in order; any failure exits non-zero:
    card (forwards at rtol and atol 1e-4; backwards and reduce at rtol
    1e-4, atol 1e-4 × the output's largest magnitude), launched twice to
    give bit-identical outputs, compared in row chunks (a 1030-wide ``dm``
-   is 19 GB), and timed.
+   is 19 GB), and timed;
+14. scan mode, on each graph: ``train_ktgnn`` with ``scan_epochs=5`` for
+   12 epochs (chunks of 5, 5 and 2; StepLR every 4 epochs, so the rate
+   falls inside a chunk; ``check_numerics`` on): two eager epochs, one
+   CUDA graph capture, 10 replays. Against the same run as a per-epoch
+   loop (whose Adam takes a float rate and is not capturable): losses
+   within rtol 1e-4, the best epoch equal, and each score equal or, where
+   it differs, the loop's with one or two named nodes of its split, each
+   at an argmax tie (its two largest log-probabilities in the loop within
+   TIE_MARGIN), moved to their second class; each replay
+   launches per layout 8 forwards, 4 backwards and 4 reduces (1×D=64,
+   3×D=8 per pass), and the wrappers count only the eager epochs and the
+   capture; the epoch medians of both modes on the host clock and the
+   scan run's peak device memory. The scan run once more under
+   ``torch.profiler``: per epoch of its second chunk (five replays), the
+   device busy share as phase 10 computes it, the top 15 device
+   operations and the hand-written kernels' share.
+
+Phase 7 also runs one ``memory_policy="lean"`` step per graph (the
+embedding conv recomputed in the backward) against the plain step: loss
+at rtol 1e-4, gradients at the backward tolerance, the forward launched
+once more per layout, and both steps' peak device memory.
 
 In the ``{"kernels": [...]}`` line the forwards' launch counts are those
 of the serving phases and their ``ms`` the kernel's time per predict
@@ -120,7 +141,12 @@ TRAIN_EPOCHS = 10        # phase 8, single layout
 TIERED_EPOCHS = 5        # phase 9
 TRACE_EPOCHS = 2         # phase 10
 TRACE_TOP = 15           # device operations listed per traced epoch
-PARITY_EPOCHS = 2        # phase 11
+PARITY_EPOCHS = 2        # phase 11 (the CPU side takes ~30 s an epoch)
+SCAN_EPOCHS = 12         # phase 14: chunks of 5, 5 and 2 epochs
+SCAN_CHUNK = 5
+SCAN_STEP_SIZE = 4       # StepLR: the rate falls at epochs 5 and 9
+TIE_MARGIN = 1e-4        # phase 14: an argmax tie, in log-probability
+TIE_NODES = 40           # phase 14: the closest calls searched for a tie
 PARITY_NODES = BENCH["n"]   # phase 11 graph size
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside tensor cores
@@ -770,6 +796,7 @@ def check_backward(name, data, cfg, tiered: bool):
         raise RuntimeError(f"{name}: two backward runs gave different "
                            "gradients")
     del first, second
+    memory = lean_step(name, g, adj, model, cfg, gen, state)
     fwd, bwd, bwd_plain = (
         (fk.attention_fwd, fk.attention_bwd, fk.attention_bwd_plain)
         if tiered else (fk.attention_sel_fwd, fk.attention_sel_bwd,
@@ -796,7 +823,74 @@ def check_backward(name, data, cfg, tiered: bool):
     del recs, calls
     return out, dict(graph=name, layouts=len(layouts),
                      bit_identical_grads=same,
-                     params=len(list(model.parameters())))
+                     params=len(list(model.parameters())), **memory)
+
+
+def lean_step(name, g, adj, model, cfg, gen, state) -> dict:
+    """Phase 7's ``memory_policy="lean"`` step: the same step with the
+    embedding conv recomputed in the backward, from the same weights and
+    dropout state, against the plain step (loss at rtol 1e-4, gradients
+    at the backward tolerance); each step's peak device memory, and the
+    sizes that set it."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train.stage2 import stage2_loss
+
+    def step(m):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen.set_state(state)
+        m.zero_grad(set_to_none=True)
+        loss, _ = stage2_loss(m, g, adj, cfg.Lambda, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out = (loss.detach(), [p.grad.clone() for p in m.parameters()])
+        m.zero_grad(set_to_none=True)
+        return out, resident, peak
+
+    lean = copy.deepcopy(model)
+    lean.remat = True
+    fwd = [_forward_launches()]
+    (loss_p, grads_p), resident, peak_plain = step(model)
+    fwd.append(_forward_launches())
+    (loss_l, grads_l), _, peak_lean = step(lean)
+    fwd.append(_forward_launches())
+    del lean
+    lays = layouts_of(adj)
+    plain_fwd, lean_fwd = fwd[1] - fwd[0], fwd[2] - fwd[1]
+    if lean_fwd != plain_fwd + len(lays):
+        raise RuntimeError(f"{name}: the lean step launched {lean_fwd} "
+                           f"forwards, the plain {plain_fwd}: the conv "
+                           "did not run again in the backward")
+    if abs(float(loss_l) - float(loss_p)) > LOSS_RTOL * abs(float(loss_p)):
+        raise RuntimeError(f"{name}: lean loss {float(loss_l)} against "
+                           f"plain {float(loss_p)}")
+    grad_err = 0.0
+    for a, b in zip(grads_l, grads_p):
+        scale = float(b.abs().max())
+        grad_err = max(grad_err, float((a - b).abs().max()) / max(scale,
+                                                                  1e-30))
+        if not torch.allclose(a, b, rtol=RTOL, atol=ATOL * scale):
+            raise RuntimeError(f"{name}: lean gradients differ from plain")
+    return dict(
+        resident_bytes=resident, plain_peak_bytes=peak_plain,
+        lean_peak_bytes=peak_lean,
+        plain_step_bytes=peak_plain - resident,
+        lean_step_bytes=peak_lean - resident,
+        plain_forward_launches=plain_fwd, lean_forward_launches=lean_fwd,
+        lean_max_grad_err_over_max_abs=grad_err,
+        slots=sum(int(lay.slot_src.shape[0]) for lay in lays),
+        nodes_padded=g.num_nodes_padded, features=g.num_features,
+        hidden=cfg.hidden)
+
+
+def _forward_launches() -> int:
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    return fk.attention_sel_fwd.launches + fk.attention_fwd.launches
 
 
 def train_phase(name, data, cfg, tiered: bool, n_layouts: int,
@@ -853,12 +947,14 @@ _HAND_KERNEL = re.compile(r"attention_\w*_kernel|slot_reduce_kernel")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def trace_phase(name, data, cfg) -> dict:
-    """Phase 10: ``train_ktgnn`` under ``torch.profiler`` with each epoch
-    marked; reads the last epoch's device operations from the Chrome
-    trace. The mark opens after the epoch timer's first synchronize and
-    closes after a synchronize at the epoch's end, so the epoch's device
-    work lies inside it."""
+def trace_phase(name, data, cfg, window=-1, epochs=1) -> dict:
+    """Phase 10 (and 14): ``train_ktgnn`` under ``torch.profiler`` with
+    each epoch timer window marked (an epoch, or a scan chunk); reads the
+    device operations of window ``window`` (the last by default), which
+    holds ``epochs`` epochs, from the Chrome trace. Times and counts are
+    per epoch. The mark opens after the timer's first synchronize and
+    closes after a synchronize at the window's end, so the window's
+    device work lies inside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -898,10 +994,12 @@ def trace_phase(name, data, cfg) -> dict:
     windows = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                      for e in events if e.get("name") == mark
                      and e.get("cat") != "gpu_user_annotation")
-    if len(windows) != cfg.num_epoch:
-        raise RuntimeError(f"{name}: the trace marks {len(windows)} epochs, "
-                           f"not {cfg.num_epoch}")
-    t0, t1 = windows[-1]
+    want = (cfg.num_epoch if not cfg.scan_epochs
+            else -(-cfg.num_epoch // cfg.scan_epochs))
+    if len(windows) != want:
+        raise RuntimeError(f"{name}: the trace marks {len(windows)} timer "
+                           f"windows, not {want}")
+    t0, t1 = windows[window]
     ops = []   # (name, start, end) of device ops inside the last epoch, µs
     for e in events:
         if e.get("cat") not in _DEVICE_CATS:
@@ -925,15 +1023,204 @@ def trace_phase(name, data, cfg) -> dict:
     hand_ms = sum(ms for ms, _ in hand.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP]
     return dict(
-        phase=name, epochs=cfg.num_epoch,
-        epoch_ms_traced=wall_ms,
+        phase=name, epochs=cfg.num_epoch, epochs_in_window=epochs,
+        epoch_ms_traced=wall_ms / epochs,
         epoch_ms_timer=[t * 1e3 for t in timers[0].times],
-        device_ops=len(ops), device_ms=sum(b - a for _, a, b in ops) / 1e3,
-        busy_ms=busy / 1e3, busy_share=busy / 1e3 / wall_ms,
-        hand_kernels_ms=hand_ms, hand_kernels_share=hand_ms / wall_ms,
-        hand_kernel_launches=sum(n for _, n in hand.values()),
-        top=[dict(name=op[:120], ms=ms, count=n) for op, (ms, n) in top],
+        device_ops=len(ops) / epochs,
+        device_ms=sum(b - a for _, a, b in ops) / 1e3 / epochs,
+        busy_ms=busy / 1e3 / epochs, busy_share=busy / 1e3 / wall_ms,
+        hand_kernels_ms=hand_ms / epochs,
+        hand_kernels_share=hand_ms / wall_ms,
+        hand_kernel_launches=sum(n for _, n in hand.values()) / epochs,
+        top=[dict(name=op[:120], ms=ms / epochs, count=n / epochs)
+             for op, (ms, n) in top],
     )
+
+
+def scan_phase(name, data, tiered: bool, n_layouts: int,
+               num_classes: int) -> dict:
+    """Phase 14 on one graph: ``train_ktgnn`` in scan mode (SCAN_EPOCHS
+    epochs in chunks of SCAN_CHUNK, StepLR every SCAN_STEP_SIZE epochs so
+    the rate falls inside a chunk, ``check_numerics`` on), the same run
+    as a per-epoch loop, and the scan run once more under
+    ``torch.profiler``, all on one prepared graph. Holds the scan run to
+    the loop's losses (rtol LOSS_RTOL), best epoch and scores, and each
+    replay to the per-epoch launches of phases 8-9."""
+    import dataclasses
+
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train import stage2
+
+    cfg = stage2.Stage2Config(
+        num_epoch=SCAN_EPOCHS, scan_epochs=SCAN_CHUNK,
+        step_size=SCAN_STEP_SIZE, check_numerics=True, to_undirected=True)
+    t0 = time.perf_counter()
+    prepared = stage2.prepare_stage2_graph(data, cfg, "cuda")
+    setup_s = time.perf_counter() - t0
+    if len(layouts_of(prepared[1])) != n_layouts:
+        raise RuntimeError(f"{name}: expected {n_layouts} layout(s)")
+    fwd, bwd = ((fk.attention_fwd, fk.attention_bwd) if tiered
+                else (fk.attention_sel_fwd, fk.attention_sel_bwd))
+    lays = n_layouts
+    want = {fwd.__name__: {HIDDEN: 2 * lays, num_classes: 6 * lays},
+            bwd.__name__: {HIDDEN: lays, num_classes: 3 * lays},
+            "slot_reduce": {HIDDEN: lays, num_classes: 3 * lays}}
+    with mock.patch.object(stage2, "prepare_stage2_graph",
+                           lambda *a, **k: prepared):
+        fk.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scan = stage2.train_ktgnn(data, cfg, device="cuda")
+        scan_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counted = fk.launch_counts()
+        t0 = time.perf_counter()
+        loop = stage2.train_ktgnn(data, dataclasses.replace(cfg,
+                                                            scan_epochs=0),
+                                  device="cuda")
+        loop_s = time.perf_counter() - t0
+        # the second chunk: five replays, after the capture
+        traced = trace_phase(f"{name}_trace", data, cfg, window=1,
+                             epochs=SCAN_CHUNK)
+    loss_err = max(abs(a[k] - b[k]) / abs(b[k])
+                   for a, b in zip(scan["history"], loop["history"],
+                                   strict=True)
+                   for k in ("loss", "loss_t2"))
+    if not loss_err <= LOSS_RTOL:
+        raise RuntimeError(f"{name}: scan vs loop losses differ by "
+                           f"{loss_err:.3g} (relative) > {LOSS_RTOL}")
+    if scan["best"]["epoch"] != loop["best"]["epoch"]:
+        raise RuntimeError(f"{name}: best epoch {scan['best']['epoch']} "
+                           f"(scan) against {loop['best']['epoch']} (loop)")
+    score_diffs = [
+        (a["epoch"], k, a[k], b[k])
+        for a, b in zip(scan["history"], loop["history"])
+        for k in ("train", "val", "test") if a[k] != b[k]]
+    best_epoch = loop["best"]["epoch"]
+    sb, lb = scan["best"], loop["best"]
+    score_diffs += [(best_epoch, f"best_{k}", sb[k], lb[k])
+                    for k in ("train", "val", "test") if sb[k] != lb[k]]
+    score_diffs += [(best_epoch, k, sb["per_head"][k], lb["per_head"][k])
+                    for k in ("source", "target", "target_hat")
+                    if sb["per_head"][k] != lb["per_head"][k]]
+    ties = []
+    if score_diffs:
+        with mock.patch.object(stage2, "prepare_stage2_graph",
+                               lambda *a, **k: prepared):
+            ties = name_ties(name, data, dataclasses.replace(
+                cfg, scan_epochs=0), loop, score_diffs)
+    info = scan["scan"]
+    if (info["captures"], info["eager_epochs"], info["replays"]) != (
+            1, stage2.WARMUP_EPOCHS, SCAN_EPOCHS - stage2.WARMUP_EPOCHS):
+        raise RuntimeError(f"{name}: scan ran {info}")
+    if info["launches_per_replay"] != want:
+        raise RuntimeError(f"{name}: a replay launches "
+                           f"{info['launches_per_replay']}, not {want}")
+    counted_want = {n: {d: (info["eager_epochs"] + 1) * k
+                        for d, k in by_d.items()} for n, by_d in want.items()}
+    if {n: c for n, c in counted.items() if c} != counted_want:
+        raise RuntimeError(f"{name}: the wrappers counted {counted}, not "
+                           f"the eager epochs and the capture "
+                           f"{counted_want}")
+    if not traced["hand_kernel_launches"] == sum(
+            sum(by_d.values()) for by_d in want.values()):
+        raise RuntimeError(f"{name}: the traced chunk shows "
+                           f"{traced['hand_kernel_launches']} hand-written "
+                           "kernel launches per epoch")
+    return dict(
+        phase=name, epochs=SCAN_EPOCHS, chunk=SCAN_CHUNK,
+        step_size=SCAN_STEP_SIZE, layouts=lays, setup_s=setup_s,
+        **info, max_rel_loss_err=loss_err, scores_equal=not score_diffs,
+        score_ties=ties,
+        best_epoch=scan["best"]["epoch"],
+        scan_epoch_s_median=scan["throughput"]["p50_s"],
+        scan_epoch_s_mean=scan["mean_epoch_time"],
+        scan_steady_epochs=scan["throughput"]["steady_steps"],
+        scan_run_s=scan_s,
+        loop_epoch_s_median=loop["throughput"]["p50_s"],
+        loop_epoch_s_mean=loop["mean_epoch_time"], loop_run_s=loop_s,
+        scan_max_memory_allocated=peak,
+        losses_scan=[h["loss"] for h in scan["history"]],
+        losses_loop=[h["loss"] for h in loop["history"]],
+        trace=traced)
+
+
+# a score of phase 14: the head and the split mask it counts
+_SCORE_OF = {"train": (0, "train_mask"), "val": (2, "val_mask"),
+             "test": (2, "test_mask"), "best_train": (0, "train_mask"),
+             "best_val": (2, "val_mask"), "best_test": (2, "test_mask"),
+             "source": (0, "test_mask"), "target": (1, "test_mask"),
+             "target_hat": (2, "test_mask")}
+
+
+def name_ties(name, data, cfg, loop, diffs) -> list:
+    """Phase 14, where a scan score differs from the loop's: the loop once
+    more, each epoch's eval recorded (per head and node the two likeliest
+    classes and the gap between their log-probabilities). The rerun must
+    repeat the loop's history (the kernels are deterministic). Each
+    differing score must be the loop's with one or two nodes of its split
+    moved to their second class, nodes among the TIE_NODES of smallest
+    gap and each gap below TIE_MARGIN: an argmax tie, which the two
+    modes' Adam roundings may break either way. Returns each difference
+    with the nodes that explain it."""
+    import itertools
+
+    import torch
+
+    from bridged_gnn_tpu_torch.train import stage2
+    from bridged_gnn_tpu_torch.train.metrics import eval_metric
+
+    evals, graph = [], {}
+    eval_arrays = stage2._eval_arrays
+
+    def recording(model, g, adj, need_probs):
+        model.eval()
+        with torch.no_grad():
+            val, idx = torch.stack(model(g, adj)).topk(2, dim=-1)
+        evals.append(((val[..., 0] - val[..., 1]).cpu().numpy(),
+                      idx[..., 0].cpu().numpy(), idx[..., 1].cpu().numpy()))
+        if not graph:
+            graph.update({m: getattr(g, m).cpu().numpy() for m in
+                          ("y", "train_mask", "val_mask", "test_mask")})
+        return eval_arrays(model, g, adj, need_probs)
+
+    with mock.patch.object(stage2, "_eval_arrays", recording):
+        again = stage2.train_ktgnn(data, cfg, device="cuda")
+    if again["history"] != loop["history"]:
+        raise RuntimeError(f"{name}: the loop did not repeat its history")
+    ties = []
+    for epoch, key, got, want in diffs:
+        head, mask = _SCORE_OF[key]
+        margin, first, second = (a[head] for a in evals[epoch - 1])
+        rows = np.flatnonzero(graph[mask])
+        near = rows[np.argsort(margin[rows], kind="stable")[:TIE_NODES]]
+        near = [int(i) for i in near if margin[i] < TIE_MARGIN]
+
+        def score(flip):
+            pred = first.copy()
+            pred[list(flip)] = second[list(flip)]
+            return eval_metric(graph["y"][rows], pred[rows], cfg.metric,
+                               cfg.f1_average)
+
+        if score(()) != want:
+            raise RuntimeError(f"{name}: epoch {epoch} {key}: the rerun "
+                               f"scores {score(())}, not {want}")
+        flips = next((f for f in itertools.chain(
+            itertools.combinations(near, 1), itertools.combinations(near, 2))
+            if score(f) == got), None)
+        if flips is None:
+            raise RuntimeError(
+                f"{name}: epoch {epoch} {key} is {got} (scan) against "
+                f"{want} (loop), and no one or two of the {len(near)} "
+                f"nodes of its split within {TIE_MARGIN} of a tie explain "
+                "it")
+        ties.append(dict(epoch=epoch, score=key, scan=got, loop=want,
+                         nodes=list(flips),
+                         margins=[float(margin[i]) for i in flips]))
+    return ties
 
 
 def parity_phase(name, data, cfg):
@@ -1165,6 +1452,14 @@ def main() -> int:
     log(f"wide widths {WIDE_DS}: {time.perf_counter() - t0:.1f} s")
     del bench_lay, bench_central
     torch.cuda.empty_cache()
+
+    # 14. scan mode: epochs replayed from one CUDA graph, against the loop
+    for name, data, is_tiered, lays in (("scan_single", bench, False, 1),
+                                        ("scan_tiered", hub, True, n_tiers)):
+        t0 = time.perf_counter()
+        rec = scan_phase(name, data, is_tiered, lays, c)
+        log(json.dumps(dict(card=card, s=time.perf_counter() - t0, **rec)))
+        torch.cuda.empty_cache()
 
     # summary, per kernel: its launches in its main-path phase and its
     # time inside that run (per predict for the forwards, per epoch for

@@ -1,8 +1,9 @@
 """PyTorch port, JAX-free tests: the kernel wrappers' routing and guards
 and, on a CUDA device, every kernel against its plain version, the
-backward's run-to-run determinism, and the predictor and the trainer
-launching them. This file imports neither JAX nor the JAX
-package, so it also runs on a GPU machine without JAX:
+backward's run-to-run determinism, the predictor and the trainer
+launching them, and the trainer's scan mode (one CUDA graph replayed).
+This file imports neither JAX nor the JAX package, so it also runs on a
+GPU machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -548,3 +549,144 @@ def test_cuda_wide_kernels_match_plain(rng, d):
                 scale = 1.0 if i < 2 else float(w_.abs().max())
                 torch.testing.assert_close(g_, w_, rtol=1e-4,
                                            atol=1e-4 * scale)
+
+
+# ------------------------------------------------------------- scan mode
+
+
+def _scan_data(rng, method):
+    data = skewed_data(rng, n=200, c=4, d=12)
+    if method == "blocked":   # uniform edges: one layout
+        data["edge_index"] = rng.integers(0, 200, size=(2, 1600))
+    data["test_mask"] = ~data["train_mask"]
+    return data
+
+
+def _scan_cfg(**kw):
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config
+
+    return Stage2Config(**{**dict(num_epoch=9, hidden=16, lr=1e-2,
+                                  step_size=3, scan_epochs=4, dropout=0.5,
+                                  log_every=0), **kw})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["blocked", "tiered"])
+def test_cuda_scan_equals_loop(rng, method):
+    """Scan mode on the card (2 eager epochs, one capture, 7 replays in
+    chunks of 4, 4 and 1; the rate falls at epochs 4 and 7, inside
+    chunks) against the per-epoch loop at dropout 0.5: the replays draw
+    the loop's dropout masks, so the losses agree at the card's training
+    tolerance (rtol 1e-4: scan mode's capturable Adam reads its rate from
+    a tensor and orders its arithmetic otherwise than the loop's foreach
+    Adam with a float rate) and the scores and the best epoch are
+    equal."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
+
+    data = _scan_data(rng, method)
+    loop = train_ktgnn(data, _scan_cfg(scan_epochs=0,
+                                       adjacency_method=method), device=dev)
+    scan = train_ktgnn(data, _scan_cfg(adjacency_method=method), device=dev)
+    assert scan["scan"]["eager_epochs"] == WARMUP_EPOCHS
+    assert scan["scan"]["captures"] == 1
+    assert scan["scan"]["replays"] == 9 - WARMUP_EPOCHS
+    for hs, hl in zip(scan["history"], loop["history"], strict=True):
+        for key in ("loss", "loss_t2"):
+            assert abs(hs[key] - hl[key]) <= 1e-4 * abs(hl[key]), hs
+        assert {k: hs[k] for k in ("train", "val", "test")} == \
+            {k: hl[k] for k in ("train", "val", "test")}, hs["epoch"]
+    assert scan["best"]["epoch"] == loop["best"]["epoch"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["blocked", "tiered"])
+def test_cuda_scan_replay_launches(rng, method):
+    """Each replay launches the epoch's kernels: per layout 8 forwards
+    (4 in the step, 4 in the eval), 4 backwards and 4 reduces, one at the
+    hidden width and three at the classes'. The wrappers count the eager
+    epochs and the capture once each; a replay counts nothing."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
+
+    fk.reset_launch_counts()
+    res = train_ktgnn(_scan_data(rng, method),
+                      _scan_cfg(adjacency_method=method), device=dev)
+    tiered = method == "tiered"
+    fwd, bwd = ((fk.attention_fwd, fk.attention_bwd) if tiered
+                else (fk.attention_sel_fwd, fk.attention_sel_bwd))
+    per = res["scan"]["launches_per_replay"]
+    layouts = sum(per[fwd.__name__].values()) // 8
+    assert layouts >= (2 if tiered else 1)
+    want = {fwd.__name__: {16: 2 * layouts, 4: 6 * layouts},
+            bwd.__name__: {16: layouts, 4: 3 * layouts},
+            "slot_reduce": {16: layouts, 4: 3 * layouts}}
+    assert per == want
+    counted = WARMUP_EPOCHS + 1
+    for name, by_d in want.items():
+        wrapper = getattr(fk, name)
+        assert wrapper.launches_by_d == {d: counted * n
+                                         for d, n in by_d.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_capture_refuses_record_launches(rng):
+    """record_launches times launches with CUDA events; inside a capture
+    those would time the capture, so the first launch captured raises."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    with fk.record_launches() as recs:
+        with pytest.raises(RuntimeError, match="CUDA graph capture"):
+            train_ktgnn(_scan_data(rng, "blocked"), _scan_cfg(), device=dev)
+    assert recs    # the eager warm-up epochs were recorded
+
+
+@pytest.mark.cuda
+def test_cuda_scan_resume_matches_uninterrupted(rng, tmp_path):
+    """A scan run stopped at a chunk boundary and resumed (whose first
+    epochs run eagerly again before its own capture) gives the
+    uninterrupted run's history, best and weights: the generator state
+    after replays is the eager one's, and every kernel is deterministic."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    data = _scan_data(rng, "blocked")
+    full = train_ktgnn(data, _scan_cfg(ckpt_dir=str(tmp_path / "a")),
+                       device=dev)
+    train_ktgnn(data, _scan_cfg(num_epoch=4, ckpt_dir=str(tmp_path / "b")),
+                device=dev)
+    resumed = train_ktgnn(data, _scan_cfg(ckpt_dir=str(tmp_path / "b"),
+                                          resume=True), device=dev)
+    assert [h["epoch"] for h in resumed["history"]] == list(range(5, 10))
+    assert resumed["history"] == full["history"][4:]
+    assert resumed["best"] == full["best"]
+    for k, t in full["state_dict"].items():
+        assert torch.equal(resumed["state_dict"][k], t), k
+
+
+@pytest.mark.cuda
+def test_cuda_resume_across_modes(rng, tmp_path):
+    """Each mode resumes the other's checkpoint on the card: the loop
+    (foreach Adam, a float rate) from a scan chunk boundary, and scan
+    mode (capturable Adam, a tensor rate, its own capture) from a loop
+    checkpoint. Adam keeps the kind its mode needs, so both run and give
+    the uninterrupted runs' losses at the card's training tolerance."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    data = _scan_data(rng, "blocked")
+    full = train_ktgnn(data, _scan_cfg(), device=dev)
+    for first, then in ((4, 0), (0, 4)):
+        ckpt = str(tmp_path / f"from_{first}")
+        train_ktgnn(data, _scan_cfg(num_epoch=4, scan_epochs=first,
+                                    ckpt_dir=ckpt, ckpt_every=4), device=dev)
+        resumed = train_ktgnn(data, _scan_cfg(scan_epochs=then,
+                                              ckpt_dir=ckpt, resume=True),
+                              device=dev)
+        assert (resumed["scan"] is not None) == bool(then)
+        for hr, hf in zip(resumed["history"], full["history"][4:],
+                          strict=True):
+            assert hr["epoch"] == hf["epoch"]
+            for key in ("loss", "loss_t2"):
+                assert abs(hr[key] - hf[key]) <= 1e-4 * abs(hf[key]), hr

@@ -279,9 +279,9 @@ def test_dropout_draws_from_the_generator():
 
 @pytest.mark.parametrize("field,value", [
     ("model_name", "GCN"), ("no_dtc", True), ("message_dtype", "bfloat16"),
-    ("scan_epochs", 10), ("n_shards", 4), ("need_complement", True),
-    ("check_numerics", True), ("memory_policy", "lean"),
-    ("adjacency_method", "dense"),
+    ("memory_policy", "xla_plain"), ("n_shards", 4),
+    ("need_complement", True), ("matmul_precision", "bfloat16"),
+    ("root_weight", True), ("adjacency_method", "dense"),
 ])
 def test_unported_options_raise(field, value):
     cfg = _train_cfg(**{field: value})
@@ -333,8 +333,8 @@ def test_cli_refuses_what_is_not_ported(cli_run, tmp_path):
     with pytest.raises(SystemExit, match="not ported"):
         tcli2.main(ap.parse_args(["--path_data", str(tmp_path / "g.dat"),
                                   "--device", "cpu"]))
-    for extra in (["--n_shards", "2"], ["--profile_dir", "p"],
-                  ["--halo_overlap"], ["--model_name", "GAT"]):
+    for extra in (["--n_shards", "2"], ["--halo_overlap"],
+                  ["--model_name", "GAT"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tcli2.main(ap.parse_args(argv[:-2] + ["--device", "cpu"]
                                      + extra))
