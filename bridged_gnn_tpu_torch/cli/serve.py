@@ -216,12 +216,14 @@ def _load_predictor(args) -> ServingApp:
     predictor = KTGNNPredictor(
         model, ktgnn_state_dict_from_flax(variables), data,
         to_undirected=cfg.to_undirected, device=args.device,
+        matmul_precision=args.matmul_precision,
     )
     meta = dict(
         mode="predictor", model_name=cfg.model_name,
         num_nodes=int(data["x"].shape[0]),
         num_classes=num_classes,
         heads=["source", "target", "target_hat"],
+        matmul_precision=args.matmul_precision,
         device=str(predictor.device),
     )
     return ServingApp(predictor=predictor, meta=meta, verbose=args.verbose,
@@ -244,6 +246,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--num_layer", type=int, default=2)
     ap.add_argument("--hidden_dim", type=int, default=64)
     ap.add_argument("--to_undirected", action="store_true", default=False)
+    # JAX's precision names: "default" and "bfloat16" run the card's f32
+    # matmuls in TF32
+    ap.add_argument("--matmul_precision", default=None,
+                    choices=["highest", "float32", "default", "bfloat16"])
     ap.add_argument("--verbose", action="store_true", default=False,
                     help="log each HTTP request")
     ap.add_argument("--max_request_bytes", type=int,

@@ -72,6 +72,12 @@
 //   No atomics: every sum is taken in a fixed order, so two launches on the
 //   same inputs give bit-identical outputs.
 //
+// Message types. The u tables, ud and dm are f32 or bf16 (T, chosen at
+// compile time; the entry points *_bf16 take bf16), as in attention_fwd.cu:
+// bf16 rows are widened on load, every sum is f32, and each dm element is
+// rounded to bf16 once, at its store (pad tails get bf16 zeros). The
+// weights, out, dout, dud and da stay f32.
+//
 // Wide rows. Past kLaneGroupColumns = 256 columns a lane group cannot hold a
 // row in registers, so those widths take attention_bwd_wide_kernel, chosen
 // at launch. A block takes kWideRows rows in turn; per row it reduces S_v,
@@ -107,10 +113,10 @@ struct Row {
 
 // Load the row's dout, ud and a_sel columns into `r` and return S_v =
 // dout[v] · out[v] (the same value on every group of the row).
-template <int kG, int kPer, bool kVec>
+template <int kG, int kPer, bool kVec, typename T>
 __device__ __forceinline__ float load_row(
     int row, bool live, int gl, const float* __restrict__ dout,
-    const float* __restrict__ out, const float* __restrict__ ud,
+    const float* __restrict__ out, const T* __restrict__ ud,
     const float* __restrict__ a, int d, Row<kPer>& r) {
   float s = 0.f;
 #pragma unroll
@@ -139,11 +145,11 @@ __device__ __forceinline__ float load_row(
 // most steps any of its rows needs, so the shuffles see the whole warp; an
 // empty range walks nothing. Writes every slot's dm row and branch flag and
 // leaves the row's dud and da sums in r, equal on every group.
-template <int kG, int kPer, bool kVec, int kSub, bool kConcat>
+template <int kG, int kPer, bool kVec, int kSub, bool kConcat, typename T>
 __device__ __forceinline__ void bwd_walk(
     const int32_t* __restrict__ src, const float* __restrict__ slot_w,
-    int lo, int hi, const float* __restrict__ tab, float den_v, float s_v,
-    bool is_c, float slope, int d, float* __restrict__ dm,
+    int lo, int hi, const T* __restrict__ tab, float den_v, float s_v,
+    bool is_c, float slope, int d, T* __restrict__ dm,
     uint8_t* __restrict__ slot_c, Row<kPer>& r) {
   constexpr int kGroups = kSub / kG;  // groups per row
   const int lane = threadIdx.x & 31;
@@ -256,11 +262,23 @@ __device__ __forceinline__ void bwd_walk(
       }
 }
 
+// Four elements of T as one access: 16 bytes in f32, 8 in bf16.
+template <typename T>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using type = float4;
+};
+template <>
+struct Vec4<__nv_bfloat16> {
+  using type = uint2;
+};
+
 // The pad slots behind the last row of each layout block get dm = 0 and
 // slot_c = 0, written by the lanes that own that row, `stride` apart from
 // `first`.
-template <bool kVec>
-__device__ __forceinline__ void zero_tail(float* __restrict__ dm,
+template <bool kVec, typename T>
+__device__ __forceinline__ void zero_tail(T* __restrict__ dm,
                                           uint8_t* __restrict__ slot_c,
                                           int row, int hi, int d,
                                           int node_block, int tile_e,
@@ -268,26 +286,27 @@ __device__ __forceinline__ void zero_tail(float* __restrict__ dm,
   if (row % node_block != node_block - 1) return;
   const long long end = (long long)(row / node_block + 1) * tile_e;
   for (long long k = hi + first; k < end; k += stride) slot_c[k] = 0;
-  if (kVec) {  // d % 4 == 0: the tail starts on a 16-byte boundary
-    float4* q = reinterpret_cast<float4*>(dm);
+  if (kVec) {  // d % 4 == 0: the tail starts on a 4-element boundary
+    using V = typename Vec4<T>::type;
+    V* q = reinterpret_cast<V*>(dm);
     for (long long e = (long long)hi * d / 4 + first; e < end * d / 4;
          e += stride)
-      __stcs(q + e, make_float4(0.f, 0.f, 0.f, 0.f));
+      __stcs(q + e, V{});
   } else {
     for (long long e = (long long)hi * d + first; e < end * d; e += stride)
-      __stcs(dm + e, 0.f);
+      __stcs(dm + e, from_f32<T>(0.f));
   }
 }
 
 // Two blocks per SM caps a thread at 64 registers; at D > 128 (kPer = 2)
 // that would spill, so those widths take one block per SM.
-template <int kG, int kPer, bool kVec, bool kConcat>
+template <int kG, int kPer, bool kVec, bool kConcat, typename T>
 __global__ void __launch_bounds__(kWarps * 32, kPer == 1 ? 2 : 1)
 attention_bwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
                      const int32_t* __restrict__ ranges,  // [R_lay, 2]
-                     const float* __restrict__ u1,        // [N_in, D]
-                     const float* __restrict__ u2,        // [N_in, D]
-                     const float* __restrict__ ud,        // [n_out, D]
+                     const T* __restrict__ u1,            // [N_in, D]
+                     const T* __restrict__ u2,            // [N_in, D]
+                     const T* __restrict__ ud,            // [n_out, D]
                      const bool* __restrict__ central,    // [n_out]
                      const float* __restrict__ a1,        // [D]
                      const float* __restrict__ a2,        // [D]
@@ -298,7 +317,7 @@ attention_bwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
                      const float* __restrict__ den,     // [n_out] (selective)
                      const float* __restrict__ out,     // [n_out, D]
                      const float* __restrict__ dout,    // [n_out, D]
-                     float* __restrict__ dm,            // [S, D]
+                     T* __restrict__ dm,                // [S, D]
                      float* __restrict__ dud,           // [n_out, D]
                      float* __restrict__ da_part,       // [grid, 2D]
                      uint8_t* __restrict__ slot_c)      // [S]
@@ -415,13 +434,13 @@ attention_bwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
 
 // D > kLaneGroupColumns: kWideRows destination rows per block, in turn (see
 // the header). `scratch` [S] takes each slot's dl.
-template <bool kConcat>
+template <bool kConcat, typename T>
 __global__ void __launch_bounds__(kWideWarps * 32)
 attention_bwd_wide_kernel(const int32_t* __restrict__ src,
                           const int32_t* __restrict__ ranges,
-                          const float* __restrict__ u1,
-                          const float* __restrict__ u2,
-                          const float* __restrict__ ud,
+                          const T* __restrict__ u1,
+                          const T* __restrict__ u2,
+                          const T* __restrict__ ud,
                           const bool* __restrict__ central,
                           const float* __restrict__ a1,
                           const float* __restrict__ a2, float slope, int d,
@@ -430,7 +449,7 @@ attention_bwd_wide_kernel(const int32_t* __restrict__ src,
                           const float* __restrict__ den,
                           const float* __restrict__ out,
                           const float* __restrict__ dout,
-                          float* __restrict__ dm, float* __restrict__ dud,
+                          T* __restrict__ dm, float* __restrict__ dud,
                           float* __restrict__ da_part,
                           uint8_t* __restrict__ slot_c,
                           float* __restrict__ scratch) {
@@ -451,10 +470,10 @@ attention_bwd_wide_kernel(const int32_t* __restrict__ src,
                      blockDim.x);
     if (row >= n_out) continue;  // the whole block
     const bool is_c = central[row];
-    const float* __restrict__ tab = is_c ? u1 : u2;
+    const T* __restrict__ tab = is_c ? u1 : u2;
     const float* __restrict__ a = is_c ? a1 : a2;
     const float* __restrict__ go = dout + (long long)row * d;
-    const float* __restrict__ urow = ud + (long long)row * d;
+    const T* __restrict__ urow = ud + (long long)row * d;
     const float den_v = kConcat ? 1.f : den[row];
     // S_v = dout[v] · out[v]: each warp by a butterfly, the warps in order
     float s = 0.f;
@@ -472,9 +491,9 @@ attention_bwd_wide_kernel(const int32_t* __restrict__ src,
       const int sk = src[k];
       float dl = 0.f;  // 0 on a masked slot, and so are dz and dm
       if (sk >= 0) {
-        const float* __restrict__ m = tab + (long long)sk * d;
+        const T* __restrict__ m = tab + (long long)sk * d;
         float p = 0.f;
-        for (int c = lane; c < d; c += 32) p += m[c] * go[c];
+        for (int c = lane; c < d; c += 32) p += to_f32(m[c]) * go[c];
         p = group_sum<32>(p);
         const float al = kConcat ? slot_w[k] : slot_w[k] / den_v;
         dl = al * p - al * s_v;
@@ -489,7 +508,7 @@ attention_bwd_wide_kernel(const int32_t* __restrict__ src,
     // 2. each thread's columns of dm, dud and da, the slots in order
     for (int c = threadIdx.x; c < d; c += blockDim.x) {
       const float g = go[c];
-      const float u = urow[c];
+      const float u = to_f32(urow[c]);
       const float av = a[c];
       float dud_c = 0.f, da_c = 0.f;
       for (int k = lo; k < hi; ++k) {
@@ -498,13 +517,13 @@ attention_bwd_wide_kernel(const int32_t* __restrict__ src,
         if (sk >= 0) {
           const float al = kConcat ? slot_w[k] : slot_w[k] / den_v;
           const float dl = scratch[k];
-          const float z = tab[(long long)sk * d + c] + u;
+          const float z = to_f32(tab[(long long)sk * d + c]) + u;
           const float dz = dl * av * (z > 0.f ? 1.f : slope);
           v = al * g + dz;
           dud_c += dz;
           da_c += dl * (z >= 0.f ? z : slope * z);
         }
-        __stcs(dm + (long long)k * d + c, v);
+        __stcs(dm + (long long)k * d + c, from_f32<T>(v));
       }
       __stcs(dud + (long long)row * d + c, dud_c);
       part[(is_c ? 0 : d) + c] += da_c;
@@ -521,7 +540,7 @@ int grid_size(int n_rows_layout, int n_heavy, int d) {
   return n_heavy + (n_rows_layout + per - 1) / per;
 }
 
-template <bool kConcat>
+template <bool kConcat, typename T>
 cudaError_t launch(const void* src, const void* ranges, const void* u1,
                    const void* u2, const void* ud, const void* central,
                    const void* a1, const void* a2, float slope, int d,
@@ -538,37 +557,37 @@ cudaError_t launch(const void* src, const void* ranges, const void* u1,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d > kLaneGroupColumns) {
-    attention_bwd_wide_kernel<kConcat>
+    attention_bwd_wide_kernel<kConcat, T>
         <<<dim3(n_parts), dim3(kWideWarps * 32), 0, st>>>(
             static_cast<const int32_t*>(src),
             static_cast<const int32_t*>(ranges),
-            static_cast<const float*>(u1), static_cast<const float*>(u2),
-            static_cast<const float*>(ud), static_cast<const bool*>(central),
+            static_cast<const T*>(u1), static_cast<const T*>(u2),
+            static_cast<const T*>(ud), static_cast<const bool*>(central),
             static_cast<const float*>(a1), static_cast<const float*>(a2),
             slope, d, n_rows_layout, n_out, node_block, tile_e,
             static_cast<const float*>(slot_w), static_cast<const float*>(den),
             static_cast<const float*>(out), static_cast<const float*>(dout),
-            static_cast<float*>(dm), static_cast<float*>(dud),
+            static_cast<T*>(dm), static_cast<float*>(dud),
             static_cast<float*>(da_part), static_cast<uint8_t*>(slot_c),
             static_cast<float*>(scratch));
     return cudaGetLastError();
   }
-  const bool vec = d % 4 == 0 && aligned16(u1) && aligned16(u2) &&
-                   aligned16(ud) && aligned16(a1) && aligned16(a2) &&
-                   aligned16(out) && aligned16(dout) && aligned16(dm) &&
+  const bool vec = d % 4 == 0 && aligned_vec<T>(u1) && aligned_vec<T>(u2) &&
+                   aligned_vec<T>(ud) && aligned16(a1) && aligned16(a2) &&
+                   aligned16(out) && aligned16(dout) && aligned_vec<T>(dm) &&
                    aligned16(dud);
   const dim3 grid(n_parts);
   const dim3 block(kWarps * 32);
 #define BGNN_LAUNCH(G, PER, VEC)                                             \
-  attention_bwd_kernel<G, PER, VEC, kConcat><<<grid, block, 0, st>>>(        \
+  attention_bwd_kernel<G, PER, VEC, kConcat, T><<<grid, block, 0, st>>>(     \
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(ranges), \
-      static_cast<const float*>(u1), static_cast<const float*>(u2),          \
-      static_cast<const float*>(ud), static_cast<const bool*>(central),      \
+      static_cast<const T*>(u1), static_cast<const T*>(u2),                  \
+      static_cast<const T*>(ud), static_cast<const bool*>(central),          \
       static_cast<const float*>(a1), static_cast<const float*>(a2),          \
       static_cast<const int32_t*>(heavy), n_heavy, slope, d, n_rows_layout,  \
       n_out, node_block, tile_e, static_cast<const float*>(slot_w),          \
       static_cast<const float*>(den), static_cast<const float*>(out),        \
-      static_cast<const float*>(dout), static_cast<float*>(dm),              \
+      static_cast<const float*>(dout), static_cast<T*>(dm),                  \
       static_cast<float*>(dud), static_cast<float*>(da_part),                \
       static_cast<uint8_t*>(slot_c))
 #define BGNN_LAUNCH_VEC(G, PER) \
@@ -601,35 +620,35 @@ extern "C" int attention_bwd_grid(int n_rows_layout, int n_heavy, int d) {
   return grid_size(n_rows_layout, n_heavy, d);
 }
 
-extern "C" int attention_sel_bwd(const void* src, const void* ranges,
-                                 const void* u1, const void* u2,
-                                 const void* ud, const void* central,
-                                 const void* a1, const void* a2, float slope,
-                                 int d, int n_rows_layout, int n_out,
-                                 int node_block, int tile_e,
-                                 const void* heavy, int n_heavy,
-                                 const void* ex, const void* den,
-                                 const void* out, const void* dout, void* dm,
-                                 void* dud, void* da_part, int n_parts,
-                                 void* slot_c, void* scratch, void* stream) {
-  return static_cast<int>(launch<false>(
-      src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,
-      n_out, node_block, tile_e, heavy, n_heavy, ex, den, out, dout, dm, dud,
-      da_part, n_parts, slot_c, scratch, stream));
-}
-
-extern "C" int attention_bwd(const void* src, const void* ranges,
-                             const void* u1, const void* u2, const void* ud,
-                             const void* central, const void* a1,
-                             const void* a2, float slope, int d,
-                             int n_rows_layout, int n_out, int node_block,
-                             int tile_e, const void* heavy, int n_heavy,
-                             const void* alpha, const void* out,
-                             const void* dout, void* dm, void* dud,
-                             void* da_part, int n_parts, void* slot_c,
-                             void* scratch, void* stream) {
-  return static_cast<int>(launch<true>(
-      src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,
-      n_out, node_block, tile_e, heavy, n_heavy, alpha, nullptr, out, dout,
-      dm, dud, da_part, n_parts, slot_c, scratch, stream));
-}
+// The entry points: f32 tables and dm, and *_bf16 for bf16 ones (the same
+// arguments).
+#define BGNN_BWD_ENTRIES(SUFFIX, T)                                          \
+  extern "C" int attention_sel_bwd##SUFFIX(                                  \
+      const void* src, const void* ranges, const void* u1, const void* u2,  \
+      const void* ud, const void* central, const void* a1, const void* a2,  \
+      float slope, int d, int n_rows_layout, int n_out, int node_block,     \
+      int tile_e, const void* heavy, int n_heavy, const void* ex,           \
+      const void* den, const void* out, const void* dout, void* dm,         \
+      void* dud, void* da_part, int n_parts, void* slot_c, void* scratch,   \
+      void* stream) {                                                       \
+    return static_cast<int>(launch<false, T>(                               \
+        src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,  \
+        n_out, node_block, tile_e, heavy, n_heavy, ex, den, out, dout, dm,  \
+        dud, da_part, n_parts, slot_c, scratch, stream));                   \
+  }                                                                         \
+  extern "C" int attention_bwd##SUFFIX(                                      \
+      const void* src, const void* ranges, const void* u1, const void* u2,  \
+      const void* ud, const void* central, const void* a1, const void* a2,  \
+      float slope, int d, int n_rows_layout, int n_out, int node_block,     \
+      int tile_e, const void* heavy, int n_heavy, const void* alpha,        \
+      const void* out, const void* dout, void* dm, void* dud,               \
+      void* da_part, int n_parts, void* slot_c, void* scratch,              \
+      void* stream) {                                                       \
+    return static_cast<int>(launch<true, T>(                                \
+        src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,  \
+        n_out, node_block, tile_e, heavy, n_heavy, alpha, nullptr, out,     \
+        dout, dm, dud, da_part, n_parts, slot_c, scratch, stream));         \
+  }
+BGNN_BWD_ENTRIES(, float)
+BGNN_BWD_ENTRIES(_bf16, __nv_bfloat16)
+#undef BGNN_BWD_ENTRIES

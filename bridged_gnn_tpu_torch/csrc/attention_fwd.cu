@@ -83,6 +83,14 @@
 // answers, so the two forwards now share it; the selective form loads one
 // table, keeps one accumulator and writes ex and den.
 //
+// Message types. The u tables and ud are f32 or bf16 (T, chosen at compile
+// time; the entry points *_bf16 take bf16). A bf16 lane loads its 4 columns
+// as one 8-byte access and widens them to f32: logits, the softmax state,
+// the accumulators and every output (out, ex or α, den) are f32, and the
+// wrapper rounds out to bf16 once. The lane-to-column map, kPer, the heavy
+// blocks and the launch switch are those of f32; the bf16 kernel moves half
+// the row bytes.
+//
 // Wide rows. A lane group holds at most kLaneGroupColumns = 256 columns
 // in registers (lane_groups.cuh). Wider rows take attention_fwd_wide_kernel,
 // chosen at launch: one block per destination row; its warps take the row's
@@ -129,10 +137,10 @@ struct FwdState {
 // destination's branch. Writes each slot's raw logit (−inf on masked
 // slots) and leaves the row's merged state in `st`, equal on every lane of
 // the sub-warp for mx and den and on every group for the accumulators.
-template <int kG, int kPer, bool kVec, int kSub, bool kConcat>
+template <int kG, int kPer, bool kVec, int kSub, bool kConcat, typename T>
 __device__ __forceinline__ void fwd_walk(
     const int32_t* __restrict__ src, int lo, int hi,
-    const float* __restrict__ t1, const float* __restrict__ t2,
+    const T* __restrict__ t1, const T* __restrict__ t2,
     const float (&dst)[kPer][4], const float (&av)[kPer][4], bool is_c,
     float slope, int d, float* __restrict__ slot_w, FwdState<kPer>& st) {
   constexpr int kGroups = kSub / kG;  // groups per row
@@ -275,13 +283,13 @@ __device__ __forceinline__ void zero_tail(float* __restrict__ slot_w, int row,
 
 // Two blocks per SM caps a thread at 64 registers; at D > 128 (kPer = 2)
 // that would spill, so those widths take one block per SM.
-template <int kG, int kPer, bool kVec, bool kConcat>
+template <int kG, int kPer, bool kVec, bool kConcat, typename T>
 __global__ void __launch_bounds__(kWarps * 32, kPer == 1 ? 2 : 1)
 attention_fwd_kernel(const int32_t* __restrict__ src,     // [S] sender or -1
                      const int32_t* __restrict__ ranges,  // [R_lay, 2]
-                     const float* __restrict__ u1,        // [N_in, D]
-                     const float* __restrict__ u2,        // [N_in, D]
-                     const float* __restrict__ ud,        // [n_out, D]
+                     const T* __restrict__ u1,            // [N_in, D]
+                     const T* __restrict__ u2,            // [N_in, D]
+                     const T* __restrict__ ud,            // [n_out, D]
                      const bool* __restrict__ central,    // [n_out]
                      const float* __restrict__ a1,        // [D]
                      const float* __restrict__ a2,        // [D]
@@ -445,13 +453,13 @@ __device__ __forceinline__ float block_reduce(float v, float* s_red) {
 }
 
 // D > kLaneGroupColumns: one block per destination row (see the header).
-template <bool kConcat>
+template <bool kConcat, typename T>
 __global__ void __launch_bounds__(kWideWarps * 32)
 attention_fwd_wide_kernel(const int32_t* __restrict__ src,
                           const int32_t* __restrict__ ranges,
-                          const float* __restrict__ u1,
-                          const float* __restrict__ u2,
-                          const float* __restrict__ ud,
+                          const T* __restrict__ u1,
+                          const T* __restrict__ u2,
+                          const T* __restrict__ ud,
                           const bool* __restrict__ central,
                           const float* __restrict__ a1,
                           const float* __restrict__ a2, float slope, int d,
@@ -468,19 +476,19 @@ attention_fwd_wide_kernel(const int32_t* __restrict__ src,
   zero_tail(slot_w, row, hi, node_block, tile_e, threadIdx.x, blockDim.x);
   if (row >= n_out) return;  // the whole block
   const bool is_c = central[row];
-  const float* __restrict__ tab = is_c ? u1 : u2;
+  const T* __restrict__ tab = is_c ? u1 : u2;
   const float* __restrict__ a = is_c ? a1 : a2;
-  const float* __restrict__ urow = ud + (long long)row * d;
+  const T* __restrict__ urow = ud + (long long)row * d;
 
   // 1. each slot's logit, the warps taking the slots in turn
   for (int k = lo + warp; k < hi; k += kWideWarps) {
     const int s = src[k];
     float logit = -INFINITY;
     if (s >= 0) {
-      const float* __restrict__ m = tab + (long long)s * d;
+      const T* __restrict__ m = tab + (long long)s * d;
       float part = 0.f;
       for (int c = lane; c < d; c += 32) {
-        const float z = m[c] + urow[c];
+        const float z = to_f32(m[c]) + to_f32(urow[c]);
         part += (z >= 0.f ? z : slope * z) * a[c];
       }
       logit = group_sum<32>(part);
@@ -512,10 +520,10 @@ attention_fwd_wide_kernel(const int32_t* __restrict__ src,
       if (s < 0) continue;
       const float ex = slot_w[k];
       if constexpr (kConcat) {
-        acc1 += ex * u1[(long long)s * d + c];
-        acc2 += ex * u2[(long long)s * d + c];
+        acc1 += ex * to_f32(u1[(long long)s * d + c]);
+        acc2 += ex * to_f32(u2[(long long)s * d + c]);
       } else {
-        acc1 += ex * tab[(long long)s * d + c];
+        acc1 += ex * to_f32(tab[(long long)s * d + c]);
       }
     }
     __stcs(orow + c, acc1 / den_safe);
@@ -530,7 +538,7 @@ attention_fwd_wide_kernel(const int32_t* __restrict__ src,
   }
 }
 
-template <bool kConcat>
+template <bool kConcat, typename T>
 cudaError_t launch(const void* src, const void* ranges, const void* u1,
                    const void* u2, const void* ud, const void* central,
                    const void* a1, const void* a2, float slope, int d,
@@ -543,31 +551,31 @@ cudaError_t launch(const void* src, const void* ranges, const void* u1,
     return cudaErrorInvalidValue;
   }
   if (d > kLaneGroupColumns) {
-    attention_fwd_wide_kernel<kConcat>
+    attention_fwd_wide_kernel<kConcat, T>
         <<<dim3(n_rows_layout), dim3(kWideWarps * 32), 0, st>>>(
             static_cast<const int32_t*>(src),
             static_cast<const int32_t*>(ranges),
-            static_cast<const float*>(u1), static_cast<const float*>(u2),
-            static_cast<const float*>(ud), static_cast<const bool*>(central),
+            static_cast<const T*>(u1), static_cast<const T*>(u2),
+            static_cast<const T*>(ud), static_cast<const bool*>(central),
             static_cast<const float*>(a1), static_cast<const float*>(a2),
             slope, d, n_out, node_block, tile_e, static_cast<float*>(out),
             static_cast<float*>(slot_w), static_cast<float*>(den));
     return cudaGetLastError();
   }
-  const bool vec = d % 4 == 0 && aligned16(u1) && aligned16(u2) &&
-                   aligned16(ud) && aligned16(a1) && aligned16(a2) &&
+  const bool vec = d % 4 == 0 && aligned_vec<T>(u1) && aligned_vec<T>(u2) &&
+                   aligned_vec<T>(ud) && aligned16(a1) && aligned16(a2) &&
                    aligned16(out);
   const dim3 block(kWarps * 32);
   // one block per heavy row, then one per kWarps·kRows light rows
 #define BGNN_LAUNCH(G, PER, VEC)                                             \
-  attention_fwd_kernel<G, PER, VEC, kConcat>                                 \
+  attention_fwd_kernel<G, PER, VEC, kConcat, T>                              \
       <<<dim3(n_heavy + (n_rows_layout + kWarps * light_rows_per_warp(G) -  \
                          1) /                                                \
                             (kWarps * light_rows_per_warp(G))),              \
          block, 0, st>>>(                                                    \
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(ranges), \
-      static_cast<const float*>(u1), static_cast<const float*>(u2),          \
-      static_cast<const float*>(ud), static_cast<const bool*>(central),      \
+      static_cast<const T*>(u1), static_cast<const T*>(u2),                  \
+      static_cast<const T*>(ud), static_cast<const bool*>(central),          \
       static_cast<const float*>(a1), static_cast<const float*>(a2),          \
       static_cast<const int32_t*>(heavy), n_heavy, slope, d, n_rows_layout,  \
       n_out, node_block, tile_e, static_cast<float*>(out),                   \
@@ -598,32 +606,34 @@ cudaError_t launch(const void* src, const void* ranges, const void* u1,
 
 }  // namespace
 
-extern "C" int attention_sel_fwd(const void* src, const void* ranges,
-                                 const void* u1, const void* u2,
-                                 const void* ud, const void* central,
-                                 const void* a1, const void* a2, float slope,
-                                 int d, int n_rows_layout, int n_out,
-                                 int node_block, int tile_e,
-                                 const void* heavy, int n_heavy, void* out,
-                                 void* ex, void* den, void* stream) {
-  return static_cast<int>(launch<false>(
-      src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,
-      n_out, node_block, tile_e, heavy, n_heavy, out, ex, den,
-      static_cast<cudaStream_t>(stream)));
-}
-
-extern "C" int attention_fwd(const void* src, const void* ranges,
-                             const void* u1, const void* u2, const void* ud,
-                             const void* central, const void* a1,
-                             const void* a2, float slope, int d,
-                             int n_rows_layout, int n_out, int node_block,
-                             int tile_e, const void* heavy, int n_heavy,
-                             void* out, void* alpha, void* stream) {
-  return static_cast<int>(launch<true>(
-      src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,
-      n_out, node_block, tile_e, heavy, n_heavy, out, alpha, nullptr,
-      static_cast<cudaStream_t>(stream)));
-}
+// The entry points: f32 tables, and *_bf16 for bf16 ones (the same
+// arguments; every output stays f32).
+#define BGNN_FWD_ENTRIES(SUFFIX, T)                                          \
+  extern "C" int attention_sel_fwd##SUFFIX(                                  \
+      const void* src, const void* ranges, const void* u1, const void* u2,  \
+      const void* ud, const void* central, const void* a1, const void* a2,  \
+      float slope, int d, int n_rows_layout, int n_out, int node_block,     \
+      int tile_e, const void* heavy, int n_heavy, void* out, void* ex,      \
+      void* den, void* stream) {                                            \
+    return static_cast<int>(launch<false, T>(                               \
+        src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,  \
+        n_out, node_block, tile_e, heavy, n_heavy, out, ex, den,            \
+        static_cast<cudaStream_t>(stream)));                                \
+  }                                                                         \
+  extern "C" int attention_fwd##SUFFIX(                                      \
+      const void* src, const void* ranges, const void* u1, const void* u2,  \
+      const void* ud, const void* central, const void* a1, const void* a2,  \
+      float slope, int d, int n_rows_layout, int n_out, int node_block,     \
+      int tile_e, const void* heavy, int n_heavy, void* out, void* alpha,   \
+      void* stream) {                                                       \
+    return static_cast<int>(launch<true, T>(                                \
+        src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,  \
+        n_out, node_block, tile_e, heavy, n_heavy, out, alpha, nullptr,     \
+        static_cast<cudaStream_t>(stream)));                                \
+  }
+BGNN_FWD_ENTRIES(, float)
+BGNN_FWD_ENTRIES(_bf16, __nv_bfloat16)
+#undef BGNN_FWD_ENTRIES
 
 // The bounds both attention sources share (lane_groups.cuh).
 extern "C" int attention_fwd_heavy_slots() { return kHeavySlots; }

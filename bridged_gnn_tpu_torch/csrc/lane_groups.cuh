@@ -1,14 +1,22 @@
 // Lane-group helpers shared by the attention kernels (attention_fwd.cu,
-// attention_bwd.cu).
+// attention_bwd.cu), and the 4-column loads and stores and element types
+// that they and the sender reduce (slot_reduce.cu) take.
 //
 // A destination row's lanes split into groups of kG lanes; lane gl of a
 // group holds columns 4·(gl + kG·i) + j for i < kPer, j < 4, so the padded
-// width is 4·kG·kPer. Loads and stores move those 4 columns at once: 16-byte
-// vector accesses when kVec (D % 4 == 0 and the tensor 16-byte aligned),
-// scalar ones otherwise.
+// width is 4·kG·kPer. Loads and stores move those 4 columns at once: one
+// vector access when kVec (D % 4 == 0 and the tensor aligned to 4
+// elements: 16 bytes in f32, 8 in bf16), scalar ones otherwise.
+//
+// Message tables (u1, u2, ud) and the backward's dm are float or
+// __nv_bfloat16, chosen at compile time; every other tensor is float. A
+// bf16 element is widened to f32 on load and rounded once, to nearest
+// even, on store, through cuda_bf16.h's intrinsics only; all arithmetic is
+// f32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,6 +68,71 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int c, int d,
   }
 }
 
+// Four bf16 columns as one 8-byte access.
+union Bf16x4 {
+  uint2 u;
+  __nv_bfloat162 h[2];
+};
+
+template <bool kVec, bool kStream = false>
+__device__ __forceinline__ void load4(const __nv_bfloat16* __restrict__ p,
+                                      int c, int d, float (&v)[4]) {
+  if (kVec) {  // d % 4 == 0 and p 8-byte aligned: c < d covers c + 3
+    if (c < d) {
+      const uint2* q = reinterpret_cast<const uint2*>(p + c);
+      Bf16x4 t;
+      t.u = kStream ? __ldcs(q) : *q;
+      const float2 lo = __bfloat1622float2(t.h[0]);
+      const float2 hi = __bfloat1622float2(t.h[1]);
+      v[0] = lo.x;
+      v[1] = lo.y;
+      v[2] = hi.x;
+      v[3] = hi.y;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = c + j < d
+                 ? __bfloat162float(kStream ? __ldcs(p + c + j) : p[c + j])
+                 : 0.f;
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ p, int c,
+                                       int d, const float (&v)[4]) {
+  if (kVec) {
+    if (c < d) {
+      Bf16x4 t;
+      t.h[0] = __floats2bfloat162_rn(v[0], v[1]);
+      t.h[1] = __floats2bfloat162_rn(v[2], v[3]);
+      __stcs(reinterpret_cast<uint2*>(p + c), t.u);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < d) __stcs(p + c + j, __float2bfloat16_rn(v[j]));
+  }
+}
+
+// One element, widened to f32 or rounded from it.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // G = min(32, ⌈D/4⌉) rounded up to a power of two: the lanes of one group.
 // The launchers switch on it and take kPer = 2 at G = 32 past D = 128, so
 // that 4·G·kPer >= D up to kLaneGroupColumns.
@@ -84,6 +157,13 @@ __host__ __device__ constexpr int light_rows_per_warp(int g) {
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// A tensor of T aligned for kVec's 4-element accesses: 16 bytes in f32, 8
+// in bf16.
+template <typename T>
+inline bool aligned_vec(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
 }
 
 }  // namespace

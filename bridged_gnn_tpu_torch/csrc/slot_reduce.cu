@@ -48,9 +48,15 @@
 // Every sum is taken in a fixed order (a light sender's in CSR order, as
 // before), with no atomics: two launches give bit-identical outputs.
 //
-// Bound: bytes. Per entry the kernel reads one scattered W-wide f32 row and
-// adds it: one flop per 4 bytes. Each slot row is read exactly once, in
-// sender order, so the reads land at random in an array far larger than L2
+// Message types. vals is f32 or bf16 (T, chosen at compile time; the entry
+// point slot_reduce_bf16 takes a bf16 dm): a bf16 row is read as 8-byte
+// quads and widened, and every sum and the output stay f32, in the same
+// order as for f32 rows.
+//
+// Bound: bytes. Per entry the kernel reads one scattered W-wide f32 row
+// (bf16: half the bytes) and adds it: one flop per 4 bytes. Each slot row
+// is read exactly once, in sender order, so the reads land at random in an
+// array far larger than L2
 // (147 MB at W = 8 on the bench graph): at small W the time is set by the
 // rate of scattered 32- and 64-byte DRAM reads rather than by bandwidth.
 // Slot rows and outputs are touched once: streaming loads and stores.
@@ -60,53 +66,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_groups.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 16;          // warps per block, light or heavy
 constexpr int kHeavyEntries = 128;  // see the header; = HEAVY_SLOTS in Python
 
 // Every slot row is read once and every output row written once: streaming
-// (evict-first) loads and stores keep L2 for the index and the flags.
-template <bool kVec>
-__device__ __forceinline__ void load4(const float* __restrict__ p, int c,
-                                      int w, float (&v)[4]) {
-  if (kVec) {  // w % 4 == 0 and p 16-byte aligned: c < w covers c + 3
-    if (c < w) {
-      const float4 t = __ldcs(reinterpret_cast<const float4*>(p + c));
-      v[0] = t.x;
-      v[1] = t.y;
-      v[2] = t.z;
-      v[3] = t.w;
-    } else {
-      v[0] = v[1] = v[2] = v[3] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = c + j < w ? __ldcs(p + c + j) : 0.f;
-  }
-}
-
-template <bool kVec>
-__device__ __forceinline__ void store4(float* __restrict__ p, int c, int w,
-                                       const float (&v)[4]) {
-  if (kVec) {
-    if (c < w) __stcs(reinterpret_cast<float4*>(p + c),
-                      make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (c + j < w) __stcs(p + c + j, v[j]);
-  }
-}
+// (evict-first) loads (load4<kVec, true>) and stores keep L2 for the index
+// and the flags.
 
 // One group sums the entries k0, k0 + stride, ... below hi, in that order,
 // into acc1 (branch 1) and acc2 (branch 0). Lane gl of the group holds
 // columns c0 + 4·(gl + kG·i) + j of the chunk starting at c0. The slot ids
 // of the next kU entries are requested before this step's rows are added.
-template <bool kVec, int kG, int kPer>
+template <bool kVec, int kG, int kPer, typename T>
 __device__ __forceinline__ void sum_entries(
-    const int32_t* __restrict__ slots, const float* __restrict__ vals,
+    const int32_t* __restrict__ slots, const T* __restrict__ vals,
     const uint8_t* __restrict__ branch, int w, int c0, int k0, int hi,
     int stride, int gl, float (&acc1)[kPer][4], float (&acc2)[kPer][4]) {
   constexpr int kU = 4 / kPer;  // entries in flight per group
@@ -136,8 +113,8 @@ __device__ __forceinline__ void sum_entries(
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
         if (p[u] >= 0) {
-          load4<kVec>(vals + (long long)p[u] * w, c0 + 4 * (gl + kG * i), w,
-                      v[u][i]);
+          load4<kVec, true>(vals + (long long)p[u] * w,
+                            c0 + 4 * (gl + kG * i), w, v[u][i]);
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j) v[u][i][j] = 0.f;
@@ -162,11 +139,11 @@ __device__ __forceinline__ void sum_entries(
   }
 }
 
-template <bool kVec, int kG, int kPer>
+template <bool kVec, int kG, int kPer, typename T>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
                    const int32_t* __restrict__ slots,   // [R] dst slot
-                   const float* __restrict__ vals,      // [S, W]
+                   const T* __restrict__ vals,          // [S, W]
                    const uint8_t* __restrict__ branch,  // [S]
                    const int32_t* __restrict__ heavy,   // [n_heavy] senders
                    int n_heavy, int w, int n_ranges, int n_rows,
@@ -251,19 +228,19 @@ slot_reduce_kernel(const int32_t* __restrict__ ranges,  // [n_ranges, 2]
   }
 }
 
-template <bool kVec>
+template <bool kVec, typename T>
 cudaError_t launch(const void* ranges, const void* slots, const void* vals,
                    const void* branch, const void* heavy, int n_heavy, int w,
                    int n_ranges, int n_rows, void* out, cudaStream_t st) {
   const dim3 block(kWarps * 32);
 #define BGNN_LAUNCH(G, PER)                                                  \
-  slot_reduce_kernel<kVec, G, PER>                                           \
+  slot_reduce_kernel<kVec, G, PER, T>                                        \
       <<<dim3(n_heavy + (n_rows + kWarps * (32 / G) - 1) /                   \
                             (kWarps * (32 / G))),                            \
          block, 0, st>>>(                                                    \
           static_cast<const int32_t*>(ranges),                               \
           static_cast<const int32_t*>(slots),                                \
-          static_cast<const float*>(vals),                                   \
+          static_cast<const T*>(vals),                                       \
           static_cast<const uint8_t*>(branch),                               \
           static_cast<const int32_t*>(heavy), n_heavy, w, n_ranges, n_rows,  \
           static_cast<float*>(out))
@@ -290,8 +267,22 @@ cudaError_t launch(const void* ranges, const void* slots, const void* vals,
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+template <typename T>
+int launch_any(const void* ranges, const void* slots, const void* vals,
+               const void* branch, const void* heavy, int n_heavy, int w,
+               int n_ranges, int n_rows, void* out, void* stream) {
+  if (w < 1 || n_ranges < 0 || n_rows < 1 || n_heavy < 0 ||
+      branch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = w % 4 == 0 && aligned_vec<T>(vals) && aligned16(out);
+  const cudaError_t rc =
+      vec ? launch<true, T>(ranges, slots, vals, branch, heavy, n_heavy, w,
+                            n_ranges, n_rows, out, st)
+          : launch<false, T>(ranges, slots, vals, branch, heavy, n_heavy, w,
+                             n_ranges, n_rows, out, st);
+  return static_cast<int>(rc);
 }
 
 }  // namespace
@@ -301,18 +292,18 @@ extern "C" int slot_reduce(const void* ranges, const void* slots,
                            const void* heavy, int n_heavy, int w,
                            int n_ranges, int n_rows, void* out,
                            void* stream) {
-  if (w < 1 || n_ranges < 0 || n_rows < 1 || n_heavy < 0 ||
-      branch == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = w % 4 == 0 && aligned16(vals) && aligned16(out);
-  const cudaError_t rc =
-      vec ? launch<true>(ranges, slots, vals, branch, heavy, n_heavy, w,
-                         n_ranges, n_rows, out, st)
-          : launch<false>(ranges, slots, vals, branch, heavy, n_heavy, w,
-                          n_ranges, n_rows, out, st);
-  return static_cast<int>(rc);
+  return launch_any<float>(ranges, slots, vals, branch, heavy, n_heavy, w,
+                           n_ranges, n_rows, out, stream);
+}
+
+// The same with a bf16 vals (a bf16 dm); out stays f32.
+extern "C" int slot_reduce_bf16(const void* ranges, const void* slots,
+                                const void* vals, const void* branch,
+                                const void* heavy, int n_heavy, int w,
+                                int n_ranges, int n_rows, void* out,
+                                void* stream) {
+  return launch_any<__nv_bfloat16>(ranges, slots, vals, branch, heavy,
+                                   n_heavy, w, n_ranges, n_rows, out, stream);
 }
 
 extern "C" int slot_reduce_heavy_entries() { return kHeavyEntries; }

@@ -19,6 +19,12 @@ kernels on a single padded layout, the concatenated kernels per tier on
 degree-tiered layouts, forward and backward. Dropout in train mode draws
 its masks from a ``torch.Generator`` the caller passes, on the model's
 device, never from the global generator.
+
+``msg_dtype="bfloat16"`` (JAX ``msg_dtype``, the production stage-2
+setting) casts each conv's two linear outputs, the message tables, to
+bf16 before the attention and casts the attention's output back to the
+input's dtype; parameters, the gated shifts, batch norm and the heads
+stay f32.
 """
 
 from __future__ import annotations
@@ -42,15 +48,25 @@ from bridged_gnn_tpu_torch.ops.fused_attention import (
 )
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency
 
+# the message dtypes the attention kernels take (None: the input's, f32)
+MSG_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+
 
 class AdaptedConv(nn.Module):
-    """Domain-adapted attention conv (reference models/KTGNN.py:218-328)."""
+    """Domain-adapted attention conv (reference models/KTGNN.py:218-328).
+    ``msg_dtype``: the dtype of the attention's message tables (JAX
+    ``nn/ktgnn.py:124-126``); None keeps the input's."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  negative_slope: float = 0.1, *,
+                 msg_dtype: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.negative_slope = negative_slope
+        if msg_dtype not in MSG_DTYPES:
+            raise ValueError(f"msg_dtype must be one of {list(MSG_DTYPES)}, "
+                             f"got {msg_dtype!r}")
+        self.msg_dtype = MSG_DTYPES[msg_dtype]
         g = generator
         self.a_g_s2t = TorchLinear(2 * in_channels, 1, bias=False,
                                    generator=g)
@@ -84,6 +100,9 @@ class AdaptedConv(nn.Module):
         # --- f: two linear paths (KTGNN.py:283-284)
         u_s2t = self.lin_t(x_s2t)
         u_t2s = self.lin_s(x_t2s)
+        if self.msg_dtype is not None:
+            u_s2t = u_s2t.to(self.msg_dtype)
+            u_t2s = u_t2s.to(self.msg_dtype)
 
         # --- fused attention + segment softmax + aggregation
         if adj.fast_fn is not None:
@@ -99,7 +118,7 @@ class AdaptedConv(nn.Module):
         else:
             raise ValueError(
                 "AdaptedConv needs a blocked or tiered adjacency")
-        return out
+        return out.to(x.dtype)
 
 
 class ClfTransformer(nn.Module):
@@ -132,11 +151,15 @@ class KTGNN(nn.Module):
     ``nn.remat(AdaptedConv)``) runs each conv of ``embed`` under
     ``torch.utils.checkpoint``: the conv keeps none of its activations,
     and the backward runs its forward again, kernels included. Dropout
-    stays outside the conv, so the recompute draws no random numbers."""
+    stays outside the conv, so the recompute draws no random numbers.
+
+    ``msg_dtype`` goes to every conv, the heads' included (JAX
+    ``nn/ktgnn.py:587``)."""
 
     def __init__(self, num_classes: int, in_channels: int,
                  layer_num: int = 2, hidden: int = 64, dropout: float = 0.5,
                  use_bn: bool = True, *, remat: bool = False,
+                 msg_dtype: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
@@ -145,14 +168,16 @@ class KTGNN(nn.Module):
         n_convs = max(layer_num - 1, 1)
         dims = [in_channels] + [hidden] * n_convs
         self.convs = nn.ModuleList(
-            AdaptedConv(dims[i], hidden, generator=g)
+            AdaptedConv(dims[i], hidden, msg_dtype=msg_dtype, generator=g)
             for i in range(n_convs)
         )
         self.bns = nn.ModuleList(
             MaskedBatchNorm(hidden) for _ in range(n_convs)
         ) if use_bn else None
-        self.clf_base = AdaptedConv(hidden, num_classes, generator=g)
-        self.clf_target = AdaptedConv(hidden, num_classes, generator=g)
+        self.clf_base = AdaptedConv(hidden, num_classes,
+                                    msg_dtype=msg_dtype, generator=g)
+        self.clf_target = AdaptedConv(hidden, num_classes,
+                                      msg_dtype=msg_dtype, generator=g)
         self.clf_transformer = ClfTransformer(hidden, generator=g)
 
     def _dropout(self, x: torch.Tensor,

@@ -21,6 +21,15 @@ built outside from the same tables; autograd sums its cotangent back into
 [n_out, D] output, from which the backward kernels take each
 destination's softmax term ``dout · out`` instead of a second pass over
 its slots.
+
+Message dtype (JAX ``Stage2Config.message_dtype``). The tables ``u1``,
+``u2`` and ``ud`` may be bfloat16. The kernels then read bf16 rows, sum in
+f32 and return an f32 output; each Function saves that f32 output for its
+backward and returns it rounded to the tables' dtype, as JAX's
+``out.astype(u1.dtype)`` (ops/fused_attention.py:151, :607). The backward
+takes the cotangent in f32, the kernel writes ``dm`` in bf16, and the
+gradients come back in each input's dtype: the tables' for ``u1``, ``u2``
+and ``ud``, f32 for ``a1`` and ``a2``.
 """
 
 from __future__ import annotations
@@ -45,19 +54,15 @@ class AttentionSel(torch.autograd.Function):
             lay, u1, u2, ud, central, a1, a2, negative_slope)
         ctx.save_for_backward(u1, u2, ud, central, a1, a2, ex, den, out)
         ctx.lay, ctx.negative_slope = lay, negative_slope
-        return out
+        return out.to(u1.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         u1, u2, ud, central, a1, a2, ex, den, out = ctx.saved_tensors
-        d = u1.shape[1]
         dm, dud, da, slot_c = fused_kernels.attention_sel_bwd(
             ctx.lay, u1, u2, ud, central, a1, a2, ex, den, out,
-            dout.contiguous(), ctx.negative_slope)
-        # du1 and du2 in one sender-keyed reduce, split by slot branch
-        du = fused_kernels.slot_reduce(ctx.lay, dm, u1.shape[0], slot_c)
-        return (None, du[:, :d], du[:, d:], dud, None, da[:d], da[d:],
-                None)
+            dout.float().contiguous(), ctx.negative_slope)
+        return _grads(ctx.lay, u1, ud, dm, dud, da, slot_c)
 
 
 class AttentionCat(torch.autograd.Function):
@@ -77,19 +82,25 @@ class AttentionCat(torch.autograd.Function):
         out = torch.where(central[:, None], out2[:, :d], out2[:, d:])
         ctx.save_for_backward(u1, u2, ud, central, a1, a2, alpha, out)
         ctx.lay, ctx.negative_slope = lay, negative_slope
-        return out
+        return out.to(u1.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         u1, u2, ud, central, a1, a2, alpha, out = ctx.saved_tensors
-        d = u1.shape[1]
         dm, dud, da, slot_c = fused_kernels.attention_bwd(
             ctx.lay, u1, u2, ud, central, a1, a2, alpha, out,
-            dout.contiguous(), ctx.negative_slope)
-        # du1 and du2 in one sender-keyed reduce, split by slot branch
-        du = fused_kernels.slot_reduce(ctx.lay, dm, u1.shape[0], slot_c)
-        return (None, du[:, :d], du[:, d:], dud, None, da[:d], da[d:],
-                None)
+            dout.float().contiguous(), ctx.negative_slope)
+        return _grads(ctx.lay, u1, ud, dm, dud, da, slot_c)
+
+
+def _grads(lay, u1, ud, dm, dud, da, slot_c):
+    """Both Functions' gradients from their backward kernel's outputs:
+    ``du1`` and ``du2`` from one sender-keyed reduce of ``dm`` split by
+    slot branch, each table's in its dtype, and ``da1``, ``da2`` in f32."""
+    d = u1.shape[1]
+    du = fused_kernels.slot_reduce(lay, dm, u1.shape[0], slot_c).to(u1.dtype)
+    return (None, du[:, :d], du[:, d:], dud.to(ud.dtype), None, da[:d],
+            da[d:], None)
 
 
 def attention_sel(

@@ -36,12 +36,19 @@ wrapper records autograd: the gradients come from the autograd Functions
 of ``ops/fused_attention.py``, whose backwards launch the backward
 kernels.
 
+Message dtypes. The ``u1``/``u2``/``ud`` tables (and the reduce's
+``vals``) are float32 or bfloat16, one dtype per call: each kernel is
+built for both, widens bf16 rows to f32 on load and keeps every sum in
+f32. The backwards write ``dm`` in the tables' dtype, rounded once at the
+store; every other output is f32. The plain versions take the same
+arguments, widen the tables to f32 and round ``dm`` once on the way out.
+
 The kernels are built at first use for ``sm_90a``, one ``nvcc`` per
 source started together, linked into one library under
 ``bridged_gnn_tpu_torch/_build/`` and loaded with ``ctypes``. Each wrapper
-counts its launches (``launches``, and per attention width in
-``launches_by_d``); :func:`record_launches` also times them with CUDA
-events. Inside a CUDA graph capture a wrapper counts its launch once,
+counts its launches (``launches``, and per attention width and message
+dtype in ``launches_by_d``, keyed by :func:`launch_key`);
+:func:`record_launches` also times them with CUDA events. Inside a CUDA graph capture a wrapper counts its launch once,
 when it is captured; :func:`launch_counts` snapshots give what each
 replay launches. The C entry points only launch on the stream they are
 given and call ``cudaGetLastError``, both legal while a stream captures.
@@ -82,6 +89,9 @@ NVCC_FLAGS = (
 LANE_GROUP_COLUMNS = 256
 # Elements of one [slots, D] temporary of a plain version (see above).
 _PLAIN_CHUNK = 1 << 25
+# The message dtypes the kernels take, and the suffix of each one's C entry
+# points.
+_ENTRY_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -160,19 +170,27 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # src, ranges, u1, u2, ud, central, a1, a2, slope, d, n_rows_layout,
     # n_out, node_block, tile_e, dst_heavy, n_heavy
     head = [p] * 8 + [f] + [i] * 5 + [p, i]
-    # ... out, ex, den, stream
-    lib.attention_sel_fwd.argtypes = head + [p, p, p, p]
-    # ... out, alpha, stream
-    lib.attention_fwd.argtypes = head + [p, p, p]
-    # ... ex, den, out, dout, dm, dud, da_part, n_parts, slot_c, scratch,
-    # stream
-    lib.attention_sel_bwd.argtypes = head + [p] * 7 + [i, p, p, p]
-    # ... alpha, out, dout, dm, dud, da_part, n_parts, slot_c, scratch,
-    # stream
-    lib.attention_bwd.argtypes = head + [p] * 6 + [i, p, p, p]
-    # src_ranges, src_slots, vals, branch, src_heavy, n_heavy, w, n_ranges,
-    # n_rows, out, stream
-    lib.slot_reduce.argtypes = [p] * 5 + [i] * 4 + [p, p]
+    argtypes = dict(
+        # ... out, ex, den, stream
+        attention_sel_fwd=head + [p, p, p, p],
+        # ... out, alpha, stream
+        attention_fwd=head + [p, p, p],
+        # ... ex, den, out, dout, dm, dud, da_part, n_parts, slot_c,
+        # scratch, stream
+        attention_sel_bwd=head + [p] * 7 + [i, p, p, p],
+        # ... alpha, out, dout, dm, dud, da_part, n_parts, slot_c, scratch,
+        # stream
+        attention_bwd=head + [p] * 6 + [i, p, p, p],
+        # src_ranges, src_slots, vals, branch, src_heavy, n_heavy, w,
+        # n_ranges, n_rows, out, stream
+        slot_reduce=[p] * 5 + [i] * 4 + [p, p],
+    )
+    entries = []
+    for name, types in argtypes.items():
+        for suffix in _ENTRY_SUFFIX.values():
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = types
+            entries.append(fn)
     # n_rows_layout, n_heavy, d
     lib.attention_bwd_grid.argtypes = [i] * 3
     # the attention sources share their bounds (csrc/lane_groups.cuh)
@@ -181,9 +199,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
               (lib.attention_lane_group_columns, LANE_GROUP_COLUMNS))
     for fn, _ in consts:
         fn.argtypes = []
-    for fn in (lib.attention_sel_fwd, lib.attention_fwd,
-               lib.attention_sel_bwd, lib.attention_bwd, lib.slot_reduce,
-               lib.attention_bwd_grid, *(fn for fn, _ in consts)):
+    for fn in (*entries, lib.attention_bwd_grid, *(fn for fn, _ in consts)):
         fn.restype = i
     for fn, want in consts:
         if fn() != want:
@@ -203,11 +219,23 @@ def _kernel_lib() -> ctypes.CDLL:
 # ------------------------------------------------------------ validation
 
 
-def _check_tensors(dev, floats: dict, others: dict) -> None:
+def _check_tensors(dev, floats: dict, others: dict,
+                   tables: Optional[dict] = None) -> None:
+    """Device and contiguity of every tensor; ``floats`` float32,
+    ``tables`` float32 or bfloat16, all of one dtype."""
+    tables = tables or {}
     for name, t in floats.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-    for name, t in {**floats, **others}.items():
+    for name, t in tables.items():
+        if t.dtype not in _ENTRY_SUFFIX:
+            raise TypeError(
+                f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if len({t.dtype for t in tables.values()}) > 1:
+        raise TypeError("the message tables must share one dtype, got "
+                        + ", ".join(f"{n} {t.dtype}"
+                                    for n, t in tables.items()))
+    for name, t in {**floats, **others, **tables}.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, u1 on {dev}")
         if not t.is_contiguous():
@@ -215,9 +243,10 @@ def _check_tensors(dev, floats: dict, others: dict) -> None:
 
 
 def _check_inputs(lay: PaddedLayout, u1, u2, ud, central, a1, a2) -> None:
-    _check_tensors(u1.device, dict(u1=u1, u2=u2, ud=ud, a1=a1, a2=a2),
+    _check_tensors(u1.device, dict(a1=a1, a2=a2),
                    dict(central=central, slot_src=lay.slot_src,
-                        dst_ranges=lay.dst_ranges, dst_heavy=lay.dst_heavy))
+                        dst_ranges=lay.dst_ranges, dst_heavy=lay.dst_heavy),
+                   dict(u1=u1, u2=u2, ud=ud))
     if central.dtype != torch.bool:
         raise TypeError(f"central must be bool, got {central.dtype}")
     for name in ("slot_src", "dst_ranges", "dst_heavy"):
@@ -292,7 +321,9 @@ def record_launches(keep_inputs: bool = False):
     """Record every kernel launch made inside the block.
 
     Yields a list that gets one dict per launch: the kernel's ``name``,
-    its attention width ``d``, the CUDA events ``start`` and ``stop``
+    its attention width ``d``, its message ``dtype`` (a torch dtype), its
+    count ``key`` (:func:`launch_key`), the CUDA events ``start`` and
+    ``stop``
     recorded on the launch's stream around it and, with ``keep_inputs``,
     the wrapper's arguments ``inputs``, so that ``wrapper(*inputs)``
     replays the call. Costs two event records per launch while on and
@@ -310,16 +341,25 @@ def record_launches(keep_inputs: bool = False):
         _recording = None
 
 
-def _launch(wrapper, d: int, args: List, inputs: tuple, dev) -> None:
-    """Launch ``wrapper``'s kernel with the C arguments ``args`` on the
-    current stream of ``dev`` and count the launch under width ``d``;
-    ``inputs`` are the wrapper's own arguments, for recording.
+def launch_key(d: int, dtype: torch.dtype):
+    """The key a launch counts under in ``launches_by_d``: the width ``d``
+    for float32 message tables, ``"<d>:bf16"`` for bfloat16 ones."""
+    return d if dtype == torch.float32 else f"{d}:bf16"
+
+
+def _launch(wrapper, d: int, dtype: torch.dtype, args: List, inputs: tuple,
+            dev) -> None:
+    """Launch ``wrapper``'s kernel for message dtype ``dtype`` with the C
+    arguments ``args`` on the current stream of ``dev`` and count the
+    launch under :func:`launch_key`; ``inputs`` are the wrapper's own
+    arguments, for recording.
 
     The stream comes as a raw handle (``_cuda_getCurrentRawStream``, as
     PyTorch's own generated kernels take it) and the device guard is set
     only when ``dev`` is not the current device: both keep the host's work
     per launch, which the card waits on when it is idle, small."""
-    entry = getattr(_kernel_lib(), wrapper.__name__)
+    entry = getattr(_kernel_lib(), wrapper.__name__ + _ENTRY_SUFFIX[dtype])
+    key = launch_key(d, dtype)
     recording = _recording
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     guard = (contextlib.nullcontext() if index == torch.cuda.current_device()
@@ -336,13 +376,13 @@ def _launch(wrapper, d: int, args: List, inputs: tuple, dev) -> None:
             stop = torch.cuda.Event(enable_timing=True)
             start.record(stream)
         wrapper.launches += 1
-        wrapper.launches_by_d[d] = wrapper.launches_by_d.get(d, 0) + 1
+        wrapper.launches_by_d[key] = wrapper.launches_by_d.get(key, 0) + 1
         rc = entry(*args, torch._C._cuda_getCurrentRawStream(index))
         if recording is not None:
             stop.record(stream)
             records, keep_inputs = recording
-            records.append(dict(name=wrapper.__name__, d=d, start=start,
-                                stop=stop,
+            records.append(dict(name=wrapper.__name__, d=d, dtype=dtype,
+                                key=key, start=start, stop=stop,
                                 inputs=inputs if keep_inputs else None))
     _raise_on(rc, wrapper.__name__)
 
@@ -361,6 +401,12 @@ def _attention_args(lay, u1, u2, ud, central, a1, a2, negative_slope):
 # ------------------------------------------------------------ plain versions
 
 
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 table widened to f32 for the plain versions' arithmetic;
+    f32 and f64 tables as they are."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _block_chunks(lay: PaddedLayout, width: int):
     """Flat slot ranges of whole layout blocks, about ``_PLAIN_CHUNK //
     width`` slots each. A destination's slots never leave its block, so
@@ -375,7 +421,9 @@ def _plain_fwd(lay, u1, u2, ud, central, a1, a2, negative_slope, concat):
     """Shared forward of the two plain versions: per-slot ``ex`` under the
     per-destination max (0 on pad and masked slots), the destination sums
     ``den`` (0 ⇒ 1), and ``Σ ex·m / den`` over the selected branch's
-    sender rows ([n_out, D]) or over both tables' ([n_out, 2D])."""
+    sender rows ([n_out, D]) or over both tables' ([n_out, 2D]). bf16
+    tables are widened to f32 first; every output is f32."""
+    u1, u2, ud = _widen(u1), _widen(u2), _widen(ud)
     n_out, d = central.shape[0], u1.shape[1]
     row, valid = slot_rows(lay)
     ex = u1.new_zeros(lay.slot_src.shape[0])
@@ -430,11 +478,13 @@ def _plain_bwd(lay, u1, u2, ud, central, a1, a2, alpha, out, dout,
     D-wide ``dm`` of the selected branch, ``dud``, ``[da1 ‖ da2]`` and
     the slots' branch as uint8. Each destination's softmax term
     ``S_v = Σ_k α_k (m_k · dout_v)`` is ``dout_v · out_v``, as in the
-    kernels."""
+    kernels. bf16 tables are widened to f32 first; ``dm`` is written in
+    the tables' dtype, each chunk rounded once."""
+    dm = u1.new_empty(lay.slot_src.shape[0], u1.shape[1])
+    u1, u2, ud = _widen(u1), _widen(u2), _widen(ud)
     n_out, d = central.shape[0], u1.shape[1]
     row, valid = slot_rows(lay)
     seg = (dout * out).sum(-1)
-    dm = u1.new_empty(lay.slot_src.shape[0], d)
     dud = u1.new_zeros(n_out, d)
     da = u1.new_zeros(2 * d)
     for sl in _block_chunks(lay, d):
@@ -484,16 +534,17 @@ def attention_bwd_plain(
 def slot_reduce_plain(
     lay: PaddedLayout, vals: torch.Tensor, n_rows: int, branch: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain version of :func:`slot_reduce`, over chunks of CSR entries."""
+    """Plain version of :func:`slot_reduce`, over chunks of CSR entries;
+    bf16 rows are widened to f32, and the output is f32."""
     r = lay.src_ranges.long()
     sender = torch.repeat_interleave(
         torch.arange(r.shape[0], device=vals.device), r[:, 1] - r[:, 0])
     p = lay.src_slots.long()
     w = vals.shape[1]
-    out = vals.new_zeros(n_rows, 2 * w)
+    out = _widen(vals.new_zeros(n_rows, 2 * w))
     step = max(1, _PLAIN_CHUNK // w)
     for k0 in range(0, p.shape[0], step):
-        v = vals[p[k0:k0 + step]]
+        v = _widen(vals[p[k0:k0 + step]])
         b = branch[p[k0:k0 + step]].bool()[:, None]
         out.index_add_(0, sender[k0:k0 + step],
                        torch.cat([torch.where(b, v, 0.0),
@@ -531,7 +582,7 @@ def attention_sel_fwd(
     ex = torch.empty(lay.slot_src.shape[0], device=u1.device)
     den = torch.empty(n_out, device=u1.device)
     args = _attention_args(*inputs) + [o.data_ptr() for o in (out, ex, den)]
-    _launch(attention_sel_fwd, d, args, inputs, u1.device)
+    _launch(attention_sel_fwd, d, u1.dtype, args, inputs, u1.device)
     return out, ex, den
 
 
@@ -554,13 +605,14 @@ def attention_fwd(
     out = torch.empty(n_out, 2 * d, device=u1.device)
     alpha = torch.empty(lay.slot_src.shape[0], device=u1.device)
     args = _attention_args(*inputs) + [o.data_ptr() for o in (out, alpha)]
-    _launch(attention_fwd, d, args, inputs, u1.device)
+    _launch(attention_fwd, d, u1.dtype, args, inputs, u1.device)
     return out, alpha
 
 
 def _bwd_launch(wrapper, lay, u1, u2, ud, central, a1, a2, residuals,
                 negative_slope, inputs):
-    """Allocate a backward kernel's outputs — ``dm`` [S, D], ``dud``
+    """Allocate a backward kernel's outputs — ``dm`` [S, D] in the
+    tables' dtype, ``dud``
     [n_out, D], one ``[da1 ‖ da2]`` partial row per thread block (the
     library gives the grid size) and ``slot_c`` [S] — and, past
     :data:`LANE_GROUP_COLUMNS`, the wide path's per-slot scratch; launch
@@ -570,7 +622,7 @@ def _bwd_launch(wrapper, lay, u1, u2, ud, central, a1, a2, residuals,
     n_slots = lay.slot_src.shape[0]
     n_parts = _kernel_lib().attention_bwd_grid(
         lay.num_blocks * lay.node_block, lay.dst_heavy.shape[0], d)
-    dm = torch.empty(n_slots, d, device=dev)
+    dm = torch.empty(n_slots, d, dtype=u1.dtype, device=dev)
     dud = torch.empty(central.shape[0], d, device=dev)
     parts = torch.empty(n_parts, 2 * d, device=dev)
     slot_c = torch.empty(n_slots, dtype=torch.uint8, device=dev)
@@ -580,7 +632,7 @@ def _bwd_launch(wrapper, lay, u1, u2, ud, central, a1, a2, residuals,
             + [t.data_ptr() for t in (*residuals, dm, dud, parts)]
             + [n_parts, slot_c.data_ptr(),
                None if scratch is None else scratch.data_ptr()])
-    _launch(wrapper, d, args, inputs, dev)
+    _launch(wrapper, d, u1.dtype, args, inputs, dev)
     return dm, dud, parts.sum(0), slot_c
 
 
@@ -641,19 +693,22 @@ def slot_reduce(
 ) -> torch.Tensor:
     """Sender-keyed reduce of per-slot rows over one padded layout.
 
-    ``vals`` [B·Et, W]: one row per dst-layout slot (a backward's ``dm``);
+    ``vals`` [B·Et, W], float32 or bfloat16: one row per dst-layout slot
+    (a backward's ``dm``);
     ``branch`` [B·Et] uint8: the slot's branch (the backward's ``slot_c``).
     Returns ``out`` [n_rows, 2W] = ``[du1 ‖ du2]``: ``out[r, :W]`` sums
     ``vals[k]`` over the real slots ``k`` whose sender is ``r`` and whose
     branch is 1, ``out[r, W:]`` those whose branch is 0, each in the
-    layout's sender-CSR order. The launch counts under width ``W``."""
+    layout's sender-CSR order, in f32. The launch counts under width ``W``
+    and ``vals``' dtype."""
     inputs = (lay, vals, n_rows, branch)
     _forward_only(vals=vals)
     if vals.device.type != "cuda":
         return slot_reduce_plain(*inputs)
-    _check_tensors(vals.device, dict(vals=vals),
+    _check_tensors(vals.device, {},
                    dict(src_ranges=lay.src_ranges, src_slots=lay.src_slots,
-                        src_heavy=lay.src_heavy, branch=branch))
+                        src_heavy=lay.src_heavy, branch=branch),
+                   dict(vals=vals))
     n_slots, w = lay.slot_src.shape[0], vals.shape[-1]
     if vals.dim() != 2 or vals.shape[0] != n_slots or w < 1:
         raise ValueError(f"vals must be [{n_slots}, W] with W >= 1, got "
@@ -671,7 +726,7 @@ def slot_reduce(
             vals.data_ptr(), branch.data_ptr(),
             lay.src_heavy.data_ptr(), lay.src_heavy.shape[0],
             w, lay.src_ranges.shape[0], n_rows, out.data_ptr()]
-    _launch(slot_reduce, w, args, inputs, vals.device)
+    _launch(slot_reduce, w, vals.dtype, args, inputs, vals.device)
     return out
 
 
@@ -679,8 +734,9 @@ KERNEL_WRAPPERS = (attention_sel_fwd, attention_fwd, attention_sel_bwd,
                    attention_bwd, slot_reduce)
 
 
-def launch_counts() -> Dict[str, Dict[int, int]]:
-    """Every wrapper's launches by width, as a snapshot: the difference
+def launch_counts() -> Dict[str, Dict]:
+    """Every wrapper's launches by :func:`launch_key`, as a snapshot: the
+    difference
     of two snapshots around a CUDA graph capture is what each replay of
     the graph launches (a replay runs no wrapper, so counts nothing)."""
     return {fn.__name__: dict(fn.launches_by_d) for fn in KERNEL_WRAPPERS}

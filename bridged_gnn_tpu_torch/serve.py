@@ -21,7 +21,11 @@ import torch
 from bridged_gnn_tpu_torch.graph import Graph, graph_from_dict, with_self_loops
 from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph
 from bridged_gnn_tpu_torch.train.stage2 import to_undirected_np
-from bridged_gnn_tpu_torch.utils.platform import resolve_device
+from bridged_gnn_tpu_torch.utils.platform import (
+    check_matmul_precision,
+    matmul_precision,
+    resolve_device,
+)
 
 
 class KTGNNPredictor:
@@ -30,14 +34,20 @@ class KTGNNPredictor:
     ``state_dict``: weights to load into ``model`` (strict), or None to
     serve the model's current weights. ``adjacency_method``: ``"auto"``
     and ``"blocked"`` build the single layout unless the skew rule picks
-    tiers; ``"tiered"`` forces tiers."""
+    tiers; ``"tiered"`` forces tiers. ``matmul_precision``: JAX's
+    precision name that every forward runs under (as the JAX serve CLI
+    builds its predictor under ``jax.default_matmul_precision``); see
+    ``utils/platform.matmul_precision``. A model built with
+    ``msg_dtype="bfloat16"`` serves with bf16 messages as it is."""
 
     def __init__(self, model: torch.nn.Module,
                  state_dict: Optional[Mapping[str, torch.Tensor]],
                  data: Dict[str, np.ndarray],
                  to_undirected: bool = True,
                  adjacency_method: str = "auto",
-                 device="cuda"):
+                 device="cuda", matmul_precision: Optional[str] = None):
+        check_matmul_precision(matmul_precision)
+        self.matmul_precision = matmul_precision
         self.device = resolve_device(device)
         if to_undirected:
             data = to_undirected_np(data)
@@ -53,7 +63,7 @@ class KTGNNPredictor:
         self.model = model.to(self.device).eval()
 
     def _forward(self, g: Graph) -> Dict[str, np.ndarray]:
-        with torch.inference_mode():
+        with torch.inference_mode(), matmul_precision(self.matmul_precision):
             lp_s, lp_t, lp_that = self.model(g, self.adj)
             n = g.num_nodes
             # one host transfer for all three heads
@@ -122,6 +132,6 @@ class KTGNNPredictor:
 
     def embeddings(self) -> np.ndarray:
         """Final-layer node embeddings (reference get_emb equivalent)."""
-        with torch.inference_mode():
+        with torch.inference_mode(), matmul_precision(self.matmul_precision):
             emb = self.model.embed(self.graph, self.adj)
             return emb[: self.graph.num_nodes].cpu().numpy()

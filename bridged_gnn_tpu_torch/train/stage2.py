@@ -20,7 +20,12 @@ the host every epoch. Scan mode (``scan_epochs > 0``, JAX
 round trip: on the card the body is captured once in a CUDA graph and
 replayed, each epoch leaves its losses and five confusion-count tables in
 a device buffer, and the host scores them after one copy per chunk.
-Options of the JAX ``Stage2Config`` that the port does not run yet raise
+``message_dtype="bfloat16"`` runs the convs' message tables in bf16 (the
+kernels' bf16 instantiations) and ``matmul_precision`` is set around the
+whole run (JAX ``stage2.py:410-429``): ``"default"`` with bf16 messages
+and scan mode is the JAX package's production recipe
+(``config.py:80-96``). Options of the JAX ``Stage2Config`` that the port
+does not run yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -42,7 +47,7 @@ from bridged_gnn_tpu_torch.graph import (
     graph_from_dict,
     with_self_loops,
 )
-from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN
+from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN, MSG_DTYPES
 from bridged_gnn_tpu_torch.ops import fused_kernels
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency, adjacency_from_graph
 from bridged_gnn_tpu_torch.train.metrics import eval_metric, score_from_counts
@@ -50,7 +55,11 @@ from bridged_gnn_tpu_torch.train.optim import (
     load_optimizer_state,
     make_optimizer,
 )
-from bridged_gnn_tpu_torch.utils.platform import resolve_device
+from bridged_gnn_tpu_torch.utils.platform import (
+    check_matmul_precision,
+    matmul_precision,
+    resolve_device,
+)
 from bridged_gnn_tpu_torch.utils.profiling import EpochTimer
 from bridged_gnn_tpu_torch.utils.sanitizers import assert_all_finite
 
@@ -92,10 +101,13 @@ class Stage2Config:
     # raise FloatingPointError on a non-finite loss, parameter or BN
     # statistic, every epoch (loop) or chunk (scan)
     check_numerics: bool = False
-    # options of the JAX runtime the port does not run yet; any other
-    # value than the default raises (see _NOT_PORTED)
+    # JAX's matmul precision name around the run: "default" and
+    # "bfloat16" run the card's f32 matmuls in TF32 (utils/platform.py)
     matmul_precision: Optional[str] = None
+    # the convs' message tables: None (f32) or "bfloat16"
     message_dtype: Optional[str] = None
+    # an option of the JAX runtime the port does not run yet; any other
+    # value than the default raises (see _NOT_PORTED)
     n_shards: int = 1
 
 
@@ -105,9 +117,6 @@ _NOT_PORTED = (
     ("no_dtc", (False,), "Queue 1 item 8 (KTGNNNoDTC and the zoo)"),
     ("root_weight", (False,), "Queue 1 item 8 (model extras)"),
     ("need_complement", (False,), "Queue 1 item 8 (the complementor)"),
-    ("message_dtype", (None,), "Queue 1 item 2 (bf16 messages)"),
-    ("matmul_precision", (None, "highest", "float32"),
-     "Queue 1 item 2 (bf16 messages)"),
     ("adjacency_method", ("auto", "blocked", "tiered"),
      "Queue 1 item 5 (the dense path)"),
     ("n_shards", (1,), "Queue 1 item 9 (multi-device)"),
@@ -115,7 +124,8 @@ _NOT_PORTED = (
 
 
 def check_ported(cfg: Stage2Config) -> None:
-    """Raise ``NotImplementedError`` for a value the port does not run."""
+    """Raise ``NotImplementedError`` for a value the port does not run
+    yet, ``ValueError`` for one that no runtime takes."""
     for field, ported, item in _NOT_PORTED:
         value = getattr(cfg, field)
         if value not in ported:
@@ -132,6 +142,10 @@ def check_ported(cfg: Stage2Config) -> None:
         raise ValueError(f"memory_policy: {cfg.memory_policy!r}")
     if cfg.scan_epochs < 0:
         raise ValueError(f"scan_epochs must be >= 0, got {cfg.scan_epochs}")
+    if cfg.message_dtype not in MSG_DTYPES:
+        raise ValueError(f"message_dtype must be one of {list(MSG_DTYPES)}, "
+                         f"got {cfg.message_dtype!r}")
+    check_matmul_precision(cfg.matmul_precision)
 
 
 def masked_nll(log_probs: torch.Tensor, y: torch.Tensor,
@@ -187,7 +201,8 @@ def build_model(cfg: Stage2Config, num_classes: int, in_channels: int,
                 device="cuda", remat: bool = False) -> KTGNN:
     """KT-GNN with the torch-default init drawn from ``cfg.seed``, on
     ``device``; ``remat`` recomputes the embedding convs in the backward
-    (``memory_policy="lean"``). Only ``model_name='KTGNN'`` is ported."""
+    (``memory_policy="lean"``); its convs' messages in
+    ``cfg.message_dtype``. Only ``model_name='KTGNN'`` is ported."""
     if cfg.model_name != "KTGNN":
         raise ValueError(
             f"model {cfg.model_name!r} is not ported; only KTGNN is")
@@ -201,6 +216,7 @@ def build_model(cfg: Stage2Config, num_classes: int, in_channels: int,
         dropout=cfg.dropout,
         use_bn=cfg.use_bn,
         remat=remat,
+        msg_dtype=cfg.message_dtype,
         generator=gen,
     )
     return model.to(dev)
@@ -209,13 +225,15 @@ def build_model(cfg: Stage2Config, num_classes: int, in_channels: int,
 def resolve_memory_policy(cfg: Stage2Config) -> str:
     """``"plain"`` or ``"lean"`` for ``cfg.memory_policy``. ``"auto"`` is
     plain on every device. On the CPU that is the JAX rule (the host
-    pages; JAX ``stage2.py:321-322``). On the card lean does not lower
-    the step's peak: the peak falls in the backward, where the per-slot
-    cotangent ``[slots, hidden]`` lives beside the recomputed conv, so
-    recomputing would cost time and save no memory. chip_smoke.py phase 7
-    measured it with ``torch.cuda.max_memory_allocated`` on an NVIDIA
-    H100 80GB HBM3 (700 W), KT-GNN hidden 64 on the 131,072-node bench
-    graph: 1,990,868,480 bytes lean against 1,990,748,160 plain."""
+    pages; JAX ``stage2.py:321-322``). On the card the JAX rule (the
+    fastest policy whose step fits 80% of the device) picks plain too:
+    chip_smoke.py phases 7 and 15 measured, with
+    ``torch.cuda.max_memory_allocated`` on an NVIDIA H100 80GB HBM3
+    (700 W), KT-GNN hidden 64 on the 131,072-node bench graph, a plain
+    f32 step's peak at 1,990,748,160 bytes, which lean does not lower
+    (the per-slot cotangent ``[slots, hidden]`` sets it), and a bf16
+    step's at 1,641,013,760, which lean lowers by 15% (PERF.md §7): both
+    far below the card's 80 GB."""
     return "plain" if cfg.memory_policy == "auto" else cfg.memory_policy
 
 
@@ -377,6 +395,19 @@ def _capture(run: _ScanRun, stream: torch.cuda.Stream):
     return graph, per_replay
 
 
+# One capture stream per device for the whole process. cuBLAS keeps a
+# workspace (65 MiB on an H100) for every stream it has run on, and frees
+# none, so a new stream per run would leave one behind after each run.
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
 def _use_scan(cfg: Stage2Config) -> bool:
     """The JAX rule (``stage2.py:890-895``): scan needs counts-based
     scores and no per-epoch best-weights copy."""
@@ -401,9 +432,18 @@ def train_ktgnn(
     ``max_logit_spread`` is 0.0, as the JAX runtime returns it when its
     probe does not run: that probe guards the TPU kernels' block-max
     softmax shift, and the port's kernels shift by each destination's
-    own maximum, so there is nothing for it to guard."""
+    own maximum, so there is nothing for it to guard.
+
+    The whole run, scan mode's capture included (cuBLAS picks its kernels
+    there), runs under ``matmul_precision(cfg.matmul_precision)``."""
     cfg = cfg or Stage2Config()
     check_ported(cfg)
+    with matmul_precision(cfg.matmul_precision):
+        return _train_ktgnn(data, cfg, device)
+
+
+def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
+                 device) -> Dict[str, Any]:
     dev = resolve_device(device)
     g, adj = prepare_stage2_graph(data, cfg, dev)
     num_classes = g.num_classes
@@ -570,7 +610,7 @@ def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
     is a replay of that graph. On the CPU every epoch runs eagerly."""
     dev = run.g.x.device
     on_card = dev.type == "cuda"
-    stream = torch.cuda.Stream(dev) if on_card else None
+    stream = _capture_stream(dev) if on_card else None
     graph, per_replay = None, {}
     eager = replays = 0
     if stream is not None:

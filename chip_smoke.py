@@ -80,7 +80,29 @@ Phases, in order; any failure exits non-zero:
    scan run's peak device memory. The scan run once more under
    ``torch.profiler``: per epoch of its second chunk (five replays), the
    device busy share as phase 10 computes it, the top 15 device
-   operations and the hand-written kernels' share.
+   operations and the hand-written kernels' share;
+15. bf16 messages (``message_dtype="bfloat16"``), on each graph: the
+   seeded model with bf16 and with f32 messages behind two predictors;
+   one bf16 predict's kernel calls replayed against their plain versions
+   (bf16 tables) as in phase 3, then, counts at 0, a bf16 serving run
+   whose every launch is the kernel's bf16 instantiation, and predict
+   ×10 of each predictor in turns on the host clock (medians; the bf16
+   heads within 0.15 of the f32 heads, argmax agreement over 0.98); on
+   the bench layout the five kernels at D = 257 and 512 in bf16 as in
+   phase 13; phase 7 on a bf16 model under precision "default" (bf16
+   backward and reduce calls replayed, bit-identical gradients, plain and
+   lean peaks); then the production setting, ``Stage2Config(
+   message_dtype="bfloat16", matmul_precision="default",
+   scan_epochs=5)`` for 12 epochs with ``check_numerics``, counts at 0:
+   each replay launches the bf16 instantiations only (8 forwards, 4
+   backwards, 4 reduces per layout), every loss finite, the first within
+   two bf16 ulps (2·2^-7, relative) of the same run in f32
+   (``message_dtype`` and ``matmul_precision`` None), which runs beside
+   it; and one bf16 loop epoch with CUDA events around every launch,
+   whose losses equal the scan run's first epoch's (rtol 1e-4). A bf16
+   output (the backwards' ``dm``) is held to its plain version at rtol
+   1e-4 + 2^-7: kernel and plain version each round an f32 value once,
+   and two values within 1e-4 may round one bf16 ulp apart.
 
 Phase 7 also runs one ``memory_policy="lean"`` step per graph (the
 embedding conv recomputed in the backward) against the plain step: loss
@@ -98,7 +120,13 @@ time counts the wrapper's host work (``ms_replayed``) and, apart, only the
 card's (``ms_replayed_device``, ``library_device_ms``). Each row also
 lists its wide-width calls (``wide``, phase 13), and the selective
 forward's row its calls on the lead graph (``lead_layout``, phase 12).
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+Phase 15 adds one row per kernel's bf16 instantiation, named after its C
+entry point (``attention_sel_fwd_bf16``, ...; ``dtype`` "bfloat16", the
+f32 rows "float32"): the forwards' launches and in-run ms per predict
+from the bf16 serving runs, the backwards' and the reduce's launches from
+the production training runs and their in-run ms per epoch from the bf16
+loop epoch, plain, bound (bf16 row bytes) and library from the replayed
+calls, and the bf16 wide calls. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
 
@@ -129,12 +157,19 @@ WIDE_REPS = 5            # phase 13: timed calls (a 1030-wide backward moves
                          # ~60 GB)
 WIDE_CHUNK = 1 << 26     # phase 13: elements compared at a time
 RTOL = ATOL = 1e-4       # kernel vs plain version, f32
+BF16_ULP = 2.0 ** -7     # one bf16 ulp, relative (8 significant bits): a
+                         # bf16 dm, which kernel and plain version each
+                         # round once from f32 values within RTOL, may land
+                         # one ulp apart, so it is compared at rtol
+                         # RTOL + BF16_ULP
 LOGPROB_ATOL = 1e-4      # card vs CPU log-probabilities
 LOSS_RTOL = 1e-4         # card vs CPU training losses
 WEIGHT_RTOL, WEIGHT_ATOL = 1e-3, 1e-5   # card vs CPU weights after training
 KERNEL_REPS = 25
-SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's clock: holds the card while
-                           # the host enqueues KERNEL_REPS calls
+SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock: holds the card while
+                           # the host enqueues KERNEL_REPS calls (up to
+                           # ~0.4 ms of host work each; 2 ms let the host's
+                           # gaps into short calls' device times)
 PLAIN_REPS = 20          # the backward phase's plain versions
 PREDICT_REPS = 10
 TRAIN_EPOCHS = 10        # phase 8, single layout
@@ -148,6 +183,9 @@ SCAN_STEP_SIZE = 4       # StepLR: the rate falls at epochs 5 and 9
 TIE_MARGIN = 1e-4        # phase 14: an argmax tie, in log-probability
 TIE_NODES = 40           # phase 14: the closest calls searched for a tie
 PARITY_NODES = BENCH["n"]   # phase 11 graph size
+BF16_WIDE_DS = (257, 512)   # phase 15: the wide path in bf16
+BF16_EPOCHS = 12         # phase 15: the production setting's run per graph
+BF16_CHUNK = 5           # phase 15: scan_epochs of the production setting
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside tensor cores
 
@@ -187,10 +225,12 @@ def lead_graph(data: dict, seed: int) -> dict:
     return dict(data, edge_index=ei)
 
 
-def seeded_model(num_classes: int, in_channels: int, seed: int):
+def seeded_model(num_classes: int, in_channels: int, seed: int,
+                 msg_dtype=None):
     """KT-GNN at the serving defaults (Stage2Config: 2 layers, hidden 64,
     batch norm, no root weight) with weights and BN statistics drawn from
-    one seeded generator, so batch norm is not the identity."""
+    one seeded generator, so batch norm is not the identity; its messages
+    in ``msg_dtype`` (the same weights for every dtype)."""
     import torch
 
     from bridged_gnn_tpu_torch.nn.common import MaskedBatchNorm
@@ -202,9 +242,12 @@ def seeded_model(num_classes: int, in_channels: int, seed: int):
         raise RuntimeError(f"Stage2Config().hidden is {cfg.hidden}, "
                            f"not {HIDDEN}")
     gen = torch.Generator().manual_seed(seed)
+    # no msg_dtype argument for f32: tools/torch_kernel_replay.py builds
+    # this model in checkouts older than bf16 messages
+    extra = {} if msg_dtype is None else dict(msg_dtype=msg_dtype)
     model = KTGNN(num_classes, in_channels, layer_num=cfg.num_layer,
                   hidden=cfg.hidden, dropout=cfg.dropout, use_bn=cfg.use_bn,
-                  generator=gen)
+                  generator=gen, **extra)
     with torch.no_grad():
         for bn in model.modules():
             if isinstance(bn, MaskedBatchNorm):
@@ -268,7 +311,9 @@ def kernel_bound(inputs, concat: bool):
     selective kernel, distinct senders in both tables for the
     concatenated one), the own row and flag of every destination with a
     real slot, and the two logit vectors; each output is written once.
-    Returns the byte time, the operation time and the real slot count."""
+    Table and own rows count in the tables' dtype (f32 or bf16), the
+    rest in f32. Returns the byte time, the operation time and the real
+    slot count."""
     import torch
 
     from bridged_gnn_tpu_torch.ops.blocked_segment import slot_rows
@@ -283,9 +328,9 @@ def kernel_bound(inputs, concat: bool):
     else:
         rows_read = int(torch.unique(src * 2 + central[row[valid]]).numel())
     dst_read = int(torch.unique(row[valid]).numel())
-    f32 = 4
-    read = (real * 4 + lay.dst_ranges.numel() * 4 + rows_read * d * f32
-            + dst_read * (d * f32 + 1) + 2 * d * f32)
+    f32, msg = 4, u1.element_size()
+    read = (real * 4 + lay.dst_ranges.numel() * 4 + rows_read * d * msg
+            + dst_read * (d * msg + 1) + 2 * d * f32)
     written = (n_out * (2 if concat else 1) * d * f32
                + lay.slot_src.numel() * f32 + (0 if concat else n_out * f32))
     # per real slot: add, leaky-relu, logit multiply-add, accumulate
@@ -304,9 +349,10 @@ def bwd_bound(inputs, concat: bool):
     selective, den) of every destination with a real slot, the per-slot
     weight (ex or α) of every real slot and the two logit vectors; the
     outputs dm (every slot, D wide), the slots' branch flags (one byte
-    each), dud and da are written once. Operations: 13·D per real slot
-    (dα, leaky-relu and its gate, dz, dm, dud and da) and 2·D per
-    destination with a real slot (S_v = dout · out)."""
+    each), dud and da are written once. Table rows, own rows and dm count
+    in the tables' dtype (f32 or bf16), the rest in f32. Operations: 13·D
+    per real slot (dα, leaky-relu and its gate, dz, dm, dud and da) and
+    2·D per destination with a real slot (S_v = dout · out)."""
     import torch
 
     from bridged_gnn_tpu_torch.ops.blocked_segment import slot_rows
@@ -319,11 +365,11 @@ def bwd_bound(inputs, concat: bool):
     rows_read = int(torch.unique(src * 2 + central[row[valid]]).numel())
     dst_read = int(torch.unique(row[valid]).numel())
     n_slots = int(lay.slot_src.numel())
-    f32 = 4
-    read = (real * 4 + lay.dst_ranges.numel() * 4 + rows_read * d * f32
-            + dst_read * (3 * d * f32 + 1 + (0 if concat else f32))
+    f32, msg = 4, u1.element_size()
+    read = (real * 4 + lay.dst_ranges.numel() * 4 + rows_read * d * msg
+            + dst_read * (d * msg + 2 * d * f32 + 1 + (0 if concat else f32))
             + real * f32 + 2 * d * f32)
-    written = (n_slots * (d * f32 + 1) + n_out * d * f32 + 2 * d * f32)
+    written = (n_slots * (d * msg + 1) + n_out * d * f32 + 2 * d * f32)
     flops = real * d * 13 + dst_read * d * 2
     return ((read + written) / HBM_BYTES_PER_S * 1e3,
             flops / F32_FLOPS_PER_S * 1e3, real)
@@ -331,12 +377,13 @@ def bwd_bound(inputs, concat: bool):
 
 def reduce_bound(inputs):
     """Least time for one sender-keyed reduce: the CSR ranges and slot
-    ids, one W-wide row and one branch flag per real slot read, the
-    [n_rows, 2W] output written once; one add per element of every row
-    read."""
+    ids, one W-wide row (in vals' dtype) and one branch flag per real
+    slot read, the f32 [n_rows, 2W] output written once; one add per
+    element of every row read."""
     lay, vals, n_rows, _ = inputs
     real, w = int(lay.src_slots.numel()), vals.shape[1]
-    read = lay.src_ranges.numel() * 4 + real * 4 + real * w * 4 + real
+    read = (lay.src_ranges.numel() * 4 + real * 4
+            + real * w * vals.element_size() + real)
     written = n_rows * w * 2 * 4
     return (((read + written) / HBM_BYTES_PER_S * 1e3,
              real * w / F32_FLOPS_PER_S * 1e3, real))
@@ -346,10 +393,13 @@ def reduce_library(inputs):
     """The one PyTorch call that computes the sender-keyed reduce on the
     same inputs: ``index_add_`` of every slot row into its sender's row
     (pad and masked slots carry zero rows), the branch split folded into
-    the index. Timed as a yardstick only; the port never calls it."""
+    the index. Timed as a yardstick only; the port never calls it. bf16
+    rows are widened to f32 first, outside the timed call: the f32
+    accumulator of ``index_add_`` takes only f32 rows."""
     import torch
 
     lay, vals, n_rows, branch = inputs
+    vals = vals.float()
     sender = lay.slot_src.long().clamp(min=0)
     w = vals.shape[1]
     if branch is None:  # older checkouts' branch-less reduce (replay tool)
@@ -391,8 +441,8 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
     gets both.
 
     Integer outputs must be equal. Float outputs must agree within rtol
-    ``RTOL`` and atol ``ATOL``, times the output's largest magnitude when
-    ``scaled``. ``bound(inputs)`` gives the byte time, the
+    ``RTOL`` (``RTOL + BF16_ULP`` for a bf16 output) and atol ``ATOL``,
+    times the output's largest magnitude when ``scaled``. ``bound(inputs)`` gives the byte time, the
     operation time and the real slot count (default: the forwards'
     :func:`kernel_bound`); ``library(inputs)``, where given, the one
     PyTorch call computing the same function, which is checked and
@@ -419,6 +469,8 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
                     raise RuntimeError(f"{where}: integer output differs "
                                        "from the plain version's")
                 continue
+            rtol = RTOL + (BF16_ULP if g.dtype == torch.bfloat16 else 0.0)
+            g, w = g.float(), w.float()
             if not torch.isfinite(g).all():
                 raise RuntimeError(f"{where}: non-finite kernel output")
             diff = (g - w).abs()
@@ -428,7 +480,7 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
             w_max = float(w.abs().max())
             norm_err = max(norm_err, float(diff.max()) / max(w_max, 1e-30))
             atol = ATOL * (w_max if scaled else 1.0)
-            if not torch.allclose(g, w, rtol=RTOL, atol=atol):
+            if not torch.allclose(g, w, rtol=rtol, atol=atol):
                 raise RuntimeError(
                     f"{where} disagrees with its plain version: max abs "
                     f"err {float(diff.max()):.3g} (atol {atol:.3g})")
@@ -442,7 +494,8 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
             t_bytes, t_ops, real = bound(inputs)
         lay = inputs[0]
         out = dict(
-            call=i, layout=layout, d=rec["d"], tile_e=lay.tile_e,
+            call=i, layout=layout, d=rec["d"],
+            dtype=str(rec["dtype"]).replace("torch.", ""), tile_e=lay.tile_e,
             blocks=lay.num_blocks, slots=int(lay.slot_src.numel()),
             real_slots=real, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
@@ -473,10 +526,10 @@ def _row_chunks(t):
 
 def _compare_chunked(where, got, again, want, scaled):
     """Phase 13's comparison, in row chunks: ``got`` and ``again`` (two
-    launches) equal, ``got`` finite and within rtol ``RTOL`` and atol
-    ``ATOL`` (times ``want``'s largest magnitude when ``scaled``) of the
-    plain ``want``, integers equal. Returns (max abs err, that over the
-    largest magnitude)."""
+    launches) equal, ``got`` finite and within rtol ``RTOL`` (``RTOL +
+    BF16_ULP`` for bf16) and atol ``ATOL`` (times ``want``'s largest
+    magnitude when ``scaled``) of the plain ``want``, integers equal.
+    Returns (max abs err, that over the largest magnitude)."""
     import torch
 
     parts = _row_chunks(got)
@@ -489,12 +542,14 @@ def _compare_chunked(where, got, again, want, scaled):
         return 0.0, 0.0
     w_max = max(float(want[p].abs().max()) for p in parts)
     atol = ATOL * (w_max if scaled else 1.0)
+    rtol = RTOL + (BF16_ULP if got.dtype == torch.bfloat16 else 0.0)
     err = 0.0
     for p in parts:
-        if not torch.isfinite(got[p]).all():
+        g, w = got[p].float(), want[p].float()
+        if not torch.isfinite(g).all():
             raise RuntimeError(f"{where}: non-finite kernel output")
-        err = max(err, float((got[p] - want[p]).abs().max()))
-        if not torch.allclose(got[p], want[p], rtol=RTOL, atol=atol):
+        err = max(err, float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=rtol, atol=atol):
             raise RuntimeError(f"{where} disagrees with its plain version: "
                                f"max abs err {err:.3g} (atol {atol:.3g})")
     return err, err / max(w_max, 1e-30)
@@ -520,7 +575,7 @@ def check_wide(name, wrapper, plain, inputs, scaled, bound, library=None):
     lib_ms = lib_device_ms = None
     if library is not None:
         call = library(inputs)
-        if not torch.allclose(call(), got[0], rtol=RTOL,
+        if not torch.allclose(call(), got[0].float(), rtol=RTOL,
                               atol=ATOL * float(got[0].abs().max())):
             raise RuntimeError(f"{where}: the library call disagrees with "
                                "the kernel")
@@ -528,7 +583,8 @@ def check_wide(name, wrapper, plain, inputs, scaled, bound, library=None):
         lib_device_ms = cuda_device_ms(call, WIDE_REPS)
     t_bytes, t_ops, real = bound(inputs)
     rec = dict(
-        kernel=name, d=d, real_slots=real,
+        kernel=name, d=d, dtype=str(inputs[1].dtype).replace("torch.", ""),
+        real_slots=real,
         ms=cuda_ms(lambda: wrapper(*inputs), WIDE_REPS, warmup=1),
         device_ms=cuda_device_ms(lambda: wrapper(*inputs), WIDE_REPS),
         plain_ms=cuda_ms(lambda: plain(*inputs), 2, warmup=1),
@@ -541,11 +597,12 @@ def check_wide(name, wrapper, plain, inputs, scaled, bound, library=None):
     return got, rec
 
 
-def wide_phase(lay, central, seed):
-    """Phase 13: the five kernels at each of WIDE_DS on one layout, with
-    seeded random tables; each backward takes the residuals of its
-    forward's kernel call, the reduce the selective backward's dm and
-    branch. Returns the records by kernel name."""
+def wide_phase(lay, central, seed, ds=WIDE_DS, dtype=None):
+    """Phase 13 (and 15 in bf16): the five kernels at each of ``ds`` on
+    one layout, with seeded random tables (in ``dtype``, f32 by default);
+    each backward takes the residuals of its forward's kernel call, the
+    reduce the selective backward's dm and branch. Returns the records by
+    kernel name."""
     import torch
 
     from bridged_gnn_tpu_torch.ops import fused_kernels as fk
@@ -560,13 +617,18 @@ def wide_phase(lay, central, seed):
         log(json.dumps(dict(phase="wide", **rec)))
         return got
 
-    for d in WIDE_DS:
+    for d in ds:
         gen = torch.Generator(device=central.device).manual_seed(seed + d)
 
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device=central.device)
 
-        base = (rnd(n, d), rnd(n, d), rnd(n, d), central, rnd(d), rnd(d))
+        def table(*shape):
+            t = rnd(*shape)
+            return t if dtype is None else t.to(dtype)
+
+        base = (table(n, d), table(n, d), table(n, d), central, rnd(d),
+                rnd(d))
         dout = rnd(n, d)
         out, ex, den = check("attention_sel_fwd", (lay, *base, 0.1), False,
                              lambda i: kernel_bound(i, concat=False))
@@ -1148,6 +1210,234 @@ def scan_phase(name, data, tiered: bool, n_layouts: int,
         trace=traced)
 
 
+# ------------------------------------------------ phase 15: bf16 messages
+
+
+def bf16_serve_phase(name, data, kernel, tiered: bool, n_layouts: int,
+                     num_classes: int, reps: int):
+    """Phase 15, serving on one graph: the seeded model with bf16 and with
+    f32 messages (the same weights), each behind its own predictor on the
+    card. One bf16 predict is recorded and its kernel calls replayed
+    against their plain versions (as phase 3, bf16 tables). Then, the
+    counts set to 0, the bf16 serving run: ``predict`` ×(1 + reps) and
+    ×reps more with CUDA events around every launch, each launch of the
+    kernel's bf16 instantiation (1 at HIDDEN and 3 at the classes per
+    predict and layout). Last, ``predict`` of each predictor in turns,
+    reps each, on the host clock; the bf16 heads against the f32 heads.
+    Returns the replay records, the phase's record and the predictor's
+    layout and destination flags (for the wide calls)."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.serve import KTGNNPredictor
+
+    t0 = time.perf_counter()
+    preds = {dt: KTGNNPredictor(
+        seeded_model(BENCH["num_classes"], BENCH["dim"], BENCH["seed"],
+                     msg_dtype=dt), None, data, device="cuda")
+        for dt in ("bfloat16", None)}
+    setup_s = time.perf_counter() - t0
+    p16, p32 = preds["bfloat16"], preds[None]
+    if (p16.adj.tiered_fn is not None) != tiered:
+        raise RuntimeError(f"{name}: expected tiered={tiered} layouts")
+    lays = layouts_of(p16.adj)
+    with torch.inference_mode():
+        recs = check_kernel(kernel.__name__, kernel,
+                            getattr(fk, kernel.__name__ + "_plain"),
+                            record_run(p16.predict, (kernel.__name__,)),
+                            lays)
+    if any(r["dtype"] != "bfloat16" for r in recs):
+        raise RuntimeError(f"{name}: a bf16 predict launched f32 kernels")
+
+    bf16 = torch.bfloat16
+    want_by_d = {fk.launch_key(HIDDEN, bf16): n_layouts,
+                 fk.launch_key(num_classes, bf16): 3 * n_layouts}
+    fk.reset_launch_counts()
+    first = p16.predict()
+    by_d = dict(kernel.launches_by_d)
+    for _ in range(reps):
+        p16.predict()
+    with fk.record_launches() as events:
+        marks = []
+        for _ in range(reps):
+            marks.append(len(events))
+            p16.predict()
+        marks.append(len(events))
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    other = sum(fn.launches for fn in fk.KERNEL_WRAPPERS) - launches
+    if (by_d != want_by_d or launches != (1 + 2 * reps) * sum(
+            want_by_d.values()) or other):
+        raise RuntimeError(f"{name}: {kernel.__name__} launched {by_d} in "
+                           f"one bf16 predict (expected {want_by_d}), "
+                           f"{launches} in all; other kernels {other}")
+    kernel_ms = [sum(r["start"].elapsed_time(r["stop"])
+                     for r in events[a:b]) for a, b in zip(marks, marks[1:])]
+    n = p16.graph.num_nodes
+    check_heads(first, n, num_classes, f"{name} bf16 predict")
+    times = {"bfloat16": [], None: []}
+    for _ in range(reps):
+        for dt in (None, "bfloat16"):
+            t = time.perf_counter()
+            out = preds[dt].predict()
+            times[dt].append((time.perf_counter() - t) * 1e3)
+    ref = p32.predict()
+    check_heads(ref, n, num_classes, f"{name} f32 predict")
+    diff = max(float(np.abs(out[h] - ref[h]).max()) for h in HEADS)
+    agree = {h: float((out[h].argmax(1) == ref[h].argmax(1)).mean())
+             for h in HEADS}
+    if not diff < 0.15 or min(agree.values()) <= 0.98:
+        raise RuntimeError(f"{name}: bf16 predict drifts {diff:.3g} from "
+                           f"f32, argmax agreement {agree}")
+    record = dict(
+        phase=name, layouts=n_layouts, setup_s=setup_s,
+        kernel=kernel.__name__ + "_bf16", launches=launches,
+        launches_per_predict_by_d=by_d,
+        kernel_ms_per_predict_median=statistics.median(kernel_ms),
+        kernel_ms_per_predict_min=min(kernel_ms),
+        predict_ms_median_bf16=statistics.median(times["bfloat16"]),
+        predict_ms_median_f32=statistics.median(times[None]),
+        predict_ms_min_bf16=min(times["bfloat16"]),
+        predict_ms_min_f32=min(times[None]), predicts_timed=reps,
+        max_abs_logprob_diff_vs_f32=diff, argmax_agreement_vs_f32=agree)
+    lay = lays[0]
+    central = p16.graph.central_mask
+    del preds, p16, p32
+    return recs, record, lay, central
+
+
+def bf16_train_phase(name, data, tiered: bool, n_layouts: int,
+                     num_classes: int, epochs: int):
+    """Phase 15, training on one graph. (1) Phase 7 on a bf16 model under
+    precision "default": one step's backward and reduce calls replayed
+    against their plain versions and ``index_add_``, the whole backward
+    twice bit-identical, the plain and lean steps' peak device memory.
+    (2) The production setting, ``Stage2Config(message_dtype="bfloat16",
+    matmul_precision="default", scan_epochs=BF16_CHUNK)``, for ``epochs``
+    epochs with ``check_numerics`` on, the counts set to 0 before it: each
+    replay launches per layout 8 forwards, 4 backwards and 4 reduces, all
+    bf16; every loss finite. (3) The same run in f32 (message_dtype and
+    matmul_precision None). (4) One bf16 loop epoch with CUDA events
+    around every launch: its losses equal the scan run's first epoch's
+    (rtol LOSS_RTOL). Returns the replay records, the phase's record and
+    the loop epoch's kernel ms by wrapper. Garbage is collected first, so
+    that the step's resident bytes hold the training state alone; the
+    bytes that collection freed are in the record."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train import stage2
+    from bridged_gnn_tpu_torch.utils.platform import matmul_precision
+
+    allocated = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed_by_gc = allocated - torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg16 = stage2.Stage2Config(
+        num_epoch=epochs, scan_epochs=BF16_CHUNK, to_undirected=True,
+        check_numerics=True, message_dtype="bfloat16",
+        matmul_precision="default")
+    with matmul_precision(cfg16.matmul_precision):
+        replay, det = check_backward(name, data, cfg16, tiered)
+    torch.cuda.empty_cache()
+    replay_s = time.perf_counter() - t0
+    fwd, bwd = ((fk.attention_fwd, fk.attention_bwd) if tiered
+                else (fk.attention_sel_fwd, fk.attention_sel_bwd))
+    bf16 = torch.bfloat16
+    hid, cls = (fk.launch_key(HIDDEN, bf16),
+                fk.launch_key(num_classes, bf16))
+    want = {fwd.__name__: {hid: 2 * n_layouts, cls: 6 * n_layouts},
+            bwd.__name__: {hid: n_layouts, cls: 3 * n_layouts},
+            "slot_reduce": {hid: n_layouts, cls: 3 * n_layouts}}
+    prepared = stage2.prepare_stage2_graph(data, cfg16, "cuda")
+    runs = {}
+    with mock.patch.object(stage2, "prepare_stage2_graph",
+                           lambda *a, **k: prepared):
+        for key, cfg in (("bf16", cfg16),
+                         ("f32", dataclasses.replace(
+                             cfg16, message_dtype=None,
+                             matmul_precision=None))):
+            fk.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = stage2.train_ktgnn(data, cfg, device="cuda")
+            runs[key] = dict(res=res, s=time.perf_counter() - t0,
+                             peak=torch.cuda.max_memory_allocated(),
+                             counted=fk.launch_counts())
+        fk.reset_launch_counts()
+        with fk.record_launches() as events:
+            loop = stage2.train_ktgnn(data, dataclasses.replace(
+                cfg16, num_epoch=1, scan_epochs=0), device="cuda")
+        torch.cuda.synchronize()
+        loop_by_d = fk.launch_counts()
+    scan = runs["bf16"]["res"]
+    info = scan["scan"]
+    if info["launches_per_replay"] != want:
+        raise RuntimeError(f"{name}: a bf16 replay launches "
+                           f"{info['launches_per_replay']}, not {want}")
+    counted = {n: c for n, c in runs["bf16"]["counted"].items() if c}
+    counted_want = {n: {d: (info["eager_epochs"] + 1) * k
+                        for d, k in by_d.items()} for n, by_d in want.items()}
+    if counted != counted_want:
+        raise RuntimeError(f"{name}: the wrappers counted {counted} in the "
+                           f"bf16 run, not {counted_want}")
+    if {n: c for n, c in loop_by_d.items() if c} != want:
+        raise RuntimeError(f"{name}: a bf16 loop epoch launched "
+                           f"{loop_by_d}, not {want}")
+    losses = {k: [h["loss"] for h in r["res"]["history"]]
+              for k, r in runs.items()}
+    for k, ls in losses.items():
+        if len(ls) != epochs or not np.all(np.isfinite(ls)):
+            raise RuntimeError(f"{name}: {k} losses {ls}")
+    first16, first32 = losses["bf16"][0], losses["f32"][0]
+    if not abs(first16 - first32) <= 2 * BF16_ULP * abs(first32):
+        raise RuntimeError(f"{name}: first bf16 loss {first16} against f32 "
+                           f"{first32}")
+    loop_err = max(abs(loop["history"][0][k] - scan["history"][0][k])
+                   / abs(scan["history"][0][k]) for k in ("loss", "loss_t2"))
+    if not loop_err <= LOSS_RTOL:
+        raise RuntimeError(f"{name}: the bf16 loop epoch's losses differ "
+                           f"from the scan run's by {loop_err:.3g}")
+    kernel_ms = {fn.__name__: sum(r["start"].elapsed_time(r["stop"])
+                                  for r in events if r["name"] == fn.__name__)
+                 for fn in (fwd, bwd, fk.slot_reduce)}
+
+    def scores(res):
+        last = res["history"][-1]
+        return dict(last={k: last[k] for k in ("epoch", "train", "val",
+                                                 "test")},
+                    best={k: v for k, v in res["best"].items()
+                          if k != "per_head"})
+
+    record = dict(
+        phase=name, epochs=epochs, chunk=BF16_CHUNK, layouts=n_layouts,
+        replay_s=replay_s, **info,
+        launches_bf16={n: sum(c.values()) for n, c in counted.items()},
+        epoch_s_median_bf16=scan["throughput"]["p50_s"],
+        epoch_s_median_f32=runs["f32"]["res"]["throughput"]["p50_s"],
+        run_s_bf16=runs["bf16"]["s"], run_s_f32=runs["f32"]["s"],
+        scan_max_memory_allocated_bf16=runs["bf16"]["peak"],
+        scan_max_memory_allocated_f32=runs["f32"]["peak"],
+        step_peak_bytes_bf16=det["plain_peak_bytes"],
+        lean_step_peak_bytes_bf16=det["lean_peak_bytes"],
+        step_resident_bytes_bf16=det["resident_bytes"],
+        step_bytes_bf16=det["plain_step_bytes"],
+        lean_step_bytes_bf16=det["lean_step_bytes"],
+        bytes_freed_by_gc=freed_by_gc,
+        bit_identical_grads=det["bit_identical_grads"],
+        losses_bf16=losses["bf16"], losses_f32=losses["f32"],
+        loop_epoch_max_rel_loss_err=loop_err,
+        loop_epoch_kernel_ms=kernel_ms,
+        scores_bf16=scores(scan), scores_f32=scores(runs["f32"]["res"]))
+    del runs, prepared
+    return replay, record
+
+
 # a score of phase 14: the head and the split mask it counts
 _SCORE_OF = {"train": (0, "train_mask"), "val": (2, "val_mask"),
              "test": (2, "test_mask"), "best_train": (0, "train_mask"),
@@ -1273,6 +1563,90 @@ def summary_row(name, source, replaces, recs, launches, ms, per, card):
         library_device_ms=None if None in lib
         else sum(r["library_device_ms"] for r in recs), per=per, card=card,
     )
+
+
+def bf16_phase(bench, hub, n_tiers: int, c: int, card: str):
+    """Phase 15 on both graphs: :func:`bf16_serve_phase`, the five kernels
+    at BF16_WIDE_DS in bf16 on the bench layout, and
+    :func:`bf16_train_phase`. Returns the replay records by (kernel,
+    graph), the serving and training records by graph and the wide
+    records by kernel."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    serve, replay, train = {}, {}, {}
+    for name, data, kernel, is_tiered, lays in (
+            ("bench", bench, fk.attention_sel_fwd, False, 1),
+            ("hub", hub, fk.attention_fwd, True, n_tiers)):
+        recs, rec, lay, central = bf16_serve_phase(
+            f"bf16_serve_{name}", data, kernel, is_tiered, lays, c,
+            PREDICT_REPS)
+        replay[(kernel.__name__, name)] = recs
+        serve[name] = rec
+        for r in recs:
+            log(json.dumps(dict(kernel=kernel.__name__, graph=name,
+                                card=card, **r)))
+        log(json.dumps(dict(card=card, **rec)))
+        if name == "bench":
+            t0 = time.perf_counter()
+            wide = wide_phase(lay, central, BENCH["seed"], BF16_WIDE_DS,
+                              torch.bfloat16)
+            log(f"bf16 wide widths {BF16_WIDE_DS}: "
+                f"{time.perf_counter() - t0:.1f} s")
+        del lay, central
+        torch.cuda.empty_cache()
+    for name, data, is_tiered, lays in (("bench", bench, False, 1),
+                                        ("hub", hub, True, n_tiers)):
+        recs, rec = bf16_train_phase(f"bf16_train_{name}", data, is_tiered,
+                                     lays, c, BF16_EPOCHS)
+        for kname, rows in recs.items():
+            replay[(kname, name)] = rows
+            for r in rows:
+                log(json.dumps(dict(kernel=kname, graph=name, card=card,
+                                    **r)))
+        train[name] = rec
+        log(json.dumps(dict(card=card, **rec)))
+        torch.cuda.empty_cache()
+    return replay, serve, train, wide
+
+
+def bf16_rows(f32_rows, replay, serve, train, wide, card) -> list:
+    """Phase 15's entries of the kernels line, one per kernel's bf16
+    instantiation (named after its C entry point, ``<name>_bf16``): the
+    forwards' launches and in-run ms per predict from the bf16 serving
+    runs, the backwards' and the reduce's launches from the production
+    training runs and their in-run ms per epoch from the bf16 loop epoch;
+    plain, bound and library summed over the replayed calls of one bf16
+    predict or training step, as the f32 rows."""
+    graph_of = {"attention_sel_fwd": "bench", "attention_fwd": "hub",
+                "attention_sel_bwd": "bench", "attention_bwd": "hub",
+                "slot_reduce": "bench"}
+    rows = []
+    for base in f32_rows:
+        name, graph = base["name"], graph_of[base["name"]]
+        if name.endswith("fwd"):
+            ms = serve[graph]["kernel_ms_per_predict_median"]
+            launches, per = serve[graph]["launches"], "predict"
+        else:
+            ms = train[graph]["loop_epoch_kernel_ms"][name]
+            launches = sum(train[g]["launches_bf16"].get(name, 0)
+                           for g in train)
+            per = "epoch"
+        row = summary_row(f"{name}_bf16", base["source"], base["replaces"],
+                          replay[(name, graph)], launches, ms, per, card)
+        row["dtype"] = "bfloat16"
+        row["wide"] = [{k: r[k] for k in (
+            "d", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} for r in wide[name]]
+        rows.append(row)
+    hub_rows = replay[("slot_reduce", "hub")]
+    rows[4].update(
+        ms_tiered=train["hub"]["loop_epoch_kernel_ms"]["slot_reduce"],
+        plain_ms_tiered=sum(r["plain_ms"] for r in hub_rows),
+        bound_ms_tiered=sum(r["bound_ms"] for r in hub_rows),
+        library_ms_tiered=sum(r["library_ms"] for r in hub_rows))
+    return rows
 
 
 # --------------------------------------------------------------------- main
@@ -1461,6 +1835,12 @@ def main() -> int:
         log(json.dumps(dict(card=card, s=time.perf_counter() - t0, **rec)))
         torch.cuda.empty_cache()
 
+    # 15. bf16 messages: serving and the kernels' bf16 calls on each graph,
+    # the wide path in bf16, and the production training setting
+    t0 = time.perf_counter()
+    bf16 = bf16_phase(bench, hub, n_tiers, c, card)
+    log(f"phase 15 (bf16 messages): {time.perf_counter() - t0:.1f} s")
+
     # summary, per kernel: its launches in its main-path phase and its
     # time inside that run (per predict for the forwards, per epoch for
     # the backwards), and, summed over the replayed calls of one predict
@@ -1498,6 +1878,8 @@ def main() -> int:
                     train_single["kernel_ms_per_epoch"]["slot_reduce"],
                     "epoch", card),
     ]
+    for row in kernels:
+        row["dtype"] = "float32"
     for row, phase in ((kernels[0], single), (kernels[1], tiered)):
         row["launches_per_predict_by_d"] = phase["launches_per_predict_by_d"]
     for row in kernels:
@@ -1523,6 +1905,7 @@ def main() -> int:
         plain_ms_tiered=sum(r["plain_ms"] for r in hub_rows),
         bound_ms_tiered=sum(r["bound_ms"] for r in hub_rows),
         library_ms_tiered=sum(r["library_ms"] for r in hub_rows))
+    kernels += bf16_rows(kernels, *bf16, card)
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

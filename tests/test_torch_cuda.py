@@ -630,6 +630,24 @@ def test_cuda_scan_replay_launches(rng, method):
 
 
 @pytest.mark.cuda
+def test_cuda_scan_runs_leave_no_device_memory_behind(rng):
+    """Scan runs one after another in one process hold no more device
+    memory after the second than after the first: every run captures on
+    the device's one capture stream, so cuBLAS keeps one workspace for it
+    (a new stream per run left a 65 MiB workspace behind on an H100)."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    data = _scan_data(rng, "blocked")
+    after = []
+    for _ in range(3):
+        train_ktgnn(data, _scan_cfg(), device=dev)
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert after[2] <= after[1] <= after[0], after
+
+
+@pytest.mark.cuda
 def test_cuda_capture_refuses_record_launches(rng):
     """record_launches times launches with CUDA events; inside a capture
     those would time the capture, so the first launch captured raises."""
@@ -690,3 +708,122 @@ def test_cuda_resume_across_modes(rng, tmp_path):
             assert hr["epoch"] == hf["epoch"]
             for key in ("loss", "loss_t2"):
                 assert abs(hr[key] - hf[key]) <= 1e-4 * abs(hf[key]), hr
+
+
+# ----------------------------------------------------- bf16 message tables
+
+# One bf16 ulp, relative: bf16 keeps 8 significant bits, so neighbouring
+# values lie at most 2^-7 of their magnitude apart. A rounding moves a
+# value by at most half of that; two values within 1e-4 of each other
+# may round to neighbours one ulp apart.
+BF16_ULP = 2.0 ** -7
+
+
+def _to_bf16(wrapper, args):
+    """A call's message tables (the reduce's rows) in bf16."""
+    idx = (1,) if wrapper is fk.slot_reduce else (1, 2, 3)
+    return tuple(a.to(torch.bfloat16) if i in idx else a
+                 for i, a in enumerate(args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 64, 257])
+def test_cuda_bf16_kernels_match_plain(rng, d):
+    """The five kernels' bf16 instantiations (D = 257 on the wide path)
+    against their plain versions on the same bf16 inputs on the card, on
+    a single layout, the hub layout, the edge-case layout and degree
+    tiers, each launched twice into NaN-filled memory for bit-identical
+    outputs and counted under its bf16 key. The f32 outputs at the f32
+    kernels' tolerances (forwards rtol and atol 1e-4, backwards and the
+    reduce atol 1e-4 times the largest magnitude); dm, which both sides
+    round to bf16 once, widened by one bf16 ulp (rtol 2^-7)."""
+    dev = _need_cuda()
+    lays = _card_layouts(rng, dev) + [_edge_case_layout(rng, dev)]
+    for lay in lays:
+        for i, (wrapper, args) in enumerate(_all_calls(rng, lay, d, dev)):
+            args = _to_bf16(wrapper, args)
+            want = _outputs(_PLAIN[wrapper](*args))
+            runs = []
+            for _ in range(2):
+                _poison(dev, *(tuple(w_.shape) for w_ in want))
+                before = wrapper.launches_by_d.get(
+                    fk.launch_key(d, torch.bfloat16), 0)
+                runs.append(_outputs(wrapper(*args)))
+                assert wrapper.launches_by_d[
+                    fk.launch_key(d, torch.bfloat16)] == before + 1
+            torch.cuda.synchronize()
+            for j, (g_, again, w_) in enumerate(zip(*runs, want)):
+                assert g_.shape == w_.shape and g_.dtype == w_.dtype
+                assert torch.equal(g_, again)
+                if g_.dtype == torch.uint8:
+                    assert torch.equal(g_, w_)
+                    continue
+                scale = 1.0 if i < 2 else float(w_.abs().max())
+                dm = i in (2, 3) and j == 0
+                assert g_.dtype == (torch.bfloat16 if dm else torch.float32)
+                torch.testing.assert_close(
+                    g_.float(), w_.float(),
+                    rtol=1e-4 + (BF16_ULP if dm else 0.0), atol=1e-4 * scale)
+
+
+def _bf16_model_data(rng, method):
+    data = skewed_data(rng, n=200, c=4, d=12)
+    if method == "blocked":   # uniform edges: one layout
+        data["edge_index"] = rng.integers(0, 200, size=(2, 1600))
+    data["test_mask"] = ~data["train_mask"]
+    return data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["blocked", "tiered"])
+def test_cuda_bf16_predict_and_train(rng, method):
+    """A bf16 model on the card: the predictor (f32 matmuls) launches
+    only the bf16 forwards (4 per predict and layout) and answers as its
+    CPU twin within one bf16 ulp (2^-7) of the largest log-probability; the
+    production
+    training setting (bf16 messages, precision "default", scan mode)
+    launches the bf16 forwards, backwards and reduces, every loss finite,
+    the first epoch's within two bf16 ulps of the CPU's."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.serve import KTGNNPredictor
+    from bridged_gnn_tpu_torch.train.stage2 import (
+        Stage2Config,
+        build_model,
+        train_ktgnn,
+    )
+
+    data = _bf16_model_data(rng, method)
+    model = build_model(Stage2Config(hidden=16, message_dtype="bfloat16"),
+                        4, 12, device="cpu")
+    want = KTGNNPredictor(model, None, data, adjacency_method=method,
+                          device="cpu").predict()
+    card = KTGNNPredictor(model, None, data, adjacency_method=method,
+                          device=dev)
+    layouts = len(card.adj.tiered_fn.tiers) if card.adj.tiered_fn else 1
+    kernel = fk.attention_fwd if card.adj.tiered_fn else fk.attention_sel_fwd
+    fk.reset_launch_counts()
+    got = card.predict()
+    assert kernel.launches_by_d == {"16:bf16": layouts, "4:bf16": 3 * layouts}
+    for head in want:
+        tol = BF16_ULP * float(np.abs(want[head]).max())
+        np.testing.assert_allclose(got[head], want[head], atol=tol)
+
+    cfg = Stage2Config(num_epoch=6, hidden=16, dropout=0.0,
+                       adjacency_method=method, message_dtype="bfloat16",
+                       matmul_precision="default")
+    cpu = train_ktgnn(data, cfg, device="cpu")
+    fk.reset_launch_counts()
+    res = train_ktgnn(data, Stage2Config(**{**cfg.__dict__,
+                                            "scan_epochs": 3}), device=dev)
+    per = res["scan"]["launches_per_replay"]
+    fwd, bwd = ((fk.attention_fwd, fk.attention_bwd) if method == "tiered"
+                else (fk.attention_sel_fwd, fk.attention_sel_bwd))
+    assert per == {fwd.__name__: {"16:bf16": 2 * layouts,
+                                  "4:bf16": 6 * layouts},
+                   bwd.__name__: {"16:bf16": layouts, "4:bf16": 3 * layouts},
+                   "slot_reduce": {"16:bf16": layouts,
+                                   "4:bf16": 3 * layouts}}
+    losses = [h["loss"] for h in res["history"]]
+    assert np.all(np.isfinite(losses))
+    a, b = res["history"][0]["loss"], cpu["history"][0]["loss"]
+    assert abs(a - b) <= 2 * BF16_ULP * abs(b)

@@ -278,9 +278,9 @@ def test_dropout_draws_from_the_generator():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("model_name", "GCN"), ("no_dtc", True), ("message_dtype", "bfloat16"),
+    ("model_name", "GCN"), ("no_dtc", True),
     ("memory_policy", "xla_plain"), ("n_shards", 4),
-    ("need_complement", True), ("matmul_precision", "bfloat16"),
+    ("need_complement", True),
     ("root_weight", True), ("adjacency_method", "dense"),
 ])
 def test_unported_options_raise(field, value):
