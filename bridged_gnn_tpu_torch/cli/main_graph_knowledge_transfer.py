@@ -3,9 +3,11 @@
 Port of ``bridged_gnn_tpu/cli/main_graph_knowledge_transfer.py``: the
 same flag surface (reference main_graph_knowledge_transfer.py:423-439)
 plus ``--device`` (default ``cuda``). ``--path_data`` takes the npz graph
-format; the reference's ``.dat`` pickle is not ported yet (ROADMAP.md
-Queue 1 item 3). Flags of options the port does not run yet raise when
-set to anything other than their default.
+format or the reference's ``.dat`` pickle (``io/pyg_compat.py``).
+``--model_name`` picks KT-GNN or a zoo model; ``--no_dtc`` is the
+reference's recipe, GraphSAGE without the scheduler, whatever
+``--model_name`` says (JAX CLI :111-124). Flags of options the port does
+not run yet raise when set to anything other than their default.
 
 ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the run.
 
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import os
 
+from bridged_gnn_tpu_torch.io.pyg_compat import load_pyg_data_dict
 from bridged_gnn_tpu_torch.io.serialize import load_graph_npz
 from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, train_ktgnn
 from bridged_gnn_tpu_torch.utils.diagnostics import eval_bridged_graph
@@ -78,9 +81,7 @@ _CLI_NOT_PORTED = dict(
 def load_bridged_graph(path: str):
     if path.endswith(".npz"):
         return load_graph_npz(path)
-    raise SystemExit(
-        f"{path}: only .npz graphs are read; the reference's .dat pickle "
-        "is not ported yet (ROADMAP.md Queue 1 item 3)")
+    return load_pyg_data_dict(path)
 
 
 def main(args):
@@ -98,19 +99,23 @@ def main(args):
         save_best_path = os.path.join(
             args.ckpt_dir, f"model_{gnn}_{args.dataset_name}_best.pkl"
         )
-    cfg = Stage2Config(
-        model_name=args.model_name, num_layer=args.num_layer,
-        hidden=args.hidden_dim, num_epoch=args.num_epoch,
-        metric=args.eval_metric, to_undirected=args.to_undirected,
-        seed=args.seed, log_every=args.log_every,
-        save_best_path=save_best_path, no_dtc=args.no_dtc,
+    common = dict(
+        num_layer=args.num_layer, hidden=args.hidden_dim,
+        num_epoch=args.num_epoch, metric=args.eval_metric,
+        to_undirected=args.to_undirected, seed=args.seed,
+        log_every=args.log_every, save_best_path=save_best_path,
         matmul_precision=args.matmul_precision,
-        message_dtype=args.message_dtype,
-        scan_epochs=args.scan_epochs,
-        check_numerics=args.check_numerics,
-        memory_policy=args.memory_policy,
-        n_shards=args.n_shards,
-    )
+        message_dtype=args.message_dtype, scan_epochs=args.scan_epochs,
+        check_numerics=args.check_numerics)
+    if args.no_dtc:
+        # the reference's no_dtc recipe: GraphSAGE without the scheduler
+        # (reference main_graph_knowledge_transfer.py:414-421)
+        cfg = Stage2Config(model_name="GraphSAGE", use_scheduler=False,
+                           **common)
+    else:
+        cfg = Stage2Config(model_name=args.model_name,
+                           memory_policy=args.memory_policy,
+                           n_shards=args.n_shards, **common)
     if args.profile_dir:
         with trace(args.profile_dir, args.device):
             res = train_ktgnn(data, cfg, device=args.device)

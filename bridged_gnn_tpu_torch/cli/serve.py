@@ -185,18 +185,14 @@ def make_server(app: ServingApp, host: str = "127.0.0.1",
 
 
 def _load_predictor(args) -> ServingApp:
-    from bridged_gnn_tpu_torch.io.flax_weights import (
-        ktgnn_state_dict_from_flax,
+    from bridged_gnn_tpu_torch.io.flax_weights import state_dict_from_flax
+    from bridged_gnn_tpu_torch.cli.main_graph_knowledge_transfer import (
+        load_bridged_graph,
     )
-    from bridged_gnn_tpu_torch.io.serialize import load_graph_npz
     from bridged_gnn_tpu_torch.serve import KTGNNPredictor
     from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, build_model
 
-    if not args.path_data.endswith(".npz"):
-        raise SystemExit(
-            f"{args.path_data}: only .npz graphs are supported; .dat "
-            "loading is not ported yet")
-    data = load_graph_npz(args.path_data)
+    data = load_bridged_graph(args.path_data)
     # the checkpoint is a pickle this project's stage-2 CLI wrote; load
     # only files you trust
     with open(args.ckpt, "rb") as f:
@@ -214,7 +210,7 @@ def _load_predictor(args) -> ServingApp:
     model = build_model(cfg, num_classes, int(data["x"].shape[1]),
                         device="cpu")
     predictor = KTGNNPredictor(
-        model, ktgnn_state_dict_from_flax(variables), data,
+        model, state_dict_from_flax(model, variables), data,
         to_undirected=cfg.to_undirected, device=args.device,
         matmul_precision=args.matmul_precision,
     )
@@ -237,7 +233,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     required=True)
     ap.add_argument("--ckpt", required=True,
                     help="stage-2 --save pickle of the JAX package")
-    ap.add_argument("--path_data", help="bridged graph .npz")
+    ap.add_argument("--path_data", help="bridged graph .npz or .dat")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8808)
     ap.add_argument("--device", default="cuda",

@@ -3,7 +3,10 @@
 Statistics-bearing ops take an explicit node validity mask: node arrays
 are padded to block multiples, and statistics must be computed over real
 rows only. Weights use the torch layout (``weight`` [out, in]);
-``io/flax_weights.py`` carries flax ``[in, out]`` kernels across.
+``io/flax_weights.py`` carries flax ``[in, out]`` kernels across. The two
+init families of the JAX package: :class:`TorchLinear` (``torch_dense``,
+the torch/PyG default) and :class:`GlorotLinear` (``glorot_dense``, PyG's
+glorot). Dropout draws its mask from a generator the caller passes.
 """
 
 from __future__ import annotations
@@ -31,6 +34,28 @@ def uniform_fan_in_(t: torch.Tensor, fan_in: int,
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         return t.uniform_(-bound, bound, generator=generator)
+
+
+def glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
+            generator: Optional[torch.Generator] = None):
+    """U(±√(6 / (fan_in + fan_out))): flax ``glorot_uniform``."""
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=generator)
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout`` in train mode) with the mask
+    drawn from ``generator``; the identity at ``p == 0``."""
+    if p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(
+            f"train-mode dropout ({p}) needs a torch.Generator on "
+            f"{x.device}")
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep * (1.0 / (1.0 - p))
 
 
 class MaskedBatchNorm(nn.Module):
@@ -87,6 +112,26 @@ class TorchLinear(nn.Module):
         if bias:
             self.bias = nn.Parameter(torch.empty(out_features))
             uniform_fan_in_(self.bias, in_features, generator)
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.linear(x, self.weight, self.bias)
+
+
+class GlorotLinear(nn.Module):
+    """Linear layer with the glorot init of ``glorot_dense`` (flax
+    ``glorot_uniform`` kernel, zero bias), drawn from ``generator``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(out_features, in_features))
+        glorot_(self.weight, in_features, out_features, generator)
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_features))
         else:
             self.register_parameter("bias", None)
 

@@ -2,9 +2,9 @@
 
 Port of ``bridged_gnn_tpu/nn/ktgnn.py`` (reference models/KTGNN.py):
 ``AdaptedConv`` with its single-layout and degree-tiered fused attention
-branches, ``ClfTransformer`` and ``KTGNN`` without the feature
-complementor and without the root weight (``root_weight=False``, the
-only value the JAX package's configurations use). Quirks kept from the
+branches and the optional root weight (``lin_r``), ``ClfTransformer``,
+``KTGNN`` without the feature complementor, and ``KTGNNNoDTC``, the
+single-head stack (reference KTGNN_noDTC). Quirks kept from the
 reference:
 
 * ``lin_t`` acts on ``x_s2t`` and ``lin_s`` on ``x_t2s``;
@@ -39,6 +39,7 @@ from bridged_gnn_tpu_torch.graph import Graph
 from bridged_gnn_tpu_torch.nn.common import (
     MaskedBatchNorm,
     TorchLinear,
+    dropout,
     masked_mean,
     uniform_fan_in_,
 )
@@ -55,10 +56,12 @@ MSG_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 class AdaptedConv(nn.Module):
     """Domain-adapted attention conv (reference models/KTGNN.py:218-328).
     ``msg_dtype``: the dtype of the attention's message tables (JAX
-    ``nn/ktgnn.py:124-126``); None keeps the input's."""
+    ``nn/ktgnn.py:124-126``); None keeps the input's. ``root_weight``
+    adds ``lin_r(x)`` (no bias) to the output (JAX :241-243)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  negative_slope: float = 0.1, *,
+                 root_weight: bool = False,
                  msg_dtype: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -80,6 +83,8 @@ class AdaptedConv(nn.Module):
             uniform_fan_in_(torch.empty(out_channels), out_channels, g))
         self.a_f_s2t = nn.Parameter(
             uniform_fan_in_(torch.empty(out_channels), out_channels, g))
+        self.lin_r = (TorchLinear(in_channels, out_channels, bias=False,
+                                  generator=g) if root_weight else None)
 
     def forward(self, x: torch.Tensor, adj: Adjacency,
                 central_mask: torch.Tensor,
@@ -118,7 +123,10 @@ class AdaptedConv(nn.Module):
         else:
             raise ValueError(
                 "AdaptedConv needs a blocked or tiered adjacency")
-        return out.to(x.dtype)
+        out = out.to(x.dtype)
+        if self.lin_r is not None:
+            out = out + self.lin_r(x)
+        return out
 
 
 class ClfTransformer(nn.Module):
@@ -153,12 +161,13 @@ class KTGNN(nn.Module):
     and the backward runs its forward again, kernels included. Dropout
     stays outside the conv, so the recompute draws no random numbers.
 
-    ``msg_dtype`` goes to every conv, the heads' included (JAX
-    ``nn/ktgnn.py:587``)."""
+    ``msg_dtype`` and ``root_weight`` go to every conv, the heads'
+    included (JAX ``nn/ktgnn.py:587``, :631-661)."""
 
     def __init__(self, num_classes: int, in_channels: int,
                  layer_num: int = 2, hidden: int = 64, dropout: float = 0.5,
                  use_bn: bool = True, *, remat: bool = False,
+                 root_weight: bool = False,
                  msg_dtype: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -167,31 +176,21 @@ class KTGNN(nn.Module):
         self.remat = remat
         n_convs = max(layer_num - 1, 1)
         dims = [in_channels] + [hidden] * n_convs
+        kw = dict(root_weight=root_weight, msg_dtype=msg_dtype, generator=g)
         self.convs = nn.ModuleList(
-            AdaptedConv(dims[i], hidden, msg_dtype=msg_dtype, generator=g)
-            for i in range(n_convs)
+            AdaptedConv(dims[i], hidden, **kw) for i in range(n_convs)
         )
         self.bns = nn.ModuleList(
             MaskedBatchNorm(hidden) for _ in range(n_convs)
         ) if use_bn else None
-        self.clf_base = AdaptedConv(hidden, num_classes,
-                                    msg_dtype=msg_dtype, generator=g)
-        self.clf_target = AdaptedConv(hidden, num_classes,
-                                      msg_dtype=msg_dtype, generator=g)
+        self.clf_base = AdaptedConv(hidden, num_classes, **kw)
+        self.clf_target = AdaptedConv(hidden, num_classes, **kw)
         self.clf_transformer = ClfTransformer(hidden, generator=g)
 
     def _dropout(self, x: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
         """Inverted dropout with the mask drawn from ``generator``."""
-        p = self.dropout
-        if not self.training or p == 0.0:
-            return x
-        if generator is None:
-            raise ValueError(
-                f"train-mode dropout ({p}) needs a torch.Generator on "
-                f"{x.device}")
-        keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
-        return x * keep * (1.0 / (1.0 - p))
+        return dropout(x, self.dropout, generator) if self.training else x
 
     def embed(self, g: Graph, adj: Adjacency,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -225,3 +224,43 @@ class KTGNN(nn.Module):
             torch.log_softmax(logits_target, dim=1),
             torch.log_softmax(logits_target_hat, dim=1),
         )
+
+
+class KTGNNNoDTC(nn.Module):
+    """KTGNN_noDTC (reference models/KTGNN.py:467-597, JAX
+    ``nn/ktgnn.py:684-726``): ``layer_num − 1`` AdaptedConvs, the last to
+    the classes, with batch norm, ReLU and dropout between them, and one
+    log-softmax output ``[N, C]``. ``msg_dtype`` and ``root_weight`` go to
+    every conv; dropout draws from ``generator`` in train mode."""
+
+    def __init__(self, num_classes: int, in_channels: int,
+                 layer_num: int = 2, hidden: int = 64,
+                 root_weight: bool = False, dropout: float = 0.5,
+                 use_bn: bool = True, *, msg_dtype: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dropout = dropout
+        n = layer_num - 1
+        dims = [in_channels] + [hidden] * (n - 1) + [num_classes]
+        self.convs = nn.ModuleList(
+            AdaptedConv(dims[i], dims[i + 1], root_weight=root_weight,
+                        msg_dtype=msg_dtype, generator=generator)
+            for i in range(n))
+        self.bns = nn.ModuleList(
+            MaskedBatchNorm(hidden) for _ in range(n - 1)
+        ) if use_bn else None
+
+    def forward(self, g: Graph, adj: Adjacency,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        cm, nm = g.central_mask, g.node_mask
+        x = g.x
+        for i, conv in enumerate(self.convs):
+            x = conv(x, adj, cm, nm)
+            if i < len(self.convs) - 1:
+                if self.bns is not None:
+                    x = self.bns[i](x, nm)
+                x = torch.relu(x)
+                if self.training:
+                    x = dropout(x, self.dropout, generator)
+        return torch.log_softmax(x, dim=1)

@@ -23,6 +23,12 @@ It is not a padded ``[B, Et]`` grid: on a hub graph a few hundred
 senders own ~850 slots each, and a padded sender layout would give every
 block a tile that wide.
 
+For weighted sums (the zoo's SpMM, ``ops/padded_spmm.py``) a layout also
+maps each slot to the edge it holds (``slot_edge``, the JAX package's
+``slot_edge``, blocked_segment.py:265) and each sender-CSR entry to its
+slot's destination row (``src_dst``), which the transposed SpMM of the
+backward gathers its cotangent rows by.
+
 Both indexes list their heavy rows: ``dst_heavy`` the destination rows
 with more than :data:`HEAVY_SLOTS` slots in their run, ``src_heavy`` the
 senders with more than that many CSR entries. The attention kernels and
@@ -56,6 +62,8 @@ class PaddedLayout(NamedTuple):
     src_slots: torch.Tensor    # [real slots] int32: dst slot per CSR entry
     dst_heavy: torch.Tensor    # [H_dst] int32: rows with > HEAVY_SLOTS slots
     src_heavy: torch.Tensor    # [H_src] int32: senders with > HEAVY_SLOTS
+    slot_edge: torch.Tensor    # [B*Et] int32: edge per slot, 0 on pad slots
+    src_dst: torch.Tensor      # [real slots] int32: dst row per CSR entry
     node_block: int
     tile_e: int
     num_blocks: int
@@ -69,11 +77,14 @@ def _padded_layout_np(
     valid: np.ndarray,
     num_nodes_padded: int,
     node_block: int,
+    edge_ids=None,
 ):
     """Host slot assignment (the JAX package's): block ``b``'s edges fill
     the first slots of row ``b`` of a ``[num_blocks, tile_e]`` grid, in
-    order. Returns ``slot_src`` [B*Et], ``dst_ranges`` [B*nb, 2], tile_e
-    and num_blocks.
+    order. Returns ``slot_src`` [B*Et], ``dst_ranges`` [B*nb, 2], tile_e,
+    num_blocks, ``slot_edge`` [B*Et] (``edge_ids`` of each slot's edge,
+    by default its position in the input; 0 on pad slots) and
+    ``slot_row`` [B*Et] (each slot's destination row, 0 on pad slots).
 
     ``dst_ranges`` comes from the sorted keys, so a masked edge that sorts
     inside a row's run stays inside it. The last row of a block always
@@ -97,16 +108,21 @@ def _padded_layout_np(
     # rank among the block's edges
     e = np.arange(bounds[-1], dtype=np.int64)
     blk_e = key[: bounds[-1]] // nb
+    pos = blk_e * tile_e + e - bounds[blk_e]
     slot_src = np.full(num_blocks * tile_e, -1, dtype=np.int32)
-    slot_src[blk_e * tile_e + e - bounds[blk_e]] = np.where(
-        valid[: bounds[-1]], other[: bounds[-1]], -1)
+    slot_src[pos] = np.where(valid[: bounds[-1]], other[: bounds[-1]], -1)
+    ids = e if edge_ids is None else np.asarray(edge_ids)[: bounds[-1]]
+    slot_edge = np.zeros(num_blocks * tile_e, dtype=np.int32)
+    slot_edge[pos] = ids
+    slot_row = np.zeros(num_blocks * tile_e, dtype=np.int32)
+    slot_row[pos] = key[: bounds[-1]]
     rows = np.arange(num_blocks * nb, dtype=np.int64)
     blk = rows // nb
     base = blk * tile_e - bounds[blk]
     lo = base + np.searchsorted(key, rows, side="left")
     hi = base + np.searchsorted(key, rows, side="right")
     ranges = np.stack([lo, hi], axis=1).astype(np.int32)
-    return slot_src, ranges, tile_e, num_blocks
+    return slot_src, ranges, tile_e, num_blocks, slot_edge, slot_row
 
 
 def _sender_csr_np(slot_src: np.ndarray, num_senders: int):
@@ -134,7 +150,7 @@ def heavy_rows_np(ranges: np.ndarray) -> np.ndarray:
 
 def _layout_from_np(arrs, num_nodes_padded: int, node_block: int,
                     device, num_senders: int) -> PaddedLayout:
-    slot_src, ranges, tile_e, num_blocks = arrs
+    slot_src, ranges, tile_e, num_blocks, slot_edge, slot_row = arrs
     src_ranges, src_slots = _sender_csr_np(slot_src, num_senders)
     return PaddedLayout(
         slot_src=torch.from_numpy(slot_src).to(device),
@@ -143,6 +159,8 @@ def _layout_from_np(arrs, num_nodes_padded: int, node_block: int,
         src_slots=torch.from_numpy(src_slots).to(device),
         dst_heavy=torch.from_numpy(heavy_rows_np(ranges)).to(device),
         src_heavy=torch.from_numpy(heavy_rows_np(src_ranges)).to(device),
+        slot_edge=torch.from_numpy(slot_edge).to(device),
+        src_dst=torch.from_numpy(slot_row[src_slots]).to(device),
         node_block=node_block,
         tile_e=tile_e,
         num_blocks=num_blocks,
@@ -164,7 +182,7 @@ def slot_rows(lay: PaddedLayout) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class BlockedOps(NamedTuple):
     """Edge ops bound to one dst-sorted edge array: its slot layout, the
-    input of the fused attention kernels."""
+    input of the fused attention kernels and of the padded SpMM."""
 
     lay_dst: PaddedLayout
 
@@ -263,6 +281,7 @@ def make_tiered_blocked_ops(
         n_out_t = len(blocks_t) * nb
         d_np = _padded_layout_np(
             r_t, s[idx].astype(np.int32), em[idx], n_out_t, nb,
+            edge_ids=idx,
         )
         lay_dst = _layout_from_np(d_np, n_out_t, nb, device, n_pad)
         tiers.append(BlockedOps(lay_dst=lay_dst))

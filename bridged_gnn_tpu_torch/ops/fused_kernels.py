@@ -13,10 +13,15 @@ Port of the kernels of ``bridged_gnn_tpu/ops/pallas_fused.py`` and
 * :func:`attention_bwd` — the concatenated backward,
   ``_attention_bwd_kernel`` (pallas_fused.py:281);
 * :func:`slot_reduce` — the sender-keyed reduce of the backwards' slot
-  cotangents, ``_reduce_kernel`` (pallas_padded.py:33).
+  cotangents, ``_reduce_kernel`` (pallas_padded.py:33);
+* :func:`gather_reduce` — the same ``_reduce_kernel`` in its
+  destination-keyed use, the padded SpMM ``y[v] = Σ w·x[u]`` of the model
+  zoo (``gather_reduce_pallas``, pallas_padded.py:135), and its transpose
+  over the sender CSR for the SpMM's backward.
 
 The forwards live in ``csrc/attention_fwd.cu``, the backwards in
-``csrc/attention_bwd.cu`` and the reduce in ``csrc/slot_reduce.cu``. Each
+``csrc/attention_bwd.cu``, the reduce in ``csrc/slot_reduce.cu`` and the
+SpMM in ``csrc/gather_reduce.cu``. Each
 kernel also covers the index work its JAX wrapper ran around the Pallas
 call: the forwards and backwards read sender rows by index from the
 ``u1``/``u2`` tables, and the reduce reads the dst-ordered slot rows by
@@ -37,9 +42,9 @@ of ``ops/fused_attention.py``, whose backwards launch the backward
 kernels.
 
 Message dtypes. The ``u1``/``u2``/``ud`` tables (and the reduce's
-``vals``) are float32 or bfloat16, one dtype per call: each kernel is
-built for both, widens bf16 rows to f32 on load and keeps every sum in
-f32. The backwards write ``dm`` in the tables' dtype, rounded once at the
+``vals``) are float32 or bfloat16 (the SpMM's ``x``: float32 only), one
+dtype per call: each kernel is built for both, widens bf16 rows to f32
+on load and keeps every sum in f32. The backwards write ``dm`` in the tables' dtype, rounded once at the
 store; every other output is f32. The plain versions take the same
 arguments, widen the tables to f32 and round ``dm`` once on the way out.
 
@@ -191,11 +196,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn = getattr(lib, name + suffix)
             fn.argtypes = types
             entries.append(fn)
+    # ranges, idx, wmap, w, x, heavy, n_heavy, d, n_ranges, n_rows, out,
+    # stream (f32 only)
+    lib.gather_reduce.argtypes = [p] * 6 + [i] * 4 + [p, p]
+    entries.append(lib.gather_reduce)
     # n_rows_layout, n_heavy, d
     lib.attention_bwd_grid.argtypes = [i] * 3
     # the attention sources share their bounds (csrc/lane_groups.cuh)
     consts = ((lib.attention_fwd_heavy_slots, HEAVY_SLOTS),
               (lib.slot_reduce_heavy_entries, HEAVY_SLOTS),
+              (lib.gather_reduce_heavy_entries, HEAVY_SLOTS),
               (lib.attention_lane_group_columns, LANE_GROUP_COLUMNS))
     for fn, _ in consts:
         fn.argtypes = []
@@ -552,6 +562,38 @@ def slot_reduce_plain(
     return out
 
 
+def gather_index(lay: PaddedLayout, transpose: bool):
+    """What :func:`gather_reduce` walks: per entry its key row, the row of
+    ``x`` it gathers and its slot (for the weight), over the real slots;
+    the forward's entries are the slots in order, the transpose's the
+    sender CSR's."""
+    if transpose:
+        r = lay.src_ranges.long()
+        key = torch.repeat_interleave(
+            torch.arange(r.shape[0], device=r.device), r[:, 1] - r[:, 0])
+        return key, lay.src_dst.long(), lay.src_slots.long()
+    row, valid = slot_rows(lay)
+    slot = torch.nonzero(valid)[:, 0]
+    return row[slot].long(), lay.slot_src[slot].long(), slot
+
+
+def gather_reduce_plain(
+    lay: PaddedLayout, x: torch.Tensor, n_rows: int,
+    w_slot: Optional[torch.Tensor] = None, transpose: bool = False,
+) -> torch.Tensor:
+    """Plain version of :func:`gather_reduce`, over chunks of entries."""
+    key, src, slot = gather_index(lay, transpose)
+    d = x.shape[1]
+    out = x.new_zeros(n_rows, d)
+    step = max(1, _PLAIN_CHUNK // d)
+    for k0 in range(0, key.shape[0], step):
+        rows = x[src[k0:k0 + step]]
+        if w_slot is not None:
+            rows = w_slot[slot[k0:k0 + step]][:, None] * rows
+        out.index_add_(0, key[k0:k0 + step], rows)
+    return out
+
+
 # ---------------------------------------------------------------- wrappers
 
 
@@ -730,8 +772,63 @@ def slot_reduce(
     return out
 
 
+def gather_reduce(
+    lay: PaddedLayout, x: torch.Tensor, n_rows: int,
+    w_slot: Optional[torch.Tensor] = None, transpose: bool = False,
+) -> torch.Tensor:
+    """Padded SpMM over one layout, or its transpose; f32.
+
+    Forward (``transpose=False``): ``out[v] = Σ w_slot[k] · x[slot_src[k]]``
+    over the real slots ``k`` of destination row ``v``, in slot order, for
+    ``v < n_rows`` (``lay.num_nodes_padded`` for the SpMM). Transpose:
+    ``out[u] = Σ w_slot[k] · x[dst(k)]`` over the real slots ``k`` whose
+    sender is ``u``, in the sender CSR's order, for ``u < n_rows`` (the
+    SpMM input's row count): the SpMM's ``dx`` from its output cotangent
+    ``x``. ``w_slot`` [B·Et] per-slot weights, or None for the unweighted
+    sum. Rows without slots are 0. The launch counts under ``x``'s
+    width."""
+    inputs = (lay, x, n_rows, w_slot, transpose)
+    _forward_only(x=x, **({} if w_slot is None else dict(w_slot=w_slot)))
+    if x.device.type != "cuda":
+        return gather_reduce_plain(*inputs)
+    if transpose:
+        ranges, idx, wmap, heavy = (lay.src_ranges, lay.src_dst,
+                                    lay.src_slots, lay.src_heavy)
+        need_x, need_out = lay.num_nodes_padded, lay.sender_bound
+    else:
+        ranges, idx, wmap, heavy = (lay.dst_ranges, lay.slot_src, None,
+                                    lay.dst_heavy)
+        need_x, need_out = lay.sender_bound, 1
+    floats = dict(x=x) if w_slot is None else dict(x=x, w_slot=w_slot)
+    _check_tensors(x.device, floats,
+                   dict(ranges=ranges, idx=idx, heavy=heavy,
+                        **({} if wmap is None else dict(wmap=wmap))))
+    for name, t in (("ranges", ranges), ("idx", idx), ("heavy", heavy),
+                    ("wmap", wmap)):
+        if t is not None and t.dtype != torch.int32:
+            raise TypeError(f"layout {name} must be int32")
+    if x.dim() != 2 or x.shape[1] < 1 or x.shape[0] < need_x:
+        raise ValueError(f"x must be [N, D] with N >= {need_x} and D >= 1, "
+                         f"got {list(x.shape)}")
+    if n_rows < max(need_out, 1):
+        raise ValueError(f"n_rows is {n_rows}; the layout needs at least "
+                         f"{max(need_out, 1)}")
+    if w_slot is not None and list(w_slot.shape) != [lay.slot_src.shape[0]]:
+        raise ValueError(f"w_slot must be [{lay.slot_src.shape[0]}], got "
+                         f"{list(w_slot.shape)}")
+    d = x.shape[1]
+    out = torch.empty(n_rows, d, device=x.device)
+    args = [ranges.data_ptr(), idx.data_ptr(),
+            None if w_slot is None or wmap is None else wmap.data_ptr(),
+            None if w_slot is None else w_slot.data_ptr(), x.data_ptr(),
+            heavy.data_ptr(), heavy.shape[0], d, ranges.shape[0], n_rows,
+            out.data_ptr()]
+    _launch(gather_reduce, d, x.dtype, args, inputs, x.device)
+    return out
+
+
 KERNEL_WRAPPERS = (attention_sel_fwd, attention_fwd, attention_sel_bwd,
-                   attention_bwd, slot_reduce)
+                   attention_bwd, slot_reduce, gather_reduce)
 
 
 def launch_counts() -> Dict[str, Dict]:

@@ -1,7 +1,8 @@
 """Stage-2 training runtime: KT-GNN knowledge transfer on a bridged graph.
 
-Port of ``bridged_gnn_tpu/train/stage2.py`` for KT-GNN on one device
-(reference main_graph_knowledge_transfer.py:39-262):
+Port of ``bridged_gnn_tpu/train/stage2.py`` on one device (reference
+main_graph_knowledge_transfer.py:39-262), for KT-GNN, KTGNN_noDTC and
+the model zoo (``nn/backbones.py``). For KT-GNN:
 
   * 4-term loss ``(2·L_s + L_t + L_t̂)/4 + λ·KL(t̂ ‖ t)`` with the KL in
     torch ``kl_div(log_t̂, log_t, log_target=True, reduction='batchmean')``
@@ -11,6 +12,11 @@ Port of ``bridged_gnn_tpu/train/stage2.py`` for KT-GNN on one device
   * model selection by **minimum loss_clf_t2** (line 238), not val metric;
   * eval: source head on the train mask; distilled target-hat head on
     val/test (lines 73-118); per-head test scores (lines 119-142).
+
+A single-head model (``KTGNN_noDTC``, ``no_dtc=True`` with KTGNN, or a
+zoo model) trains on ``masked_nll`` over the train mask alone, with every
+loss term of the history equal to it and a KL of 0, is selected by that
+loss, and scores its one head everywhere (JAX ``stage2.py:626-629``).
 
 Each epoch is one train step (forward in train mode, loss, backward
 through the attention kernels' autograd Functions, Adam, StepLR) and one
@@ -47,7 +53,8 @@ from bridged_gnn_tpu_torch.graph import (
     graph_from_dict,
     with_self_loops,
 )
-from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN, MSG_DTYPES
+from bridged_gnn_tpu_torch.nn.backbones import MODEL_NAMES, build_backbone
+from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN, MSG_DTYPES, KTGNNNoDTC
 from bridged_gnn_tpu_torch.ops import fused_kernels
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency, adjacency_from_graph
 from bridged_gnn_tpu_torch.train.metrics import eval_metric, score_from_counts
@@ -113,9 +120,8 @@ class Stage2Config:
 
 # field, the values the port runs, the ROADMAP.md item that brings the rest
 _NOT_PORTED = (
-    ("model_name", ("KTGNN",), "Queue 1 item 8 (the model zoo)"),
-    ("no_dtc", (False,), "Queue 1 item 8 (KTGNNNoDTC and the zoo)"),
-    ("root_weight", (False,), "Queue 1 item 8 (model extras)"),
+    ("model_name", ("KTGNN", "KTGNN_noDTC") + MODEL_NAMES,
+     "Queue 1 item 8 (ConvNet/SplineConv)"),
     ("need_complement", (False,), "Queue 1 item 8 (the complementor)"),
     ("adjacency_method", ("auto", "blocked", "tiered"),
      "Queue 1 item 5 (the dense path)"),
@@ -176,12 +182,31 @@ def to_undirected_np(data: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+# Models whose reference counterparts see a self-loop-augmented edge set
+# (JAX stage2.py:170-180): KT-GNN's graph partition adds them, PyG
+# GCNConv/GCN2 normalize with them, the reference GAT wrappers add them;
+# GraphSAGE, MLP, GIN and DeeperGCN aggregate the raw edge set.
+SELF_LOOP_MODELS = frozenset(
+    {"KTGNN", "KTGNN_noDTC", "GCN", "GAT", "GATv2", "JKNet", "APPNP",
+     "GCN2"})
+
+
+def _ktgnn_family(cfg: Stage2Config) -> bool:
+    return cfg.model_name in ("KTGNN", "KTGNN_noDTC")
+
+
+def _multi_head(cfg: Stage2Config) -> bool:
+    """KT-GNN's three heads and four-term loss (JAX ``is_ktgnn``)."""
+    return cfg.model_name == "KTGNN" and not cfg.no_dtc
+
+
 def prepare_stage2_graph(
     data: Dict[str, np.ndarray], cfg: Stage2Config, device="cuda",
 ) -> Tuple[Graph, Adjacency]:
-    """The training graph on ``device`` (self loops added, as KT-GNN's
-    graph partition does) and its adjacency: the ``node_block=128`` slot
-    layout the predictor serves with, or degree tiers."""
+    """The training graph on ``device`` (self loops added for
+    :data:`SELF_LOOP_MODELS`) and its adjacency: for KT-GNN the
+    ``node_block=128`` slot layout the predictor serves with, for the zoo
+    the JAX package's ``node_block=256`` one, or degree tiers."""
     dev = resolve_device(device)
     data = dict(data)
     # reference quirk kept: unlabeled nodes can never be train
@@ -190,42 +215,64 @@ def prepare_stage2_graph(
     data["train_mask"][np.asarray(data["y"]) == -1] = False
     if cfg.to_undirected:
         data = to_undirected_np(data)
-    g = with_self_loops(graph_from_dict(data)).to(dev)
+    g = graph_from_dict(data)
+    if cfg.model_name in SELF_LOOP_MODELS:
+        g = with_self_loops(g)
+    g = g.to(dev)
     method = ("blocked" if cfg.adjacency_method == "auto"
               else cfg.adjacency_method)
-    adj = adjacency_from_graph(g, method=method, node_block=128, device=dev)
+    adj = adjacency_from_graph(
+        g, method=method, node_block=128 if _ktgnn_family(cfg) else 256,
+        device=dev)
     return g, adj
 
 
 def build_model(cfg: Stage2Config, num_classes: int, in_channels: int,
-                device="cuda", remat: bool = False) -> KTGNN:
-    """KT-GNN with the torch-default init drawn from ``cfg.seed``, on
-    ``device``; ``remat`` recomputes the embedding convs in the backward
-    (``memory_policy="lean"``); its convs' messages in
-    ``cfg.message_dtype``. Only ``model_name='KTGNN'`` is ported."""
-    if cfg.model_name != "KTGNN":
-        raise ValueError(
-            f"model {cfg.model_name!r} is not ported; only KTGNN is")
+                device="cuda", remat: bool = False) -> torch.nn.Module:
+    """The model ``cfg`` names, as JAX ``_build_model_impl`` picks it
+    (stage2.py:376-417), with its init drawn from ``cfg.seed``, on
+    ``device``: ``KTGNNNoDTC`` for ``model_name="KTGNN_noDTC"`` or
+    ``no_dtc=True`` with KTGNN, KT-GNN, or a zoo model. ``remat``
+    recomputes KT-GNN's embedding convs in the backward
+    (``memory_policy="lean"``); ``cfg.message_dtype`` sets the KT-GNN
+    family's message dtype and is refused for the zoo."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(cfg.seed)
-    model = KTGNN(
-        num_classes=num_classes,
-        in_channels=in_channels,
-        layer_num=cfg.num_layer,
-        hidden=cfg.hidden,
-        dropout=cfg.dropout,
-        use_bn=cfg.use_bn,
-        remat=remat,
-        msg_dtype=cfg.message_dtype,
-        generator=gen,
-    )
+    if cfg.model_name == "KTGNN_noDTC" or (
+            cfg.no_dtc and cfg.model_name == "KTGNN"):
+        model = KTGNNNoDTC(
+            num_classes, in_channels, layer_num=cfg.num_layer,
+            hidden=cfg.hidden, root_weight=cfg.root_weight,
+            dropout=cfg.dropout, use_bn=cfg.use_bn,
+            msg_dtype=cfg.message_dtype, generator=gen)
+    elif cfg.model_name == "KTGNN":
+        model = KTGNN(
+            num_classes=num_classes,
+            in_channels=in_channels,
+            layer_num=cfg.num_layer,
+            hidden=cfg.hidden,
+            dropout=cfg.dropout,
+            use_bn=cfg.use_bn,
+            remat=remat,
+            root_weight=cfg.root_weight,
+            msg_dtype=cfg.message_dtype,
+            generator=gen,
+        )
+    else:
+        if cfg.message_dtype is not None:
+            raise ValueError(
+                "message_dtype applies to KTGNN-family models; "
+                f"got model_name={cfg.model_name!r}")
+        model = build_backbone(cfg.model_name, cfg, num_classes,
+                               in_channels, gen)
     return model.to(dev)
 
 
 def resolve_memory_policy(cfg: Stage2Config) -> str:
-    """``"plain"`` or ``"lean"`` for ``cfg.memory_policy``. ``"auto"`` is
-    plain on every device. On the CPU that is the JAX rule (the host
-    pages; JAX ``stage2.py:321-322``). On the card the JAX rule (the
+    """``"plain"`` or ``"lean"`` for ``cfg.memory_policy``; ``"plain"``
+    for every model but KT-GNN, as in the JAX runtime (stage2.py:500-504).
+    For KT-GNN ``"auto"`` is plain on every device. On the CPU that is
+    the JAX rule (the host pages; JAX ``stage2.py:321-322``). On the card the JAX rule (the
     fastest policy whose step fits 80% of the device) picks plain too:
     chip_smoke.py phases 7 and 15 measured, with
     ``torch.cuda.max_memory_allocated`` on an NVIDIA H100 80GB HBM3
@@ -234,16 +281,23 @@ def resolve_memory_policy(cfg: Stage2Config) -> str:
     (the per-slot cotangent ``[slots, hidden]`` sets it), and a bf16
     step's at 1,641,013,760, which lean lowers by 15% (PERF.md §7): both
     far below the card's 80 GB."""
-    return "plain" if cfg.memory_policy == "auto" else cfg.memory_policy
+    if not _multi_head(cfg) or cfg.memory_policy == "auto":
+        return "plain"
+    return cfg.memory_policy
 
 
-def stage2_loss(model: KTGNN, g: Graph, adj: Adjacency, lam: float,
-                generator: Optional[torch.Generator]
+def stage2_loss(model: torch.nn.Module, g: Graph, adj: Adjacency,
+                lam: float, generator: Optional[torch.Generator]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The stage-2 loss ``(2·L_s + L_t + L_t̂)/4 + λ·KL(t̂ ‖ t)`` of one
-    train-mode forward (dropout from ``generator``, batch statistics),
-    and its terms."""
+    """The loss of one train-mode forward (dropout from ``generator``,
+    batch statistics) and its terms: for KT-GNN ``(2·L_s + L_t + L_t̂)/4
+    + λ·KL(t̂ ‖ t)``; for a single-head model the NLL over the train mask,
+    which every term repeats, with a KL of 0."""
     model.train()
+    if not isinstance(model, KTGNN):
+        loss = masked_nll(model(g, adj, generator), g.y, g.train_mask)
+        return loss, dict(loss_s=loss, loss_t1=loss, loss_t2=loss,
+                          loss_kl=torch.zeros_like(loss))
     lp_s, lp_t, lp_that = model(g, adj, generator)
     tar_train = g.train_mask & ~g.central_mask
     aux = dict(
@@ -257,7 +311,7 @@ def stage2_loss(model: KTGNN, g: Graph, adj: Adjacency, lam: float,
     return loss, aux
 
 
-def train_step(model: KTGNN, g: Graph, adj: Adjacency,
+def train_step(model: torch.nn.Module, g: Graph, adj: Adjacency,
                opt: torch.optim.Optimizer, lam: float,
                generator: Optional[torch.Generator]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -270,12 +324,21 @@ def train_step(model: KTGNN, g: Graph, adj: Adjacency,
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
-def _eval_arrays(model: KTGNN, g: Graph, adj: Adjacency, need_probs: bool):
-    """Eval-mode predictions of the three heads on the host, and their
-    positive-class probabilities when ``need_probs`` (for auc)."""
+def _heads(model: torch.nn.Module, g: Graph, adj: Adjacency):
+    """Eval-mode log-probabilities of the three heads (source, target,
+    target-hat); a single-head model's one head stands for all three."""
     model.eval()
     with torch.no_grad():
         heads = model(g, adj)
+    return heads if isinstance(heads, tuple) else (heads,) * 3
+
+
+def _eval_arrays(model: torch.nn.Module, g: Graph, adj: Adjacency,
+                 need_probs: bool):
+    """Eval-mode predictions of the three heads on the host, and their
+    positive-class probabilities when ``need_probs`` (for auc)."""
+    with torch.no_grad():
+        heads = _heads(model, g, adj)
         preds = torch.stack([lp.argmax(1) for lp in heads]).cpu().numpy()
         probs = (torch.stack([lp[:, 1].exp() for lp in heads]).cpu().numpy()
                  if need_probs else None)
@@ -316,7 +379,7 @@ class _ScanRun:
     """What :func:`_epoch_body` reads and writes. Every tensor keeps its
     storage for the whole run, as a CUDA graph's replays need."""
 
-    model: KTGNN
+    model: torch.nn.Module
     g: Graph
     adj: Adjacency
     opt: torch.optim.Optimizer
@@ -366,9 +429,7 @@ def _epoch_body(run: _ScanRun) -> None:
         # per-epoch loop's scheduler holds, bit for bit
         run.lr.copy_(torch.where(run.step % run.step_size == 0,
                                  run.lr * run.gamma, run.lr))
-    run.model.eval()
-    with torch.no_grad():
-        heads = run.model(run.g, run.adj)
+    heads = _heads(run.model, run.g, run.adj)
     preds = torch.stack([heads[h].argmax(1) for h, _ in _TABLES])
     counts = _confusion_counts(preds, run.masks, run.y_bin, run.bins)
     row = torch.cat([torch.stack([loss, aux["loss_t2"]]).double(),
@@ -568,11 +629,11 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
 
     if cfg.save_best_path and best_state is not None:
         from bridged_gnn_tpu_torch.io.flax_weights import (
-            flax_variables_from_ktgnn_state_dict,
+            flax_variables_from_state_dict,
         )
 
         with open(cfg.save_best_path, "wb") as f:
-            pickle.dump(flax_variables_from_ktgnn_state_dict(best_state), f)
+            pickle.dump(flax_variables_from_state_dict(model, best_state), f)
 
     times = timer.times
     if use_scan:

@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's KT-GNN serving and training paths on one GPU.
+"""Drive the PyTorch/CUDA port's KT-GNN serving and training paths and its
+stage-2 model zoo on one GPU.
 
     python3 chip_smoke.py
 
@@ -102,7 +103,33 @@ Phases, in order; any failure exits non-zero:
    whose losses equal the scan run's first epoch's (rtol 1e-4). A bf16
    output (the backwards' ``dm``) is held to its plain version at rtol
    1e-4 + 2^-7: kernel and plain version each round an f32 value once,
-   and two values within 1e-4 may round one bf16 ulp apart.
+   and two values within 1e-4 may round one bf16 ulp apart;
+16. the model zoo: the reference's ``--no_dtc`` recipe (GraphSAGE, 2
+   layers, hidden 64, no scheduler; the bench graph without self loops,
+   one 256-row-block layout) runs every aggregation through the padded
+   SpMM kernel (``gather_reduce``): the kernel calls of one epoch (two
+   forwards at D=128 and D=64 in the step, the D=64 transposed SpMM of
+   its backward, two in the eval) replayed against the plain version at
+   the reduce's tolerance, launched twice for bit-identical outputs,
+   timed beside their bound, ``torch.sparse.mm`` on a CSR tensor of the
+   same weights and ``index_add_`` of the gathered rows; counts at 0, 10
+   loop epochs on the bench graph (2 launches at D=128 and 3 at D=64 per
+   epoch, no other kernel) with CUDA events around every launch, 2
+   traced, 12 in scan mode (losses within rtol 1e-4 of the loop's, each
+   replay launching as a loop epoch) and 5 on the hub graph (once per
+   tier); the kernel at D = 257, 512 and 1030, weighted and unweighted,
+   forward and transposed, as in phase 13; card against CPU for
+   GraphSAGE and GCN (2 epochs, dropout 0: losses within rtol 1e-4,
+   weights as phase 11 or, where they part, explained by a ReLU input
+   within 1e-6 of 0 whose sign differs between the two, listed in
+   ``ties``: only the first conv's parameters of the tied output columns
+   may then part, each element by at most Adam's 2·lr per epoch, and
+   every other weight holds phase 11's tolerances); every other CLI model and KTGNN_noDTC (once with
+   ``root_weight``) for 2 epochs at hidden 64, each launching exactly the
+   kernels its aggregations imply (APPNP 10 SpMMs per pass, GAT, GATv2,
+   DeeperGCN and MLP none); and the training CLI with ``--no_dtc`` on a
+   ``.dat`` the phase writes, which must train GraphSAGE without the
+   scheduler and save ``model_GraphSAGE_bench_best.pkl``.
 
 Phase 7 also runs one ``memory_policy="lean"`` step per graph (the
 embedding conv recomputed in the backward) against the plain step: loss
@@ -126,12 +153,17 @@ f32 rows "float32"): the forwards' launches and in-run ms per predict
 from the bf16 serving runs, the backwards' and the reduce's launches from
 the production training runs and their in-run ms per epoch from the bf16
 loop epoch, plain, bound (bf16 row bytes) and library from the replayed
-calls, and the bf16 wide calls. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+calls, and the bf16 wide calls. Phase 16 adds ``gather_reduce``: its
+launches and in-run ms per epoch of the ``--no_dtc`` bench loop, plain,
+bound and library (``torch.sparse.mm``; ``index_add_`` beside it) summed
+over one epoch's replayed calls, the hub loop's ms and the wide calls.
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -143,6 +175,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -186,6 +219,12 @@ PARITY_NODES = BENCH["n"]   # phase 11 graph size
 BF16_WIDE_DS = (257, 512)   # phase 15: the wide path in bf16
 BF16_EPOCHS = 12         # phase 15: the production setting's run per graph
 BF16_CHUNK = 5           # phase 15: scan_epochs of the production setting
+ZOO_EPOCHS = 10          # phase 16: the --no_dtc recipe, bench graph, loop
+ZOO_SCAN_EPOCHS = 12     # phase 16: the same in scan mode, chunks of 5
+ZOO_SCAN_CHUNK = 5
+ZOO_HUB_EPOCHS = 5       # phase 16: hub graph
+ZOO_OTHER_EPOCHS = 2     # phase 16: every other model
+ZOO_CLI_EPOCHS = 3       # phase 16: the CLI on a .dat
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside tensor cores
 
@@ -1005,7 +1044,8 @@ def train_phase(name, data, cfg, tiered: bool, n_layouts: int,
     )
 
 
-_HAND_KERNEL = re.compile(r"attention_\w*_kernel|slot_reduce_kernel")
+_HAND_KERNEL = re.compile(
+    r"attention_\w*_kernel|slot_reduce_kernel|gather_reduce_kernel")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -1513,8 +1553,14 @@ def name_ties(name, data, cfg, loop, diffs) -> list:
     return ties
 
 
-def parity_phase(name, data, cfg):
-    """Phase 11: the same seeded run on the card and on the CPU."""
+def parity_phase(name, data, cfg, explain=None):
+    """Phase 11 (and 16): the same seeded run on the card and on the CPU.
+    Losses within LOSS_RTOL; weights within WEIGHT_RTOL and WEIGHT_ATOL,
+    or, where ``explain`` is given, explained by it: ``explain(apart)``
+    gets ``{key: (card, cpu, mask of the elements apart)}``, returns the
+    ties (inputs of a discontinuity within float rounding of it) that let
+    the two runs' gradients part, and raises if there are none or if they
+    cannot reach every element apart."""
     import torch
 
     from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
@@ -1529,13 +1575,19 @@ def parity_phase(name, data, cfg):
     if loss_err > LOSS_RTOL:
         raise RuntimeError(f"{name}: card vs CPU losses differ by "
                            f"{loss_err:.3g} (relative) > {LOSS_RTOL}")
-    w_err = 0.0
+    w_err, apart, far_at = 0.0, {}, {}
     for k, want in cpu["state_dict"].items():
         got = card["state_dict"][k]
         w_err = max(w_err, float((got - want).abs().max()))
-        if not torch.allclose(got, want, rtol=WEIGHT_RTOL, atol=WEIGHT_ATOL):
-            raise RuntimeError(f"{name}: card vs CPU weights differ at {k}")
-    return dict(phase=name, epochs=cfg.num_epoch,
+        far = ~torch.isclose(got, want, rtol=WEIGHT_RTOL, atol=WEIGHT_ATOL)
+        if far.any():
+            apart[k] = int(far.sum())
+            far_at[k] = (got, want, far)
+    if apart and explain is None:
+        raise RuntimeError(f"{name}: card vs CPU weights differ at {apart}")
+    ties = explain(far_at) if apart else []
+    return dict(phase=name, epochs=cfg.num_epoch, weights_apart=apart,
+                ties=ties,
                 nodes=int(data["x"].shape[0]), max_rel_loss_err=loss_err,
                 max_abs_weight_err=w_err, cpu_run_s=cpu_s,
                 cpu_epoch_s=cpu["mean_epoch_time"],
@@ -1647,6 +1699,541 @@ def bf16_rows(f32_rows, replay, serve, train, wide, card) -> list:
         bound_ms_tiered=sum(r["bound_ms"] for r in hub_rows),
         library_ms_tiered=sum(r["library_ms"] for r in hub_rows))
     return rows
+
+
+# ------------------------------------------------- phase 16: the model zoo
+
+
+def no_dtc_cfg(**kw):
+    """The reference's --no_dtc recipe as the CLI builds it (GraphSAGE, 2
+    layers, hidden 64, no scheduler), on the undirected graph."""
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config
+
+    return Stage2Config(**{**dict(model_name="GraphSAGE", use_scheduler=False,
+                                  to_undirected=True), **kw})
+
+
+def cached_prepare(real):
+    """``prepare_stage2_graph`` on the card built once per graph, self-loop
+    choice and layout: the zoo's runs share three prepared bench graphs
+    (set-up, printed apart, is no part of an epoch). CPU runs build
+    theirs."""
+    from bridged_gnn_tpu_torch.train import stage2
+
+    import torch
+
+    cache = {}
+
+    def prepare(data, cfg, device="cuda"):
+        if torch.device(device).type != "cuda":
+            return real(data, cfg, device)
+        key = (id(data), cfg.model_name in stage2.SELF_LOOP_MODELS,
+               stage2._ktgnn_family(cfg), cfg.to_undirected,
+               cfg.adjacency_method)
+        if key not in cache:
+            cache[key] = real(data, cfg, device)
+        return cache[key]
+    return prepare
+
+
+def gather_bound(inputs):
+    """Least time for one padded SpMM call on these inputs: the index of
+    every real slot (entry), its weight (and, transposed, its slot id for
+    the weight) when weighted, the range of every row written, each
+    distinct row of ``x`` the entries reach, D wide, and the output
+    written once, all 4-byte; one multiply-add (weighted) or add per
+    element of every row read."""
+    import torch
+
+    lay, x, n_rows, w_slot, transpose = inputs
+    d = x.shape[1]
+    if transpose:
+        idx = lay.src_dst
+        per_entry = 4 + (8 if w_slot is not None else 0)
+    else:
+        idx = lay.slot_src[lay.slot_src >= 0]
+        per_entry = 4 + (4 if w_slot is not None else 0)
+    real = int(idx.numel())
+    rows_read = int(torch.unique(idx).numel())
+    ranges = min(n_rows, (lay.src_ranges if transpose
+                          else lay.dst_ranges).shape[0])
+    read = real * per_entry + ranges * 8 + rows_read * d * 4
+    written = n_rows * d * 4
+    flops = real * d * (2 if w_slot is not None else 1)
+    return ((read + written) / HBM_BYTES_PER_S * 1e3,
+            flops / F32_FLOPS_PER_S * 1e3, real)
+
+
+def _gather_csr(inputs):
+    """The call's matrix as torch CSR ``[n_rows, N_x]`` (the same weights,
+    1 where unweighted; columns sorted within each row), its entries'
+    rows, gathered rows of x and weights."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    lay, x, n_rows, w_slot, transpose = inputs
+    key, src, slot = fk.gather_index(lay, transpose)
+    vals = (w_slot[slot] if w_slot is not None
+            else torch.ones(key.shape[0], device=x.device))
+    order = torch.argsort(key * x.shape[0] + src, stable=True)
+    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=x.device)
+    crow[1:] = torch.cumsum(torch.bincount(key, minlength=n_rows), 0)
+    with warnings.catch_warnings():   # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_csr_tensor(crow, src[order], vals[order],
+                                    size=(n_rows, x.shape[0]),
+                                    check_invariants=False)
+    return a, key, src, vals
+
+
+def gather_library(inputs):
+    """``torch.sparse.mm`` of the call's CSR matrix (built outside the timed
+    call) and ``x``: the one PyTorch call computing the same function.
+    Timed as a yardstick only; the port never calls it."""
+    import torch
+
+    a = _gather_csr(inputs)[0]
+    x = inputs[1]
+    return lambda: torch.sparse.mm(a, x)
+
+
+def gather_index_add(inputs):
+    """``index_add_`` of the call's gathered, weighted rows (gathered
+    outside the timed call) into the output rows."""
+    import torch
+
+    _, key, src, vals = _gather_csr(inputs)
+    x, n_rows, w_slot = inputs[1], inputs[2], inputs[3]
+    rows = x[src] if w_slot is None else vals[:, None] * x[src]
+    return lambda: torch.zeros(n_rows, x.shape[1],
+                               device=x.device).index_add_(0, key, rows)
+
+
+def zoo_replay(data, cfg, layouts_want: int):
+    """Phase 16's kernel replay: the gather_reduce calls of one epoch of
+    ``cfg`` (a train step, forward and x-gradients, and the eval forward),
+    each replayed against its plain version (the reduce's tolerance:
+    rtol 1e-4, atol 1e-4 × the output's largest magnitude), launched twice
+    for bit-identical outputs, timed beside its bound, torch.sparse.mm
+    and index_add_."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train import stage2
+
+    g, adj, model, opt, gen = train_setup(data, cfg)
+    layouts = layouts_of(adj)
+    if len(layouts) != layouts_want:
+        raise RuntimeError(f"zoo replay: {len(layouts)} layout(s), not "
+                           f"{layouts_want}")
+
+    def epoch():
+        stage2.train_step(model, g, adj, opt, cfg.Lambda, gen)
+        stage2._heads(model, g, adj)
+
+    recs = record_run(epoch, ("gather_reduce",))
+    with torch.no_grad():
+        out = check_kernel("gather_reduce", fk.gather_reduce,
+                           fk.gather_reduce_plain, recs, layouts,
+                           bound=gather_bound, scaled=True,
+                           library=gather_library)
+        for r, rec in zip(out, recs):
+            call = gather_index_add(rec["inputs"])
+            r.update(transpose=bool(rec["inputs"][4]),
+                     weighted=rec["inputs"][3] is not None,
+                     index_add_ms=cuda_ms(call, KERNEL_REPS),
+                     index_add_device_ms=cuda_device_ms(call, KERNEL_REPS))
+            del call
+    del recs, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train(name, data, cfg, per_epoch: dict, layouts: int,
+              record: bool = True) -> dict:
+    """``train_ktgnn`` of ``cfg`` on the card, counts at 0 just before:
+    every kernel launched as ``per_epoch`` ({kernel: {width: launches}}
+    per epoch and layout) says and no other, every loss finite; the
+    kernels' time per epoch from CUDA events around every launch (not in
+    scan mode, whose capture takes no events)."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    e = cfg.num_epoch
+    want = {k: {d: n * e * layouts for d, n in by_d.items()}
+            for k, by_d in per_epoch.items()}
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with (fk.record_launches() if record
+          else contextlib.nullcontext([])) as recs:
+        res = train_ktgnn(data, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counted = {n: c for n, c in fk.launch_counts().items() if c}
+    scan = res["scan"]
+    if scan is None and counted != want:
+        raise RuntimeError(f"{name}: launched {counted} in {e} epochs on "
+                           f"{layouts} layout(s); expected {want}")
+    losses = [h["loss"] for h in res["history"]]
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"{name}: losses {losses}")
+    kernel_ms = {k: sum(r["start"].elapsed_time(r["stop"]) for r in recs
+                        if r["name"] == k) / e for k in per_epoch}
+    return dict(
+        phase=name, model=cfg.model_name, epochs=e, layouts=layouts,
+        edges=int(res["num_edges"]), launches=counted,
+        launches_per_epoch_by_d=None if scan else {
+            k: {d: n // e for d, n in by_d.items()}
+            for k, by_d in counted.items()},
+        epoch_s_median=res["throughput"]["p50_s"],
+        epoch_s_mean=res["mean_epoch_time"], run_s=wall_s,
+        kernel_ms_per_epoch=kernel_ms if record else None, losses=losses,
+        best={k: v for k, v in res["best"].items() if k != "per_head"},
+        scan=scan)
+
+
+def zoo_per_epoch(name: str, f: int, h: int, c: int) -> dict:
+    """Each model's kernel launches per epoch and layout by width (f
+    features, h hidden, c classes): the train step's forwards and
+    x-gradients and the eval forward. GraphSAGE and GIN aggregate the
+    features, which need no gradient; GCN, JKNet and GCN2 aggregate after
+    a linear; APPNP propagates 10 times at the classes; GAT, GATv2,
+    DeeperGCN (segment softmax and sum) and MLP launch nothing;
+    KTGNN_noDTC (2 layers: one conv to the classes) the attention
+    kernels."""
+    return {
+        "GraphSAGE": {"gather_reduce": {f: 2, h: 3}},
+        "GIN": {"gather_reduce": {f: 2, h: 3}},
+        "GCN": {"gather_reduce": {h: 3, c: 3}},
+        "JKNet": {"gather_reduce": {h: 6}},
+        "GCN2": {"gather_reduce": {h: 6}},
+        "APPNP": {"gather_reduce": {c: 30}},
+        "GAT": {}, "GATv2": {}, "DeeperGCN": {}, "MLP": {},
+        "KTGNN_noDTC": {"attention_sel_fwd": {c: 2},
+                        "attention_sel_bwd": {c: 1}, "slot_reduce": {c: 1}},
+    }[name]
+
+
+def zoo_wide(lay, n: int, seed: int) -> list:
+    """The SpMM kernel at WIDE_DS on the bench layout with seeded random
+    rows and weights: unweighted and weighted forwards and the weighted
+    transpose, each against its plain version (in row chunks), twice for
+    bit-identical outputs, timed beside its bound and torch.sparse.mm."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    recs = []
+    for d in WIDE_DS:
+        gen = torch.Generator(device="cuda").manual_seed(seed + d)
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        w = torch.randn(lay.slot_src.shape[0], generator=gen, device="cuda")
+        for weighted, transpose in ((False, False), (True, False),
+                                    (True, True)):
+            got, rec = check_wide(
+                "gather_reduce", fk.gather_reduce, fk.gather_reduce_plain,
+                (lay, x, n, w if weighted else None, transpose), True,
+                gather_bound, gather_library)
+            del got
+            rec.update(weighted=weighted, transpose=transpose)
+            log(json.dumps(dict(phase="zoo_wide", **rec)))
+            recs.append(rec)
+        del x, w
+        torch.cuda.empty_cache()
+    return recs
+
+
+def write_dat(path: str, data: dict) -> None:
+    """``data`` as the reference's torch.save of a PyG ``Data`` (PyG >= 2.0
+    layout: the tensors in ``_store._mapping``), written without PyG:
+    stand-in classes under PyG's module paths while saving."""
+    import types
+
+    import torch
+
+    mod_d = types.ModuleType("torch_geometric.data.data")
+    mod_s = types.ModuleType("torch_geometric.data.storage")
+    mod_d.Data = type("Data", (), {"__module__": mod_d.__name__})
+    mod_s.GlobalStorage = type("GlobalStorage", (),
+                               {"__module__": mod_s.__name__})
+    obj, store = mod_d.Data(), mod_s.GlobalStorage()
+    store._mapping = {k: torch.from_numpy(np.asarray(v))
+                      for k, v in data.items()}
+    obj._store = store
+    names = ("torch_geometric", "torch_geometric.data", mod_d.__name__,
+             mod_s.__name__)
+    saved = {n: sys.modules.get(n) for n in names}
+    sys.modules.update(dict(zip(names, (
+        types.ModuleType(names[0]), types.ModuleType(names[1]), mod_d,
+        mod_s))))
+    try:
+        torch.save(obj, path)
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+TIE_ATOL = 1e-6          # phase 16: a ReLU input this close to 0 is a tie
+
+
+def relu_ties(name, data, cfg, apart):
+    """Why a zoo model's card and CPU runs may part: the first conv's
+    outputs (the first ReLU's inputs) of one train-mode forward at the
+    seeded init, on both devices; every element whose sign differs is
+    listed (node, column, both values) and must lie within TIE_ATOL of 0.
+    A flipped ReLU at output column c changes the gradient of the first
+    conv's parameters of that column only (row c of each weight, element
+    c of the bias), which Adam turns into steps of at most lr each epoch.
+    So every element of ``apart`` ({key: (card, cpu, mask)}) must lie in
+    ``convs_0``'s row of a tied column and differ by at most 2·lr per
+    epoch. Raises when no tie explains a difference."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train import stage2
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        g, adj = stage2.prepare_stage2_graph(data, cfg, dev)
+        model = stage2.build_model(cfg, g.num_classes, g.num_features, dev)
+        seen = []
+        hook = model.convs_0.register_forward_hook(
+            lambda m, i, o: seen.append(o.detach().cpu()))
+        with torch.no_grad():
+            model.train()(g, adj, None)
+        hook.remove()
+        outs[dev] = seen[0][: g.num_nodes]
+    a, b = outs["cuda"], outs["cpu"]
+    flips = torch.nonzero((a > 0) != (b > 0))
+    ties = [dict(node=int(n), column=int(c), card=float(a[n, c]),
+                 cpu=float(b[n, c])) for n, c in flips.tolist()]
+    if not ties or any(max(abs(t["card"]), abs(t["cpu"])) > TIE_ATOL
+                       for t in ties):
+        raise RuntimeError(f"{name}: card vs CPU weights differ, and the "
+                           f"first ReLU's inputs explain it by no tie: "
+                           f"{ties[:10]}")
+    by_column = {t["column"]: [] for t in ties}
+    step = 2.0 * cfg.lr * cfg.num_epoch
+    for key, (got, want, far) in apart.items():
+        for idx in torch.nonzero(far).tolist():
+            d = float((got - want)[tuple(idx)].abs())
+            if not key.startswith("convs_0.") or not idx \
+                    or idx[0] not in by_column or d > step:
+                raise RuntimeError(
+                    f"{name}: card vs CPU weight {key}{idx} differs by "
+                    f"{d:.3g}, which the ties at columns {sorted(by_column)}"
+                    f" (at most {step:.3g} in convs_0's rows of them) do "
+                    "not explain")
+            by_column[idx[0]].append(dict(
+                key=key, index=idx, card=float(got[tuple(idx)]),
+                cpu=float(want[tuple(idx)])))
+    for t in ties:
+        t["weights_apart"] = by_column[t["column"]]
+    return ties
+
+
+def zoo_cli(data, per_epoch: dict) -> dict:
+    """The port's CLI with --no_dtc on a .dat this phase writes: it must
+    build GraphSAGE without the scheduler (as the JAX CLI does), train
+    ZOO_CLI_EPOCHS epochs through the SpMM kernel alone and save
+    model_GraphSAGE_<dataset>_best.pkl."""
+    import contextlib as cl
+    import io
+
+    from bridged_gnn_tpu_torch.cli import main_graph_knowledge_transfer as cli
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.dat")
+        t0 = time.perf_counter()
+        write_dat(path, data)
+        write_s = time.perf_counter() - t0
+        argv = ["--path_data", path, "--no_dtc", "--num_epoch",
+                str(ZOO_CLI_EPOCHS), "--to_undirected", "--save",
+                "--ckpt_dir", tmp, "--dataset_name", "bench", "--log_every",
+                "1"]
+        seen = []
+        real = cli.train_ktgnn
+
+        def recording(d, cfg, device):
+            seen.append(cfg)
+            return real(d, cfg, device=device)
+
+        out = io.StringIO()
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(cli, "train_ktgnn", recording), \
+                cl.redirect_stdout(out):
+            res = cli.main(cli.build_argparser().parse_args(argv))
+        run_s = time.perf_counter() - t0
+        saved = os.path.isfile(os.path.join(
+            tmp, "model_GraphSAGE_bench_best.pkl"))
+    (cfg,) = seen
+    want = {k: {d: n * ZOO_CLI_EPOCHS for d, n in by_d.items()}
+            for k, by_d in per_epoch.items()}
+    counted = {n: c for n, c in fk.launch_counts().items() if c}
+    text = out.getvalue()
+    if (cfg.model_name, cfg.use_scheduler, cfg.no_dtc) != (
+            "GraphSAGE", False, False) or not saved or counted != want \
+            or "[stage-2 best]" not in text \
+            or not np.all(np.isfinite([h["loss"] for h in res["history"]])):
+        raise RuntimeError(
+            f"zoo CLI: model {cfg.model_name}, scheduler "
+            f"{cfg.use_scheduler}, saved {saved}, launches {counted} (want "
+            f"{want}), output tail {text[-300:]!r}")
+    return dict(phase="zoo_cli", model=cfg.model_name,
+                use_scheduler=cfg.use_scheduler, epochs=ZOO_CLI_EPOCHS,
+                launches=counted, saved=saved, write_dat_s=write_s,
+                run_s=run_s, losses=[h["loss"] for h in res["history"]])
+
+
+def zoo_phase(bench, hub, c: int, card: str) -> dict:
+    """Phase 16: the stage-2 model zoo. The --no_dtc recipe (GraphSAGE,
+    hidden 64, 2 layers, no scheduler): one epoch's SpMM calls replayed
+    on each graph (zoo_replay); on the bench graph 10 loop epochs with
+    CUDA events around every launch, 2 loop epochs traced, 12 epochs in
+    scan mode (losses within rtol 1e-4 of the loop's first 10, each
+    replay launching the SpMM as a loop epoch does); on the hub graph
+    (degree tiers, one launch per tier) 5 epochs; the kernel at D = 257,
+    512, 1030; card
+    against CPU for GraphSAGE and GCN (2 epochs, dropout 0); every other
+    CLI model and KTGNN_noDTC (once with root_weight) for 2 epochs at
+    hidden 64; the CLI with --no_dtc on a .dat."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train import stage2
+
+    f, h = BENCH["dim"], HIDDEN
+    out = {}
+    t_phase = time.perf_counter()
+    with mock.patch.object(stage2, "prepare_stage2_graph",
+                           cached_prepare(stage2.prepare_stage2_graph)):
+        t0 = time.perf_counter()
+        g, adj = stage2.prepare_stage2_graph(bench, no_dtc_cfg(), "cuda")
+        gh, adj_h = stage2.prepare_stage2_graph(hub, no_dtc_cfg(), "cuda")
+        n_tiers = len(layouts_of(adj_h))
+        if adj.fast_fn is None or n_tiers < 2:
+            raise RuntimeError("zoo: the bench graph must keep one layout, "
+                               "the hub graph tiers")
+        log(json.dumps(dict(phase="zoo_setup", card=card,
+                            s=time.perf_counter() - t0,
+                            bench_edges=g.num_edges, hub_edges=gh.num_edges,
+                            hub_tiers=n_tiers,
+                            bench_tile_e=adj.fast_fn.lay_dst.tile_e)))
+        sage = zoo_per_epoch("GraphSAGE", f, h, c)
+
+        # the kernel's calls of one epoch on each graph, replayed
+        out["replay"] = zoo_replay(bench, no_dtc_cfg(), 1)
+        out["replay_hub"] = zoo_replay(hub, no_dtc_cfg(), n_tiers)
+        for graph, recs in (("bench", out["replay"]),
+                            ("hub", out["replay_hub"])):
+            for r in recs:
+                log(json.dumps(dict(kernel="gather_reduce", graph=graph,
+                                    card=card, **r)))
+        # the main path: the --no_dtc recipe's loop on the bench graph
+        out["bench"] = zoo_train("zoo_bench", bench,
+                                 no_dtc_cfg(num_epoch=ZOO_EPOCHS), sage, 1)
+        log(json.dumps(dict(card=card, **out["bench"])))
+        out["trace"] = trace_phase("zoo_trace", bench, no_dtc_cfg(
+            num_epoch=TRACE_EPOCHS))
+        log(json.dumps(dict(card=card, **out["trace"])))
+        scan = zoo_train("zoo_scan_bench", bench, no_dtc_cfg(
+            num_epoch=ZOO_SCAN_EPOCHS, scan_epochs=ZOO_SCAN_CHUNK,
+            check_numerics=True), sage, 1, record=False)
+        info = scan["scan"]
+        if (info["captures"], info["eager_epochs"], info["replays"]) != (
+                1, stage2.WARMUP_EPOCHS,
+                ZOO_SCAN_EPOCHS - stage2.WARMUP_EPOCHS) \
+                or info["launches_per_replay"] != sage:
+            raise RuntimeError(f"zoo scan: {info}")
+        err = max(abs(a - b) / abs(b) for a, b in zip(
+            scan["losses"], out["bench"]["losses"]))
+        if not err <= LOSS_RTOL:
+            raise RuntimeError(f"zoo scan vs loop losses differ by {err:.3g}")
+        scan["max_rel_loss_err_vs_loop"] = err
+        out["scan"] = scan
+        log(json.dumps(dict(card=card, **scan)))
+        out["hub"] = zoo_train("zoo_hub", hub,
+                               no_dtc_cfg(num_epoch=ZOO_HUB_EPOCHS), sage,
+                               n_tiers)
+        log(json.dumps(dict(card=card, **out["hub"])))
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        out["wide"] = zoo_wide(adj.fast_fn.lay_dst, g.num_nodes_padded,
+                               BENCH["seed"])
+        log(f"zoo wide widths {WIDE_DS}: {time.perf_counter() - t0:.1f} s")
+        del g, adj, gh, adj_h
+        torch.cuda.empty_cache()
+
+        # card against CPU, dropout 0, the same seeded init
+        out["parity"] = []
+        for name in ("GraphSAGE", "GCN"):
+            cfg = no_dtc_cfg(model_name=name, num_epoch=PARITY_EPOCHS,
+                             dropout=0.0)
+            rec = parity_phase(
+                f"zoo_parity_{name}", bench, cfg,
+                explain=lambda far: relu_ties(f"zoo_parity_{name}", bench,
+                                              cfg, far))
+            out["parity"].append(rec)
+            log(json.dumps(dict(card=card, **rec)))
+
+        # every other model for 2 epochs at hidden 64
+        out["others"] = []
+        for name, extra in [(m, {}) for m in (
+                "MLP", "GCN", "GAT", "GATv2", "GIN", "JKNet", "APPNP",
+                "GCN2", "DeeperGCN", "KTGNN_noDTC")] + [
+                ("KTGNN_noDTC", dict(root_weight=True))]:
+            cfg = stage2.Stage2Config(model_name=name, to_undirected=True,
+                                      num_epoch=ZOO_OTHER_EPOCHS, **extra)
+            rec = zoo_train(f"zoo_{name}" + ("_root" if extra else ""),
+                            bench, cfg, zoo_per_epoch(name, f, h, c), 1)
+            out["others"].append(rec)
+            log(json.dumps(dict(card=card, **rec)))
+            torch.cuda.empty_cache()
+
+        out["cli"] = zoo_cli(bench, sage)
+        log(json.dumps(dict(card=card, **out["cli"])))
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def zoo_row(zoo, card) -> dict:
+    """The kernels line's entry for the SpMM kernel: launches and in-run
+    ms per epoch of the --no_dtc bench loop; plain, bound, torch.sparse.mm
+    (library_ms) and index_add_ summed over one epoch's replayed calls;
+    the hub loop's in-run ms and its replayed sums (``*_tiered``) beside;
+    the wide calls."""
+    recs = zoo["replay"]
+    row = summary_row(
+        "gather_reduce", "bridged_gnn_tpu_torch/csrc/gather_reduce.cu",
+        "bridged_gnn_tpu/ops/pallas_padded.py:33",
+        recs, sum(zoo["bench"]["launches"]["gather_reduce"].values()),
+        zoo["bench"]["kernel_ms_per_epoch"]["gather_reduce"], "epoch", card)
+    row.update(
+        dtype="float32", library="torch.sparse.mm (CSR, same weights)",
+        launches_by_d=zoo["bench"]["launches"]["gather_reduce"],
+        index_add_ms=sum(r["index_add_ms"] for r in recs),
+        index_add_device_ms=sum(r["index_add_device_ms"] for r in recs),
+        launches_per_epoch_by_d=zoo["bench"]["launches_per_epoch_by_d"][
+            "gather_reduce"],
+        ms_tiered=zoo["hub"]["kernel_ms_per_epoch"]["gather_reduce"],
+        **{f"{name}_tiered": sum(r[k] for r in zoo["replay_hub"])
+           for name, k in (("ms_replayed", "ms"),
+                           ("ms_replayed_device", "device_ms"),
+                           ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+                           ("library_ms", "library_ms"),
+                           ("index_add_ms", "index_add_ms"))},
+        wide=[{k: r[k] for k in (
+            "d", "weighted", "transpose", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+            for r in zoo["wide"]])
+    return row
 
 
 # --------------------------------------------------------------------- main
@@ -1841,6 +2428,11 @@ def main() -> int:
     bf16 = bf16_phase(bench, hub, n_tiers, c, card)
     log(f"phase 15 (bf16 messages): {time.perf_counter() - t0:.1f} s")
 
+    # 16. the model zoo: the --no_dtc recipe through the padded SpMM
+    # kernel, every other model, the CLI on a .dat
+    zoo = zoo_phase(bench, hub, c, card)
+    log(f"phase 16 (the model zoo): {zoo['s']:.1f} s")
+
     # summary, per kernel: its launches in its main-path phase and its
     # time inside that run (per predict for the forwards, per epoch for
     # the backwards), and, summed over the replayed calls of one predict
@@ -1906,6 +2498,7 @@ def main() -> int:
         bound_ms_tiered=sum(r["bound_ms"] for r in hub_rows),
         library_ms_tiered=sum(r["library_ms"] for r in hub_rows))
     kernels += bf16_rows(kernels, *bf16, card)
+    kernels.append(zoo_row(zoo, card))
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -111,12 +111,24 @@ def _bwd_residuals(lay, base):
             (alpha, torch.where(c[:, None], out2[:, :d], out2[:, d:])))
 
 
+def _gather_calls(rng, lay, d, n_in=64):
+    """The padded SpMM's calls on ``lay``: unweighted and weighted
+    forwards and a weighted transpose."""
+    x = torch.from_numpy(rng.normal(size=(n_in, d)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(
+        size=lay.slot_src.shape[0]).astype(np.float32))
+    return [(fk.gather_reduce, (lay, x, lay.num_nodes_padded)),
+            (fk.gather_reduce, (lay, x, lay.num_nodes_padded, w)),
+            (fk.gather_reduce, (lay, x, n_in, w, True))]
+
+
 _PLAIN = {
     fk.attention_sel_fwd: fk.attention_sel_fwd_plain,
     fk.attention_fwd: fk.attention_fwd_plain,
     fk.attention_sel_bwd: fk.attention_sel_bwd_plain,
     fk.attention_bwd: fk.attention_bwd_plain,
     fk.slot_reduce: fk.slot_reduce_plain,
+    fk.gather_reduce: fk.gather_reduce_plain,
 }
 
 
@@ -128,7 +140,8 @@ def test_wrappers_route_cpu_tensors_to_plain(rng):
     lay = _small_layout(rng)
     fk.reset_launch_counts()
     with fk.record_launches(keep_inputs=True) as records:
-        for wrapper, args in _all_calls(rng, lay, 8, n_in=64):
+        for wrapper, args in (_all_calls(rng, lay, 8, n_in=64)
+                              + _gather_calls(rng, lay, 8)):
             for g, w in zip(_outputs(wrapper(*args)),
                             _outputs(_PLAIN[wrapper](*args))):
                 assert torch.equal(g, w)
@@ -140,11 +153,11 @@ def test_wrappers_route_cpu_tensors_to_plain(rng):
 
 def test_wrappers_are_forward_only(rng):
     lay = _small_layout(rng)
-    calls = _all_calls(rng, lay, 8, n_in=64)
+    calls = _all_calls(rng, lay, 8, n_in=64) + _gather_calls(rng, lay, 8)
     assert {w for w, _ in calls} == set(fk.KERNEL_WRAPPERS)
     for wrapper, args in calls:
         # a float input that requires grad: the wrappers record no autograd
-        i = 5 if wrapper is not fk.slot_reduce else 1
+        i = 1 if wrapper in (fk.slot_reduce, fk.gather_reduce) else 5
         args = list(args)
         args[i] = args[i].clone().requires_grad_()
         with pytest.raises(RuntimeError, match="requires grad"):
@@ -827,3 +840,160 @@ def test_cuda_bf16_predict_and_train(rng, method):
     assert np.all(np.isfinite(losses))
     a, b = res["history"][0]["loss"], cpu["history"][0]["loss"]
     assert abs(a - b) <= 2 * BF16_ULP * abs(b)
+
+
+# ------------------------------------------- the padded SpMM (zoo's kernel)
+
+
+def _gather_inputs(rng, lay, d, dev, weighted):
+    x = torch.from_numpy(rng.normal(size=(64, d)).astype(np.float32)).to(dev)
+    w = (torch.from_numpy(rng.normal(size=lay.slot_src.shape[0]).astype(
+        np.float32)).to(dev) if weighted else None)
+    return x, w
+
+
+def test_gather_reduce_walks_each_real_slot_once(rng):
+    """The transposed walk's destination rows are the forward's: every
+    real slot once, keyed by its sender, gathering its destination."""
+    lay = _edge_case_layout(rng)
+    row, valid = tbs.slot_rows(lay)
+    slots = lay.src_slots.long()
+    assert sorted(slots.tolist()) == torch.nonzero(valid)[:, 0].tolist()
+    assert torch.equal(lay.src_dst.long(), row[slots])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("d", [8, 64, 128, 257, 512, 1030])
+def test_cuda_gather_reduce_matches_plain(rng, d, weighted):
+    """The padded SpMM kernel, forward (by destination, with heavy rows,
+    a heavy row with masked slots, one all masked, empty rows) and
+    transposed (by sender, with heavy senders), against its plain version:
+    f32 rtol 1e-5 and atol 1e-5 times the output's largest magnitude (sums
+    of up to 640 rows in another order); two launches into NaN-filled
+    memory bit-identical; where D % 4 == 0 also from an x 4 bytes off
+    16-byte alignment (the scalar-load path)."""
+    dev = _need_cuda()
+    lay = _edge_case_layout(rng, dev)
+    x, w = _gather_inputs(rng, lay, d, dev, weighted)
+    variants = [x]
+    if d % 4 == 0:
+        buf = torch.empty(64 * d + 1, device=dev)
+        shifted = buf[1:].view(64, d)
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16 != 0
+        variants.append(shifted)
+    for xv in variants:
+        for transpose in (False, True):
+            want = fk.gather_reduce_plain(lay, xv, 64, w, transpose)
+            runs = []
+            for _ in range(2):
+                _poison(dev, (64, d))
+                before = fk.gather_reduce.launches
+                runs.append(fk.gather_reduce(lay, xv, 64, w, transpose))
+                assert fk.gather_reduce.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(runs[0], runs[1])
+            scale = float(want.abs().max())
+            torch.testing.assert_close(runs[0], want, rtol=1e-5,
+                                       atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_gather_reduce_wrapper_routes_and_raises(rng):
+    """CUDA tensors launch the kernel (counted under x's width); what the
+    kernel does not take raises before any launch."""
+    dev = _need_cuda()
+    lay = _edge_case_layout(rng, dev)
+    x, w = _gather_inputs(rng, lay, 16, dev, True)
+    fk.reset_launch_counts()
+    fk.gather_reduce(lay, x, 64, w)
+    fk.gather_reduce(lay, x, 64, None, True)
+    assert fk.gather_reduce.launches_by_d == {16: 2}
+    bad = [
+        ((lay, x.double(), 64, w), TypeError),
+        ((lay, x, 64, w.double()), TypeError),
+        ((lay, x[:10], 64, w), ValueError),
+        ((lay, x, 64, w[:-1]), ValueError),
+        ((lay, x.t(), 64, w), ValueError),
+        ((lay, x.cpu().to(dev.type).t().contiguous().t(), 64, w),
+         ValueError),
+        ((lay, x, 2, w, True), ValueError),
+        ((lay, x, 64, w.cpu()), ValueError),
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            fk.gather_reduce(*args)
+    assert fk.gather_reduce.launches == 2
+
+
+def _zoo_data(rng, method):
+    data = skewed_data(rng, n=200, c=4, d=12)
+    if method == "blocked":   # uniform edges: one layout
+        data["edge_index"] = rng.integers(0, 200, size=(2, 1600))
+    data["test_mask"] = ~data["train_mask"]
+    return data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["blocked", "tiered"])
+@pytest.mark.parametrize("name", ["GraphSAGE", "GCN", "APPNP"])
+def test_cuda_zoo_trainer_launches_gather_reduce(rng, name, method):
+    """A zoo model on the card aggregates through the SpMM kernel alone,
+    per epoch and layout as the model implies, and follows its CPU twin's
+    losses at dropout 0 (rtol 1e-4)."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, train_ktgnn
+
+    data = _zoo_data(rng, method)
+    cfg = Stage2Config(model_name=name, num_epoch=2, hidden=16, dropout=0.0,
+                       adjacency_method=method)
+    want = train_ktgnn(data, cfg, device="cpu")
+    fk.reset_launch_counts()
+    got = train_ktgnn(data, cfg, device=dev)
+    counts = fk.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {
+        "gather_reduce": fk.gather_reduce.launches_by_d}
+    # per epoch and layout: the train step's forwards and x-gradients and
+    # the eval forward (GraphSAGE: 12 and 16 wide, the first conv's input
+    # needs no gradient; GCN: after each linear, 16 and 4 wide; APPNP: 10
+    # propagations at the 4 classes)
+    per = {"GraphSAGE": {12: 2, 16: 3}, "GCN": {16: 3, 4: 3},
+           "APPNP": {4: 30}}[name]
+    layouts = fk.gather_reduce.launches // (2 * sum(per.values()))
+    assert layouts >= (2 if method == "tiered" else 1)
+    assert fk.gather_reduce.launches_by_d == {
+        d: 2 * n * layouts for d, n in per.items()}
+    for h_got, h_want in zip(got["history"], want["history"], strict=True):
+        assert abs(h_got["loss"] - h_want["loss"]) <= 1e-4 * abs(
+            h_want["loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["blocked", "tiered"])
+def test_cuda_zoo_scan_equals_loop(rng, method):
+    """GraphSAGE without the scheduler in scan mode (one CUDA graph of an
+    epoch replayed) against the per-epoch loop at dropout 0.5: losses at
+    rtol 1e-4, scores and best epoch equal; each replay launches the SpMM
+    kernel as a loop epoch does."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
+
+    data = _zoo_data(rng, method)
+    kw = dict(model_name="GraphSAGE", use_scheduler=False,
+              adjacency_method=method)
+    loop = train_ktgnn(data, _scan_cfg(scan_epochs=0, **kw), device=dev)
+    scan = train_ktgnn(data, _scan_cfg(**kw), device=dev)
+    info = scan["scan"]
+    assert (info["eager_epochs"], info["captures"], info["replays"]) == (
+        WARMUP_EPOCHS, 1, 9 - WARMUP_EPOCHS)
+    per = info["launches_per_replay"]
+    assert set(per) == {"gather_reduce"}
+    layouts = per["gather_reduce"][12] // 2
+    assert per["gather_reduce"] == {12: 2 * layouts, 16: 3 * layouts}
+    for hs, hl in zip(scan["history"], loop["history"], strict=True):
+        assert abs(hs["loss"] - hl["loss"]) <= 1e-4 * abs(hl["loss"]), hs
+        assert {k: hs[k] for k in ("train", "val", "test")} == \
+            {k: hl[k] for k in ("train", "val", "test")}, hs["epoch"]
+    assert scan["best"]["epoch"] == loop["best"]["epoch"]

@@ -23,7 +23,7 @@ from bridged_gnn_tpu.serve import KTGNNPredictor as JPredictor
 
 from bridged_gnn_tpu_torch.cli import serve as tcli
 from bridged_gnn_tpu_torch.graph import graph_from_dict, with_self_loops
-from bridged_gnn_tpu_torch.io.flax_weights import ktgnn_state_dict_from_flax
+from bridged_gnn_tpu_torch.io.flax_weights import state_dict_from_flax
 from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph
 from bridged_gnn_tpu_torch.serve import KTGNNPredictor
 from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, build_model
@@ -77,15 +77,16 @@ def skew_case():
 def _port_model(variables, hidden=HIDDEN):
     model = build_model(Stage2Config(hidden=hidden), CLASSES, DIM,
                         device="cpu")
-    model.load_state_dict(ktgnn_state_dict_from_flax(variables), strict=True)
+    model.load_state_dict(state_dict_from_flax(model, variables),
+                          strict=True)
     return model.eval()
 
 
 def test_state_dict_from_flax_layout(sync_case):
     _, _, variables = sync_case
-    sd = ktgnn_state_dict_from_flax(variables)
     model = build_model(Stage2Config(hidden=HIDDEN), CLASSES, DIM,
                         device="cpu")
+    sd = state_dict_from_flax(model, variables)
     want = model.state_dict()
     assert set(sd) == set(want)
     for k, v in sd.items():
@@ -103,7 +104,7 @@ def test_state_dict_from_flax_layout(sync_case):
         np.asarray(variables["batch_stats"]["clf_transformer"]["bn_1"]["var"]))
     bad = dict(variables, params=dict(variables["params"], complementor={}))
     with pytest.raises(ValueError, match="complementor"):
-        ktgnn_state_dict_from_flax(bad)
+        state_dict_from_flax(model, bad)
 
 
 @pytest.mark.parametrize("case,method", [("sync_case", "blocked"),
@@ -233,9 +234,9 @@ def _assert_preds(got, want):
 def predictors(sync_case):
     data, jmodel, variables = sync_case
     jp = JPredictor(jmodel, variables, dict(data), kernel_fwd=True)
-    tp = KTGNNPredictor(_port_model(variables),
-                        ktgnn_state_dict_from_flax(variables), dict(data),
-                        device="cpu")
+    model = _port_model(variables)
+    tp = KTGNNPredictor(model, state_dict_from_flax(model, variables),
+                        dict(data), device="cpu")
     return jp, tp
 
 

@@ -24,8 +24,8 @@ from bridged_gnn_tpu_torch.cli import main_graph_knowledge_transfer as tcli2
 from bridged_gnn_tpu_torch.cli import serve as tcli
 from bridged_gnn_tpu_torch.graph import graph_from_dict, with_self_loops
 from bridged_gnn_tpu_torch.io.flax_weights import (
-    flax_variables_from_ktgnn_state_dict,
-    ktgnn_state_dict_from_flax,
+    flax_variables_from_state_dict,
+    state_dict_from_flax,
 )
 from bridged_gnn_tpu_torch.nn import ktgnn as tk
 from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN, AdaptedConv
@@ -130,7 +130,8 @@ def test_bf16_model_matches_jax(case, method):
     model = build_model(Stage2Config(hidden=HIDDEN,
                                      message_dtype="bfloat16"), CLASSES,
                         DIM, device="cpu")
-    model.load_state_dict(ktgnn_state_dict_from_flax(variables), strict=True)
+    model.load_state_dict(state_dict_from_flax(model, variables),
+                          strict=True)
     with torch.inference_mode():
         got = model.eval()(g, adj)
     nm = np.asarray(gj.node_mask)
@@ -270,11 +271,12 @@ def test_flax_weights_load_into_a_bf16_model():
     model = build_model(Stage2Config(hidden=HIDDEN,
                                      message_dtype="bfloat16"), CLASSES,
                         DIM, device="cpu")
-    model.load_state_dict(ktgnn_state_dict_from_flax(variables), strict=True)
+    model.load_state_dict(state_dict_from_flax(model, variables),
+                          strict=True)
     sd = model.state_dict()
     assert all(t.dtype == torch.float32 for t in sd.values()
                if t.is_floating_point())
-    back = flax_variables_from_ktgnn_state_dict(sd)
+    back = flax_variables_from_state_dict(model, sd)
     jax.tree.map(np.testing.assert_array_equal, back,
                  jax.tree.map(np.asarray, variables))
 

@@ -20,7 +20,7 @@ from bridged_gnn_tpu.train import stage2 as js2
 from bridged_gnn_tpu_torch.cli import main_graph_knowledge_transfer as tcli2
 from bridged_gnn_tpu_torch.cli import serve as tcli
 from bridged_gnn_tpu_torch.io.flax_weights import (
-    flax_variables_from_ktgnn_state_dict,
+    flax_variables_from_state_dict,
 )
 from bridged_gnn_tpu_torch.train import stage2 as ts2
 from bridged_gnn_tpu_torch.train.checkpoint import TrainCheckpointer
@@ -118,7 +118,7 @@ def test_scan_matches_jax_scan(monkeypatch):
     g, _ = prepare_stage2_graph(data, Stage2Config(**kw), "cpu")
     init = ts2.build_model(Stage2Config(**kw), g.num_classes,
                            g.num_features, "cpu")
-    variables = flax_variables_from_ktgnn_state_dict(init.state_dict())
+    variables = flax_variables_from_state_dict(init, init.state_dict())
     monkeypatch.setattr(JKTGNN, "init", lambda self, *a, **k: variables)
     jres = js2.train_ktgnn(data, js2.Stage2Config(**kw))
 

@@ -29,8 +29,8 @@ from bridged_gnn_tpu.utils.diagnostics import (
 from bridged_gnn_tpu_torch.cli import main_graph_knowledge_transfer as tcli2
 from bridged_gnn_tpu_torch.cli import serve as tcli
 from bridged_gnn_tpu_torch.io.flax_weights import (
-    flax_variables_from_ktgnn_state_dict,
-    ktgnn_state_dict_from_flax,
+    flax_variables_from_state_dict,
+    state_dict_from_flax,
 )
 from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN
 from bridged_gnn_tpu_torch.train import metrics as tmetrics
@@ -114,13 +114,13 @@ def _port(case_):
 
 def test_train_step_grads_and_bn_match_jax(case):
     """Loss, every parameter's gradient and the BN running statistics of
-    one train-mode step, weights carried by ktgnn_state_dict_from_flax."""
+    one train-mode step, weights carried by state_dict_from_flax."""
     v = case["variables"]
     (loss_j, bs_j), grads_j = _jax_loss(case["jk"], case["gj"], case["aj"])(
         v["params"], v["batch_stats"])
-    want = ktgnn_state_dict_from_flax(jax.tree.map(
-        np.asarray, {"params": grads_j, "batch_stats": bs_j}))
     model = _port(case)
+    want = state_dict_from_flax(model, jax.tree.map(
+        np.asarray, {"params": grads_j, "batch_stats": bs_j}))
     loss, _ = stage2_loss(model, case["gt"], case["at"], 1.0, None)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
@@ -148,10 +148,10 @@ def test_adam_steplr_steps_match_jax_loop(case):
         updates, opt_state = tx.update(grads, opt_state, params)
         params = jax.tree.map(lambda p, u: p + u, params, updates)
         losses_j.append(float(loss))
-    want = ktgnn_state_dict_from_flax(jax.tree.map(
+    model = _port(case)
+    want = state_dict_from_flax(model, jax.tree.map(
         np.asarray, {"params": params, "batch_stats": bs}))
 
-    model = _port(case)
     opt, sched = make_optimizer(model.parameters(), lr, wd, True, step,
                                 gamma)
     losses = []
@@ -277,14 +277,15 @@ def test_dropout_draws_from_the_generator():
     assert torch.equal(model.eval()._dropout(x, None), x)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("model_name", "GCN"), ("no_dtc", True),
-    ("memory_policy", "xla_plain"), ("n_shards", 4),
-    ("need_complement", True),
-    ("root_weight", True), ("adjacency_method", "dense"),
-])
-def test_unported_options_raise(field, value):
-    cfg = _train_cfg(**{field: value})
+@pytest.mark.parametrize("overrides", [
+    dict(model_name="ConvNet"), dict(adjacency_method="gather"),
+    dict(memory_policy="xla_plain"), dict(n_shards=4),
+    dict(need_complement=True),
+    dict(model_name="GCN", need_complement=True),
+    dict(adjacency_method="dense"),
+], ids=lambda o: "-".join(f"{k}-{v}" for k, v in o.items()))
+def test_unported_options_raise(overrides):
+    cfg = _train_cfg(**overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_ktgnn(_data("sync"), cfg, device="cpu")
 
@@ -330,11 +331,9 @@ def test_cli_trains_on_npz(cli_run, capsys):
 def test_cli_refuses_what_is_not_ported(cli_run, tmp_path):
     _, npz, _, argv = cli_run
     ap = tcli2.build_argparser()
-    with pytest.raises(SystemExit, match="not ported"):
-        tcli2.main(ap.parse_args(["--path_data", str(tmp_path / "g.dat"),
-                                  "--device", "cpu"]))
     for extra in (["--n_shards", "2"], ["--halo_overlap"],
-                  ["--model_name", "GAT"]):
+                  ["--shard_layout", "edgeshard"],
+                  ["--memory_policy", "xla_plain"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tcli2.main(ap.parse_args(argv[:-2] + ["--device", "cpu"]
                                      + extra))
@@ -354,8 +353,9 @@ def test_port_checkpoint_serves_in_both_clis(cli_run):
         jax.tree.map(np.asarray, init))
     jax.tree.map(lambda a, b: np.testing.assert_equal(a.shape, b.shape),
                  variables, jax.tree.map(np.asarray, init))
-    sd = ktgnn_state_dict_from_flax(variables)
-    back = flax_variables_from_ktgnn_state_dict(sd)
+    model = _port_model(variables)
+    sd = state_dict_from_flax(model, variables)
+    back = flax_variables_from_state_dict(model, sd)
     jax.tree.map(np.testing.assert_array_equal, back, variables)
     serve_argv = ["--mode", "predictor", "--ckpt", str(ckpt), "--path_data",
                   npz, "--hidden_dim", str(HIDDEN), "--to_undirected"]
