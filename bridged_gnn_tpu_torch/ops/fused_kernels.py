@@ -94,6 +94,12 @@ NVCC_FLAGS = (
 LANE_GROUP_COLUMNS = 256
 # Elements of one [slots, D] temporary of a plain version (see above).
 _PLAIN_CHUNK = 1 << 25
+# The padded SpMM's widest column panel (kMaxPanel in csrc/gather_reduce.cu,
+# checked at load time): 32 lanes of 4 columns.
+MAX_PANEL = 128
+# The share of the card's L2 that one panel's rows of x may fill (the
+# footprint sweep of tools/torch_spmm_panels.py, PERF.md).
+PANEL_L2_SHARE = 0.75
 # The message dtypes the kernels take, and the suffix of each one's C entry
 # points.
 _ENTRY_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
@@ -196,9 +202,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn = getattr(lib, name + suffix)
             fn.argtypes = types
             entries.append(fn)
-    # ranges, idx, wmap, w, x, heavy, n_heavy, d, n_ranges, n_rows, out,
-    # stream (f32 only)
-    lib.gather_reduce.argtypes = [p] * 6 + [i] * 4 + [p, p]
+    # ranges, idx, wmap, w, x, heavy, n_heavy, d, n_ranges, n_rows, panel,
+    # out, stream (f32 only)
+    lib.gather_reduce.argtypes = [p] * 6 + [i] * 5 + [p, p]
     entries.append(lib.gather_reduce)
     # n_rows_layout, n_heavy, d
     lib.attention_bwd_grid.argtypes = [i] * 3
@@ -206,6 +212,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     consts = ((lib.attention_fwd_heavy_slots, HEAVY_SLOTS),
               (lib.slot_reduce_heavy_entries, HEAVY_SLOTS),
               (lib.gather_reduce_heavy_entries, HEAVY_SLOTS),
+              (lib.gather_reduce_max_panel, MAX_PANEL),
               (lib.attention_lane_group_columns, LANE_GROUP_COLUMNS))
     for fn, _ in consts:
         fn.argtypes = []
@@ -577,6 +584,45 @@ def gather_index(lay: PaddedLayout, transpose: bool):
     return row[slot].long(), lay.slot_src[slot].long(), slot
 
 
+def gather_panel(n_x: int, d: int, l2_bytes: int) -> int:
+    """The widest column panel, in columns, that :func:`gather_reduce`
+    walks ``x`` [n_x, d] in: one panel of ``d`` (rounded up to 4) when the
+    whole table fits :data:`PANEL_L2_SHARE` of ``l2_bytes`` and ``d <=``
+    :data:`MAX_PANEL`; else the widest power of two times 4 columns, at
+    least 4 and at most :data:`MAX_PANEL`, whose ``n_x`` rows fit that
+    share. The kernel splits ``d`` into :func:`gather_panel_count` panels
+    of at most this width."""
+    fit = int(PANEL_L2_SHARE * l2_bytes) // (4 * max(n_x, 1))
+    if d <= min(fit, MAX_PANEL):
+        return -(-d // 4) * 4
+    panel = 4
+    while 2 * panel <= min(fit, MAX_PANEL):
+        panel *= 2
+    return panel
+
+
+def gather_panel_count(d: int, panel: int) -> int:
+    """The panels the kernel walks ``d`` columns in, each at most
+    ``panel`` wide: ``⌈⌈d/4⌉ / ⌈panel/4⌉⌉`` (``panel_count`` in
+    csrc/gather_reduce.cu, which splits the column quads over them as
+    evenly as whole quads allow)."""
+    m, q = -(-d // 4), -(-panel // 4)
+    return -(-m // q)
+
+
+_l2_bytes: Dict[int, int] = {}
+
+
+def _l2_size(dev) -> int:
+    """The L2 cache of CUDA device ``dev`` in bytes, read once per
+    device."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _l2_bytes:
+        _l2_bytes[index] = torch.cuda.get_device_properties(
+            index).L2_cache_size
+    return _l2_bytes[index]
+
+
 def gather_reduce_plain(
     lay: PaddedLayout, x: torch.Tensor, n_rows: int,
     w_slot: Optional[torch.Tensor] = None, transpose: bool = False,
@@ -785,12 +831,27 @@ def gather_reduce(
     sender is ``u``, in the sender CSR's order, for ``u < n_rows`` (the
     SpMM input's row count): the SpMM's ``dx`` from its output cotangent
     ``x``. ``w_slot`` [B·Et] per-slot weights, or None for the unweighted
-    sum. Rows without slots are 0. The launch counts under ``x``'s
+    sum. Rows without slots are 0. The kernel sums ``x`` in column panels
+    whose rows fit the card's L2 (:func:`gather_panel`), one after another,
+    to the same bits at any panel width. The launch counts under ``x``'s
     width."""
     inputs = (lay, x, n_rows, w_slot, transpose)
     _forward_only(x=x, **({} if w_slot is None else dict(w_slot=w_slot)))
     if x.device.type != "cuda":
         return gather_reduce_plain(*inputs)
+    return _gather_reduce_launch(*inputs)
+
+
+def _gather_reduce_launch(
+    lay: PaddedLayout, x: torch.Tensor, n_rows: int,
+    w_slot: Optional[torch.Tensor], transpose: bool,
+    panel: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`gather_reduce`'s kernel launch on CUDA tensors. ``panel`` (1
+    to :data:`MAX_PANEL` columns) defaults to :func:`gather_panel` of
+    ``x`` and the card's L2; the card tests and the panel tool force it,
+    and every width gives the same bits."""
+    inputs = (lay, x, n_rows, w_slot, transpose)
     if transpose:
         ranges, idx, wmap, heavy = (lay.src_ranges, lay.src_dst,
                                     lay.src_slots, lay.src_heavy)
@@ -817,12 +878,23 @@ def gather_reduce(
         raise ValueError(f"w_slot must be [{lay.slot_src.shape[0]}], got "
                          f"{list(w_slot.shape)}")
     d = x.shape[1]
+    if panel is None:
+        panel = gather_panel(x.shape[0], d, _l2_size(x.device))
+    if not 1 <= panel <= MAX_PANEL:
+        raise ValueError(f"panel {panel}: the kernel takes 1 to {MAX_PANEL} "
+                         "columns")
+    if w_slot is None:
+        wmap = None
+    elif wmap is not None and gather_panel_count(d, panel) > 1:
+        # every panel reads each entry's weight again: gather the weights
+        # into the sender CSR's order once, not through src_slots per panel
+        w_slot, wmap = w_slot[wmap.long()], None
     out = torch.empty(n_rows, d, device=x.device)
     args = [ranges.data_ptr(), idx.data_ptr(),
-            None if w_slot is None or wmap is None else wmap.data_ptr(),
+            None if wmap is None else wmap.data_ptr(),
             None if w_slot is None else w_slot.data_ptr(), x.data_ptr(),
             heavy.data_ptr(), heavy.shape[0], d, ranges.shape[0], n_rows,
-            out.data_ptr()]
+            panel, out.data_ptr()]
     _launch(gather_reduce, d, x.dtype, args, inputs, x.device)
     return out
 

@@ -112,9 +112,14 @@ Phases, in order; any failure exits non-zero:
    its backward, two in the eval) replayed against the plain version at
    the reduce's tolerance, launched twice for bit-identical outputs,
    timed beside their bound, ``torch.sparse.mm`` on a CSR tensor of the
-   same weights and ``index_add_`` of the gathered rows; counts at 0, 10
-   loop epochs on the bench graph (2 launches at D=128 and 3 at D=64 per
-   epoch, no other kernel) with CUDA events around every launch, 2
+   same weights and ``index_add_`` of the gathered rows, each with the
+   column panels the kernel walks on this card's L2, the bytes of rows it
+   gathers and their rate (GCN's calls at the classes' width, D=8, the
+   same way), and the first D=128 call launched again at
+   forced panel widths 4, 32, 64 and 128 (4 and, on lane groups of 4 to
+   16, 8 entries in flight), each bit-identical to the wrapper's; counts
+   at 0, 10 loop epochs on the bench graph (2 launches at D=128 and 3 at
+   D=64 per epoch, no other kernel) with CUDA events around every launch, 2
    traced, 12 in scan mode (losses within rtol 1e-4 of the loop's, each
    replay launching as a loop epoch) and 5 on the hub graph (once per
    tier); the kernel at D = 257, 512 and 1030, weighted and unweighted,
@@ -225,6 +230,8 @@ ZOO_SCAN_CHUNK = 5
 ZOO_HUB_EPOCHS = 5       # phase 16: hub graph
 ZOO_OTHER_EPOCHS = 2     # phase 16: every other model
 ZOO_CLI_EPOCHS = 3       # phase 16: the CLI on a .dat
+PANEL_CHECK_D = 128      # phase 16: the replayed call held bit-identical at
+PANEL_CHECK_WIDTHS = (4, 32, 64, 128)   # these forced panel widths
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside tensor cores
 
@@ -1810,13 +1817,17 @@ def gather_index_add(inputs):
                                device=x.device).index_add_(0, key, rows)
 
 
-def zoo_replay(data, cfg, layouts_want: int):
+def zoo_replay(data, cfg, layouts_want: int, panel_check: bool = False,
+               width=None):
     """Phase 16's kernel replay: the gather_reduce calls of one epoch of
-    ``cfg`` (a train step, forward and x-gradients, and the eval forward),
+    ``cfg`` (a train step, forward and x-gradients, and the eval forward;
+    with ``width``, those at that width only),
     each replayed against its plain version (the reduce's tolerance:
     rtol 1e-4, atol 1e-4 × the output's largest magnitude), launched twice
     for bit-identical outputs, timed beside its bound, torch.sparse.mm
-    and index_add_."""
+    and index_add_, with its panels, gathered bytes and rate; with
+    ``panel_check`` the first call at D = PANEL_CHECK_D also at forced
+    panel widths (check_panel_widths)."""
     import torch
 
     from bridged_gnn_tpu_torch.ops import fused_kernels as fk
@@ -1832,7 +1843,8 @@ def zoo_replay(data, cfg, layouts_want: int):
         stage2.train_step(model, g, adj, opt, cfg.Lambda, gen)
         stage2._heads(model, g, adj)
 
-    recs = record_run(epoch, ("gather_reduce",))
+    recs = [r for r in record_run(epoch, ("gather_reduce",))
+            if width is None or r["d"] == width]
     with torch.no_grad():
         out = check_kernel("gather_reduce", fk.gather_reduce,
                            fk.gather_reduce_plain, recs, layouts,
@@ -1843,11 +1855,50 @@ def zoo_replay(data, cfg, layouts_want: int):
             r.update(transpose=bool(rec["inputs"][4]),
                      weighted=rec["inputs"][3] is not None,
                      index_add_ms=cuda_ms(call, KERNEL_REPS),
-                     index_add_device_ms=cuda_device_ms(call, KERNEL_REPS))
+                     index_add_device_ms=cuda_device_ms(call, KERNEL_REPS),
+                     **gather_panels_of(rec["inputs"], r))
             del call
+        if panel_check:
+            i = next(i for i, r in enumerate(recs) if r["d"] == PANEL_CHECK_D)
+            out[i]["panel_widths_bit_identical"] = check_panel_widths(
+                recs[i]["inputs"])
     del recs, model, opt
     torch.cuda.empty_cache()
     return out
+
+
+def gather_panels_of(inputs, rec) -> dict:
+    """The panels a gather_reduce call walks (the wrapper's rule on this
+    card's L2), the bytes of x it gathers (each entry's row once per
+    panel, as wide as the panel: entries × D × 4) and the rate of its
+    device time."""
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    x = inputs[1]
+    panel = fk.gather_panel(x.shape[0], x.shape[1], fk._l2_size(x.device))
+    gathered = rec["real_slots"] * x.shape[1] * 4
+    return dict(panel=panel,
+                panels=fk.gather_panel_count(x.shape[1], panel),
+                gathered_bytes=gathered,
+                gather_tb_s=gathered / rec["device_ms"] / 1e9)
+
+
+def check_panel_widths(inputs) -> list:
+    """One call at forced panel widths PANEL_CHECK_WIDTHS (lane groups of
+    1, 8, 16 and 32 lanes, so 4 and 8 entries in flight): each launch
+    bit-identical to the wrapper's. Returns the widths checked."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    want = fk.gather_reduce(*inputs)
+    d = inputs[1].shape[1]
+    for panel in PANEL_CHECK_WIDTHS:
+        got = fk._gather_reduce_launch(*inputs, panel)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"gather_reduce at D={d}: panel {panel} "
+                               "differs from the wrapper's launch")
+    return list(PANEL_CHECK_WIDTHS)
 
 
 def zoo_train(name, data, cfg, per_epoch: dict, layouts: int,
@@ -1938,7 +1989,8 @@ def zoo_wide(lay, n: int, seed: int) -> list:
                 (lay, x, n, w if weighted else None, transpose), True,
                 gather_bound, gather_library)
             del got
-            rec.update(weighted=weighted, transpose=transpose)
+            rec.update(weighted=weighted, transpose=transpose,
+                       **gather_panels_of((lay, x), rec))
             log(json.dumps(dict(phase="zoo_wide", **rec)))
             recs.append(rec)
         del x, w
@@ -2095,7 +2147,8 @@ def zoo_cli(data, per_epoch: dict) -> dict:
 def zoo_phase(bench, hub, c: int, card: str) -> dict:
     """Phase 16: the stage-2 model zoo. The --no_dtc recipe (GraphSAGE,
     hidden 64, 2 layers, no scheduler): one epoch's SpMM calls replayed
-    on each graph (zoo_replay); on the bench graph 10 loop epochs with
+    on each graph (zoo_replay), and GCN's at the classes' width on the
+    bench graph; on the bench graph 10 loop epochs with
     CUDA events around every launch, 2 loop epochs traced, 12 epochs in
     scan mode (losses within rtol 1e-4 of the loop's first 10, each
     replay launching the SpMM as a loop epoch does); on the hub graph
@@ -2128,10 +2181,15 @@ def zoo_phase(bench, hub, c: int, card: str) -> dict:
         sage = zoo_per_epoch("GraphSAGE", f, h, c)
 
         # the kernel's calls of one epoch on each graph, replayed
-        out["replay"] = zoo_replay(bench, no_dtc_cfg(), 1)
+        out["replay"] = zoo_replay(bench, no_dtc_cfg(), 1, panel_check=True)
         out["replay_hub"] = zoo_replay(hub, no_dtc_cfg(), n_tiers)
+        # the classes' width, where GCN (3 calls an epoch) and APPNP (30)
+        # aggregate: GCN's calls, on its self-loop layout
+        out["replay_classes"] = zoo_replay(
+            bench, no_dtc_cfg(model_name="GCN"), 1, width=c)
         for graph, recs in (("bench", out["replay"]),
-                            ("hub", out["replay_hub"])):
+                            ("hub", out["replay_hub"]),
+                            ("bench_gcn", out["replay_classes"])):
             for r in recs:
                 log(json.dumps(dict(kernel="gather_reduce", graph=graph,
                                     card=card, **r)))
@@ -2208,7 +2266,7 @@ def zoo_row(zoo, card) -> dict:
     ms per epoch of the --no_dtc bench loop; plain, bound, torch.sparse.mm
     (library_ms) and index_add_ summed over one epoch's replayed calls;
     the hub loop's in-run ms and its replayed sums (``*_tiered``) beside;
-    the wide calls."""
+    the wide calls and GCN's calls at the classes' width (``classes``)."""
     recs = zoo["replay"]
     row = summary_row(
         "gather_reduce", "bridged_gnn_tpu_torch/csrc/gather_reduce.cu",
@@ -2231,8 +2289,14 @@ def zoo_row(zoo, card) -> dict:
                            ("index_add_ms", "index_add_ms"))},
         wide=[{k: r[k] for k in (
             "d", "weighted", "transpose", "ms", "device_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "max_abs_err")}
-            for r in zoo["wide"]])
+            "bound_ms", "bound_by", "library_ms", "max_abs_err", "panels",
+            "gather_tb_s")}
+            for r in zoo["wide"]],
+        classes=[{k: r[k] for k in (
+            "d", "weighted", "transpose", "ms", "device_ms", "plain_ms",
+            "bound_ms", "library_ms", "library_device_ms",
+            "index_add_device_ms", "max_abs_err", "panels", "gather_tb_s")}
+            for r in zoo["replay_classes"]])
     return row
 
 

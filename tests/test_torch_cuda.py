@@ -900,6 +900,89 @@ def test_cuda_gather_reduce_matches_plain(rng, d, weighted):
                                        atol=1e-5 * scale)
 
 
+BENCH_L2 = 52_428_800   # the H100's L2_cache_size
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 63, 64, 100, 128, 257, 512, 1030])
+@pytest.mark.parametrize("n_x", [64, 16_384, 131_072, 1_000_000])
+def test_gather_panels_cover_d_once(n_x, d):
+    """The panel rule covers D's column quads once: a panel of a multiple
+    of 4 columns, and the fewest panels of at most that width that hold
+    every quad, each given at least one (the kernel's balanced split of
+    the quads over them is held on the card by
+    test_cuda_gather_reduce_panels_are_bit_identical); one panel when the
+    table fits its share of L2."""
+    panel = fk.gather_panel(n_x, d, BENCH_L2)
+    assert 4 <= panel <= fk.MAX_PANEL and panel % 4 == 0
+    n = fk.gather_panel_count(d, panel)
+    m, q = -(-d // 4), panel // 4
+    assert (n - 1) * q < m <= n * q
+    assert n <= m
+    fits = n_x * d * 4 <= fk.PANEL_L2_SHARE * BENCH_L2
+    assert (n == 1) == (fits and d <= fk.MAX_PANEL) or (d <= 4 and n == 1)
+
+
+def test_gather_panel_count_never_falls_as_the_table_grows():
+    """More rows or more columns never give fewer panels; a panel never
+    widens with more rows."""
+    ds = list(range(1, 300)) + [512, 1030, 2048]
+    ns = [1, 64, 4096, 16_384, 65_536, 98_304, 131_072, 196_608, 262_144,
+          1 << 20, 1 << 24]
+    count = {(n, d): fk.gather_panel_count(d, fk.gather_panel(n, d, BENCH_L2))
+             for n in ns for d in ds}
+    for n in ns:
+        assert all(count[n, a] <= count[n, b] for a, b in zip(ds, ds[1:]))
+    for d in ds:
+        assert all(count[a, d] <= count[b, d] for a, b in zip(ns, ns[1:]))
+        panels = [fk.gather_panel(n, d, BENCH_L2) for n in ns]
+        if d > fk.MAX_PANEL:
+            assert panels == sorted(panels, reverse=True)
+
+
+@pytest.mark.parametrize("d,panels", [(64, 1), (128, 2), (512, 8),
+                                      (1030, 17)])
+def test_gather_panels_on_the_bench_graph(d, panels):
+    """The bench graph's 131,072 rows on the H100's L2: D = 64 (33.5 MB)
+    in one panel, the wider tables in 64-column panels."""
+    panel = fk.gather_panel(131_072, d, BENCH_L2)
+    assert panel == 64 and fk.gather_panel_count(d, panel) == panels
+
+
+def test_gather_reduce_launch_refuses_what_the_kernel_does_not_take(rng):
+    """Panels past MAX_PANEL or below 1 column raise before any launch
+    (the check needs no card)."""
+    lay = _edge_case_layout(rng)
+    x, w = _gather_inputs(rng, lay, 256, "cpu", True)
+    before = fk.gather_reduce.launches
+    for panel in (fk.MAX_PANEL + 4, fk.MAX_PANEL + 1, 0, -4):
+        with pytest.raises(ValueError):
+            fk._gather_reduce_launch(lay, x, 64, w, False, panel)
+    assert fk.gather_reduce.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "transpose"])
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("d", [8, 64, 128, 257, 512, 1030])
+def test_cuda_gather_reduce_panels_are_bit_identical(rng, d, weighted,
+                                                     transpose):
+    """The kernel at forced panel widths 4, 8, 16, 32, 64 and D (or the
+    widest panel past it), on the edge-case layout (heavy and light rows
+    both ways): every launch bit-identical to the default one. At the
+    wider D the widths reach lane groups of every size from 1 to 32
+    lanes, so both counts of entries in flight (4 and 8)."""
+    dev = _need_cuda()
+    lay = _edge_case_layout(rng, dev)
+    x, w = _gather_inputs(rng, lay, d, dev, weighted)
+    want = fk.gather_reduce(lay, x, 64, w, transpose)
+    for panel in (4, 8, 16, 32, 64, min(d, fk.MAX_PANEL)):
+        _poison(dev, (64, d))
+        got = fk._gather_reduce_launch(lay, x, 64, w, transpose, panel)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), panel
+
+
 @pytest.mark.cuda
 def test_cuda_gather_reduce_wrapper_routes_and_raises(rng):
     """CUDA tensors launch the kernel (counted under x's width); what the
