@@ -1,7 +1,9 @@
 """HTTP serving entry point (predictor mode).
 
 Port of ``bridged_gnn_tpu/cli/serve.py``'s predictor mode: full-graph
-KT-GNN node classification over a bridged graph, behind a JSON-over-HTTP
+node classification over a bridged graph with any stage-2 model
+(``--model_name``, ``--no_dtc`` as the JAX flags: ``--no_dtc`` with the
+default KTGNN serves ``KTGNNNoDTC``), behind a JSON-over-HTTP
 API (stdlib ``http.server``). Predictions over the loaded graph are cached
 at startup; requests carrying feature updates run the model live, and
 ``/v1/refresh`` installs new features persistently and rebuilds the
@@ -16,8 +18,9 @@ Endpoints:
   POST /v1/refresh         {"x": [[...]], "nodes": [...]?}
 
 Run: ``python -m bridged_gnn_tpu_torch.cli.serve --mode predictor
---ckpt best.pkl --path_data graph.npz [--device cuda]``, where the
-checkpoint is the JAX stage-2 CLI's ``--save`` pickle.
+--ckpt best.pkl --path_data graph.npz [--model_name GraphSAGE]
+[--device cuda]``, where the checkpoint is a stage-2 CLI's ``--save``
+pickle (either package's) of that model.
 """
 
 from __future__ import annotations
@@ -31,6 +34,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+
+# the predictor's heads (a single-output model's one head under each name)
+HEADS = ("source", "target", "target_hat")
 
 
 class ServingApp:
@@ -56,20 +63,22 @@ class ServingApp:
 
     def predict(self, body: Dict[str, Any]) -> Dict[str, Any]:
         head = body.get("head", "target_hat")
-        if head not in self._predictions:
+        if head not in HEADS:
             raise _ApiError(
-                400, f"unknown head {head!r}; one of "
-                f"{sorted(self._predictions)}")
+                400, f"unknown head {head!r}; one of {sorted(HEADS)}")
         x = body.get("x")
         if x is not None:
             # live inference on updated features for this request only:
             # "x" is the full [N, D] feature matrix, or rows of "x_nodes"
             preds = self._run_live(x, body.get("x_nodes"))
             computed = "live"
-            lp = preds[head]
         else:
-            lp = self._predictions[head]
+            # under the lock: a refresh installs features and rebuilds
+            # the cache as one step
+            with self._lock:
+                preds = self._predictions
             computed = "cache"
+        lp = preds[head]
         nodes = body.get("nodes")
         if nodes is not None:
             nodes = np.asarray(nodes, dtype=np.int64)
@@ -190,7 +199,11 @@ def _load_predictor(args) -> ServingApp:
         load_bridged_graph,
     )
     from bridged_gnn_tpu_torch.serve import KTGNNPredictor
-    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, build_model
+    from bridged_gnn_tpu_torch.train.stage2 import (
+        Stage2Config,
+        build_model,
+        built_model_name,
+    )
 
     data = load_bridged_graph(args.path_data)
     # the checkpoint is a pickle this project's stage-2 CLI wrote; load
@@ -203,7 +216,8 @@ def _load_predictor(args) -> ServingApp:
             "dict with 'params'/'batch_stats' — the stage-2 CLI's --save "
             "artifact)")
     cfg = Stage2Config(
-        num_layer=args.num_layer, hidden=args.hidden_dim,
+        model_name=args.model_name, num_layer=args.num_layer,
+        hidden=args.hidden_dim, no_dtc=args.no_dtc,
         to_undirected=args.to_undirected,
     )
     num_classes = int(np.asarray(data["y"]).max()) + 1
@@ -215,10 +229,10 @@ def _load_predictor(args) -> ServingApp:
         matmul_precision=args.matmul_precision,
     )
     meta = dict(
-        mode="predictor", model_name=cfg.model_name,
+        mode="predictor", model_name=built_model_name(cfg),
         num_nodes=int(data["x"].shape[0]),
         num_classes=num_classes,
-        heads=["source", "target", "target_hat"],
+        heads=list(HEADS),
         matmul_precision=args.matmul_precision,
         device=str(predictor.device),
     )
@@ -228,7 +242,8 @@ def _load_predictor(args) -> ServingApp:
 
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Serve a trained KT-GNN over HTTP (PyTorch/CUDA port)")
+        description="Serve a trained stage-2 model over HTTP "
+                    "(PyTorch/CUDA port)")
     ap.add_argument("--mode", choices=["predictor", "similarity"],
                     required=True)
     ap.add_argument("--ckpt", required=True,
@@ -239,8 +254,11 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve from (default: cuda)")
     # model hyperparams (must match training)
+    ap.add_argument("--model_name", default="KTGNN")
     ap.add_argument("--num_layer", type=int, default=2)
     ap.add_argument("--hidden_dim", type=int, default=64)
+    # with the default KTGNN: KTGNNNoDTC (not the training CLI's GraphSAGE)
+    ap.add_argument("--no_dtc", action="store_true", default=False)
     ap.add_argument("--to_undirected", action="store_true", default=False)
     # JAX's precision names: "default" and "bfloat16" run the card's f32
     # matmuls in TF32

@@ -104,10 +104,17 @@ def coalesce_np(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
     return np.stack([src[sel], dst[sel]])
 
 
-def sort_edges_by_dst(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+def dst_order(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    """The permutation that sorts edges by (dst, src), stable: the order
+    :func:`build_graph` keeps them in (and per-edge attributes follow)."""
     src, dst = edge_index[0].astype(np.int64), edge_index[1].astype(np.int64)
-    order = np.argsort(dst * num_nodes + src, kind="stable")
-    return np.stack([src[order], dst[order]])
+    return np.argsort(dst * num_nodes + src, kind="stable")
+
+
+def sort_edges_by_dst(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    order = dst_order(edge_index, num_nodes)
+    return np.stack([edge_index[0].astype(np.int64)[order],
+                     edge_index[1].astype(np.int64)[order]])
 
 
 def remove_self_loops_np(edge_index: np.ndarray) -> np.ndarray:

@@ -1,10 +1,12 @@
 """The stage-2 model zoo (port of ``bridged_gnn_tpu/nn/backbones.py``).
 
-GCN, GraphSAGE, GAT, GATv2, MLP, GIN, JKNet, APPNP, GCN2 and DeeperGCN
-(reference models/backbones.py). Each model takes the Graph and its
-Adjacency and returns per-node log-probabilities ``[N_pad, C]``. Every
-``spmm`` aggregation (GCN, GraphSAGE, GIN, JKNet, APPNP, GCN2) runs the
-padded SpMM kernel, forward and backward; GAT, GATv2 and DeeperGCN
+GCN, GraphSAGE, GAT, GATv2, MLP, GIN, JKNet, APPNP, GCN2, DeeperGCN and
+ConvNet (reference models/backbones.py). Each model takes the Graph and
+its Adjacency and returns per-node log-probabilities ``[N_pad, C]``. On
+a blocked or tiered adjacency every ``spmm`` aggregation (GCN,
+GraphSAGE, GIN, JKNet, APPNP, GCN2, ConvNet's weighted SpMMs) runs the
+padded SpMM kernel, forward and backward; on a dense or gather one the
+matmul or the segment sum of ``ops/spmm.py``. GAT, GATv2 and DeeperGCN
 aggregate with the segment softmax and sum of ``ops/segment.py``, plain
 PyTorch as the JAX package's XLA. Parameter names follow the flax modules
 (``convs_{i}``, ``nn_{i}``, ``eps_{i}``, ``lin1``, ``lin_in``,
@@ -14,8 +16,9 @@ families follow ``glorot_dense`` (:class:`GlorotLinear`) and
 ``torch_dense`` (:class:`TorchLinear`). Dropout in train mode draws from
 the ``generator`` passed to ``forward``.
 
-``ConvNet``/``SplineConv`` are not in the CLI's choices and need
-pseudo-coordinates; they are not ported yet (ROADMAP.md Queue 1 item 8).
+``ConvNet``/``SplineConv`` are not in either CLI's choices: they need
+per-edge pseudo-coordinates, which ``ConvNet.forward`` takes as
+``pseudo`` (the trainer passes a graph's ``edge_attr``).
 """
 
 from __future__ import annotations
@@ -394,6 +397,115 @@ class DeeperGCNNet(_Net):
         return torch.log_softmax(self.lin(x), dim=1)
 
 
+def spline_basis(pseudo: torch.Tensor, kernel_size,
+                 edge_mask: torch.Tensor) -> torch.Tensor:
+    """Degree-1 open B-spline basis, densified to ``[E_pad, K]`` (JAX
+    ``nn/backbones.py:352-397``; PyG ``SplineConv`` with ``degree=1``,
+    ``is_open_spline=True``): pseudo-coordinates clipped to [0, 1] and
+    scaled by ``k_i - 1`` per dimension; each edge weights the 2^dim
+    surrounding kernel slots with hat functions, slots flattened in
+    torch_spline_conv's mixed-radix order (dimension i strides by
+    ``prod_{j<i} k_j``); masked edges get 0."""
+    if pseudo.dim() == 1:
+        pseudo = pseudo[:, None]
+    dim = pseudo.shape[1]
+    if isinstance(kernel_size, int):
+        kernel_size = (kernel_size,) * dim
+    if len(kernel_size) != dim:
+        raise ValueError(f"kernel_size {kernel_size} for {dim}-dimensional "
+                         "pseudo-coordinates")
+    strides, k_total = [], 1
+    for k_i in kernel_size:
+        strides.append(k_total)
+        k_total *= k_i
+    u = pseudo.float().clamp(0.0, 1.0)
+    scaled = u * (torch.tensor(kernel_size, dtype=torch.float32,
+                               device=u.device) - 1.0)
+    lo = torch.floor(scaled)
+    frac = scaled - lo
+    lo = lo.long()
+    basis = u.new_zeros(u.shape[0], k_total)
+    valid = edge_mask.float()
+    for corner in range(1 << dim):
+        w = valid
+        slot = torch.zeros_like(lo[:, 0])
+        for i in range(dim):
+            bit = (corner >> i) & 1
+            w = w * (frac[:, i] if bit else 1.0 - frac[:, i])
+            slot = slot + (lo[:, i] + bit).clamp(max=kernel_size[i] - 1) \
+                * strides[i]
+        basis = basis + w[:, None] * nn.functional.one_hot(
+            slot, k_total).float()
+    return basis
+
+
+class SplineConv(nn.Module):
+    """Degree-1 B-spline kernel conv (PyG ``SplineConv`` semantics: mean
+    aggregation, root weight, bias; JAX ``nn/backbones.py:400-438``):
+    ``x @ weight[k]`` for each of the K kernel slots, each aggregated by a
+    weighted ``spmm`` with its basis column as the edge weights (the
+    padded SpMM kernel on a blocked adjacency), summed, divided by
+    ``max(in_degree, 1)``, plus ``root(x)`` and ``bias``. ``weight``
+    ``[K, f_in, out]`` has PyG's uniform init, U(±1/√(K·f_in))."""
+
+    def __init__(self, in_channels: int, out_channels: int, dim: int = 1,
+                 kernel_size: int = 2, root_weight: bool = True, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        k = kernel_size ** dim
+        bound = 1.0 / math.sqrt(k * in_channels)
+        self.weight = nn.Parameter(torch.empty(
+            k, in_channels, out_channels).uniform_(-bound, bound,
+                                                    generator=generator))
+        self.root = (TorchLinear(in_channels, out_channels, bias=False,
+                                 generator=generator)
+                     if root_weight else None)
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor, adj: Adjacency,
+                pseudo: torch.Tensor) -> torch.Tensor:
+        basis = spline_basis(pseudo, self.kernel_size, adj.edge_mask)
+        xw = torch.einsum("nf,kfo->kno", x, self.weight)
+        agg = sum(spmm(adj, xw[k], edge_weights=basis[:, k])
+                  for k in range(xw.shape[0]))
+        out = agg / adj.in_degree.clamp(min=1.0)[:, None]
+        if self.root is not None:
+            out = out + self.root(x)
+        return out + self.bias
+
+
+class ConvNet(_Net):
+    """Two-layer SplineConv net (reference backbones.py:199-212; JAX
+    ``nn/backbones.py:441-467``): dropout, SplineConv to 16 (dim 1, kernel
+    size 2), ELU, dropout, SplineConv to the classes, log-softmax. The
+    reference reads the pseudo-coordinates from ``data.edge_attr``, which
+    no shipped dataset provides; here they are ``forward``'s ``pseudo``
+    ([E_pad] or [E_pad, 1] in [0, 1], in the adjacency's edge order), and
+    without them it raises JAX's ValueError."""
+
+    def __init__(self, num_classes: int, in_channels: int,
+                 dropout: float = 0.5, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.conv1 = SplineConv(in_channels, 16, generator=generator)
+        self.conv2 = SplineConv(16, num_classes, generator=generator)
+
+    def forward(self, g: Graph, adj: Adjacency,
+                generator: Optional[torch.Generator] = None,
+                pseudo: Optional[torch.Tensor] = None):
+        if pseudo is None:
+            raise ValueError(
+                "ConvNet/SplineConv needs per-edge pseudo-coordinates "
+                "(reference data.edge_attr); pass pseudo=[E_pad, dim] "
+                "in [0, 1].")
+        x = self._drop(g.x, self.dropout, generator)
+        x = nn.functional.elu(self.conv1(x, adj, pseudo))
+        x = self._drop(x, self.dropout, generator)
+        return torch.log_softmax(self.conv2(x, adj, pseudo), dim=1)
+
+
 _ZOO = {
     "GCN": lambda cfg, c, f, g: GCNNet(c, f, cfg.num_layer, cfg.hidden,
                                        dropout=cfg.dropout, generator=g),
@@ -416,8 +528,12 @@ _ZOO = {
         c, f, cfg.hidden, num_layers=max(cfg.num_layer, 2), generator=g),
     "DeeperGCN": lambda cfg, c, f, g: DeeperGCNNet(
         c, f, cfg.hidden, num_layers=max(cfg.num_layer, 2), generator=g),
+    "ConvNet": lambda cfg, c, f, g: ConvNet(c, f, dropout=cfg.dropout,
+                                            generator=g),
 }
-MODEL_NAMES = tuple(_ZOO)
+# the zoo models of the CLIs' --model_name choices: all but ConvNet, which
+# needs pseudo-coordinates (JAX has it in neither CLI)
+MODEL_NAMES = tuple(m for m in _ZOO if m != "ConvNet")
 
 
 def build_backbone(name: str, cfg, num_classes: int, in_channels: int,

@@ -30,7 +30,11 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 0,
 def uniform_fan_in_(t: torch.Tensor, fan_in: int,
                     generator: Optional[torch.Generator] = None):
     """U(±1/√fan_in): the torch/PyG default Linear init the reference's
-    KT-GNN linears use."""
+    KT-GNN linears use. A tensor without elements (``fan_in`` 0, as the
+    complementor's observed prefix at ``dim_share=0``) is left as it
+    is."""
+    if t.numel() == 0:
+        return t
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         return t.uniform_(-bound, bound, generator=generator)

@@ -2,10 +2,11 @@
 
 Port of ``bridged_gnn_tpu/nn/ktgnn.py`` (reference models/KTGNN.py):
 ``AdaptedConv`` with its single-layout and degree-tiered fused attention
-branches and the optional root weight (``lin_r``), ``ClfTransformer``,
-``KTGNN`` without the feature complementor, and ``KTGNNNoDTC``, the
-single-head stack (reference KTGNN_noDTC). Quirks kept from the
-reference:
+branches, its per-edge GATv2 branch on a dense or gather adjacency and
+the optional root weight (``lin_r``), ``ClfTransformer``, ``KTGNN`` with
+the optional feature complementor (``nn/complementor.py``), and
+``KTGNNNoDTC``, the single-head stack (reference KTGNN_noDTC). Quirks
+kept from the reference:
 
 * ``lin_t`` acts on ``x_s2t`` and ``lin_s`` on ``x_t2s``;
 * central destinations attend over ``x_t2s`` messages with ``a_f_t2s``,
@@ -16,9 +17,10 @@ reference:
 
 The attention runs through ``ops/fused_attention.py``: the selective
 kernels on a single padded layout, the concatenated kernels per tier on
-degree-tiered layouts, forward and backward. Dropout in train mode draws
-its masks from a ``torch.Generator`` the caller passes, on the model's
-device, never from the global generator.
+degree-tiered layouts, forward and backward; on a dense or gather
+adjacency it runs per edge in plain PyTorch, as the JAX package's XLA.
+Dropout in train mode draws its masks from a ``torch.Generator`` the
+caller passes, on the model's device, never from the global generator.
 
 ``msg_dtype="bfloat16"`` (JAX ``msg_dtype``, the production stage-2
 setting) casts each conv's two linear outputs, the message tables, to
@@ -29,13 +31,17 @@ stay f32.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from bridged_gnn_tpu_torch.graph import Graph
+from bridged_gnn_tpu_torch.nn.complementor import (
+    AdaptedComplementor,
+    Frontier,
+)
 from bridged_gnn_tpu_torch.nn.common import (
     MaskedBatchNorm,
     TorchLinear,
@@ -47,7 +53,8 @@ from bridged_gnn_tpu_torch.ops.fused_attention import (
     adapted_attention_tiered,
     attention_sel,
 )
-from bridged_gnn_tpu_torch.ops.spmm import Adjacency
+from bridged_gnn_tpu_torch.ops.segment import segment_softmax, segment_sum
+from bridged_gnn_tpu_torch.ops.spmm import Adjacency, dense_matrix
 
 # the message dtypes the attention kernels take (None: the input's, f32)
 MSG_DTYPES = {None: None, "bfloat16": torch.bfloat16}
@@ -121,12 +128,42 @@ class AdaptedConv(nn.Module):
                 self.a_f_t2s, self.a_f_s2t, self.negative_slope,
             )
         else:
-            raise ValueError(
-                "AdaptedConv needs a blocked or tiered adjacency")
+            out = self._edge_attention(adj, u_t2s, u_s2t, central_mask,
+                                       x.dtype)
         out = out.to(x.dtype)
         if self.lin_r is not None:
             out = out + self.lin_r(x)
         return out
+
+    def _edge_attention(self, adj: Adjacency, u_t2s: torch.Tensor,
+                        u_s2t: torch.Tensor, central_mask: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+        """GATv2 attention per edge on a dense or gather adjacency (JAX
+        ``nn/ktgnn.py:298-360``): logits from ``u[s] + u[r]`` of both
+        tables, the one of the destination's domain kept, one segment
+        softmax over the receivers; then two matmuls with the weighted
+        matrices split by the destination's domain (dense), or the sum of
+        the domain-selected messages by receiver (gather). Plain PyTorch,
+        as the JAX package's XLA. The matrices are built in ``dtype`` (the
+        conv's input) and take the message tables in it; the gather sums
+        in the messages' dtype, as JAX does."""
+        s, r, em = adj.senders.long(), adj.receivers.long(), adj.edge_mask
+        dst_central = central_mask[r]
+        slope = self.negative_slope
+        e_t2s = nn.functional.leaky_relu(u_t2s[s] + u_t2s[r], slope)
+        e_s2t = nn.functional.leaky_relu(u_s2t[s] + u_s2t[r], slope)
+        logits = torch.where(dst_central,
+                             e_t2s.to(self.a_f_t2s.dtype) @ self.a_f_t2s,
+                             e_s2t.to(self.a_f_s2t.dtype) @ self.a_f_s2t)
+        alpha = segment_softmax(logits, r, adj.num_nodes_padded, mask=em)
+        if adj.dense is not None:
+            w1 = torch.where(em & dst_central, alpha, 0.0).to(dtype)
+            w2 = torch.where(em & ~dst_central, alpha, 0.0).to(dtype)
+            return (dense_matrix(adj, w1) @ u_t2s.to(dtype)
+                    + dense_matrix(adj, w2) @ u_s2t.to(dtype))
+        msg = torch.where(dst_central[:, None], u_t2s[s], u_s2t[s])
+        return segment_sum(msg * alpha[:, None].to(msg.dtype), r,
+                           adj.num_nodes_padded, mask=em)
 
 
 class ClfTransformer(nn.Module):
@@ -146,10 +183,17 @@ class ClfTransformer(nn.Module):
 
 
 class KTGNN(nn.Module):
-    """KTGNN_no_complement (reference models/KTGNN.py:330-465).
+    """KT-GNN (reference models/KTGNN.py:330-465).
 
-    ``forward`` returns the log-probabilities of the three heads
-    ``(base, target, target_hat)``; ``embed`` the final node embeddings.
+    ``forward`` returns JAX's 4-tuple: the log-probabilities of the three
+    heads ``(base, target, target_hat)`` and ``loss_dist``, the
+    complementor's distribution loss in train mode with
+    ``use_dist_loss`` (else None); ``embed`` the final node embeddings.
+    ``need_complement`` puts the feature complementor
+    (``nn/complementor.py``) before the convs: it reads the first
+    ``dim_share`` features as observed, runs ``step`` frontiers (the
+    ``frontiers`` both methods then take) and gives the convs ``hidden_o
+    + hidden_u`` features.
     Train/eval mode follows ``nn.Module.train``/``eval``: dropout and
     batch statistics in train mode, running statistics in eval mode.
     Dropout needs ``generator`` (on the model's device) in train mode
@@ -169,11 +213,19 @@ class KTGNN(nn.Module):
                  use_bn: bool = True, *, remat: bool = False,
                  root_weight: bool = False,
                  msg_dtype: Optional[str] = None,
+                 need_complement: bool = False, dim_share: int = 0,
+                 hidden_o: int = 128, hidden_u: int = 128, step: int = 1,
+                 use_dist_loss: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
         self.dropout = dropout
         self.remat = remat
+        self.complementor = AdaptedComplementor(
+            dim_share, in_channels - dim_share, hidden_o, hidden_u, step,
+            use_dist_loss, generator=g) if need_complement else None
+        if need_complement:
+            in_channels = hidden_o + hidden_u
         n_convs = max(layer_num - 1, 1)
         dims = [in_channels] + [hidden] * n_convs
         kw = dict(root_weight=root_weight, msg_dtype=msg_dtype, generator=g)
@@ -192,11 +244,18 @@ class KTGNN(nn.Module):
         """Inverted dropout with the mask drawn from ``generator``."""
         return dropout(x, self.dropout, generator) if self.training else x
 
-    def embed(self, g: Graph, adj: Adjacency,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Final node embeddings (reference get_emb, KTGNN.py:436-465)."""
+    def _embed(self, g: Graph, adj: Adjacency,
+               generator: Optional[torch.Generator],
+               frontiers: Optional[Sequence[Frontier]]):
+        """The final node embeddings and ``loss_dist``."""
         cm, nm = g.central_mask, g.node_mask
-        x = g.x
+        x, loss_dist = g.x, None
+        if self.complementor is not None:
+            if frontiers is None:
+                raise TypeError("KTGNN with the feature complementor needs "
+                                "frontiers (nn/complementor.py)")
+            x, loss_dist = self.complementor(x, frontiers, cm, nm,
+                                             generator)
         for i, conv in enumerate(self.convs):
             if self.remat and torch.is_grad_enabled():
                 # no RNG state to keep: the conv draws no random numbers
@@ -208,13 +267,22 @@ class KTGNN(nn.Module):
                 x = self.bns[i](x, nm)
             x = torch.relu(x)
             x = self._dropout(x, generator)
-        return x
+        return x, loss_dist
+
+    def embed(self, g: Graph, adj: Adjacency,
+              generator: Optional[torch.Generator] = None,
+              frontiers: Optional[Sequence[Frontier]] = None
+              ) -> torch.Tensor:
+        """Final node embeddings (reference get_emb, KTGNN.py:436-465)."""
+        return self._embed(g, adj, generator, frontiers)[0]
 
     def forward(self, g: Graph, adj: Adjacency,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                frontiers: Optional[Sequence[Frontier]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor]]:
         cm, nm = g.central_mask, g.node_mask
-        x = self.embed(g, adj, generator)
+        x, loss_dist = self._embed(g, adj, generator, frontiers)
         logits_base = self.clf_base(x, adj, cm, nm)
         x_trans = self.clf_transformer(x, nm)
         logits_target_hat = self.clf_target(x_trans, adj, cm, nm)
@@ -223,6 +291,7 @@ class KTGNN(nn.Module):
             torch.log_softmax(logits_base, dim=1),
             torch.log_softmax(logits_target, dim=1),
             torch.log_softmax(logits_target_hat, dim=1),
+            loss_dist,
         )
 
 

@@ -1,11 +1,13 @@
 """Segment reductions over edges keyed by destination node.
 
 Port of ``bridged_gnn_tpu/ops/segment.py``: the scatter-add and
-scatter-softmax the GAT, GATv2 and DeeperGCN models aggregate with. The
-JAX package computes these in XLA, outside any Pallas kernel, so the
-port's are plain PyTorch (``index_add_``, ``scatter_reduce``), on the
-card as on the CPU. Every function takes an explicit ``num_segments`` and
-an optional validity mask, so padded edges contribute nothing.
+scatter-softmax the GAT, GATv2 and DeeperGCN models, the feature
+complementor and the gather adjacency aggregate with. The JAX package
+computes these in XLA, outside any Pallas kernel, so the port's are
+plain PyTorch (``index_add_`` or ``index_put_``, ``scatter_reduce``), on
+the card as on the CPU, with ids in any order. Every function takes an
+explicit ``num_segments`` and an optional validity mask, so padded edges
+contribute nothing.
 """
 
 from __future__ import annotations
@@ -28,9 +30,16 @@ def _masked(data: torch.Tensor, mask: Optional[torch.Tensor],
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[s] = Σ_{e: ids[e] = s} data[e]`` over unmasked entries."""
+    """``out[s] = Σ_{e: ids[e] = s} data[e]`` over unmasked entries. On the
+    card the sum is the sorted accumulate of ``index_put_``, which adds
+    each segment's entries in a fixed order (``index_add_`` adds them
+    with atomics, in whatever order they land), so a run repeats its
+    bits; on the CPU ``index_add_``, which is the deterministic one
+    there."""
     data = _masked(data, mask, 0.0)
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    if data.is_cuda:
+        return out.index_put_((segment_ids.long(),), data, accumulate=True)
     return out.index_add_(0, segment_ids.long(), data)
 
 

@@ -1,12 +1,16 @@
-"""Inference/serving layer: full-graph KT-GNN node classification.
+"""Inference/serving layer: full-graph node classification with any
+stage-2 model.
 
-Port of ``bridged_gnn_tpu/serve.py::KTGNNPredictor``. The graph, its slot
-layout and the model live on the device; every prediction is one forward
-under ``torch.inference_mode()``. On the card each attention call is one
-fused CUDA kernel launch per layout (``ops/fused_kernels.py``); the
-serving layout is the single ``node_block=128`` padded layout (selective
-kernel), or degree tiers (concatenated kernel per tier) when the graph's
-skew calls for them.
+Port of ``bridged_gnn_tpu/serve.py::KTGNNPredictor``. The graph, its
+adjacency and the model live on the device; every prediction is one
+forward under ``torch.inference_mode()``. On the card each KT-GNN
+attention call is one fused CUDA kernel launch per layout
+(``ops/fused_kernels.py``): the single ``node_block=128`` padded layout
+(selective kernel), or degree tiers (concatenated kernel per tier) when
+the graph's skew calls for them; a zoo model's SpMMs run the padded SpMM
+kernel on its ``node_block=256`` layout. ``"auto"`` resolves by
+``ops/spmm.py::resolve_adjacency_method``; on a dense or gather
+adjacency the attention and the SpMMs are plain PyTorch.
 
 ``SimilarityScorer`` is not ported yet.
 """
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from bridged_gnn_tpu_torch.graph import Graph, graph_from_dict, with_self_loops
+from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN, KTGNNNoDTC
 from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph
 from bridged_gnn_tpu_torch.train.stage2 import to_undirected_np
 from bridged_gnn_tpu_torch.utils.platform import (
@@ -31,10 +36,18 @@ from bridged_gnn_tpu_torch.utils.platform import (
 class KTGNNPredictor:
     """Serve class predictions over a bridged graph.
 
+    ``model``: KT-GNN, whose three heads the predictions hold, or any
+    single-output stage-2 model (``KTGNNNoDTC``, the zoo), whose
+    log-probabilities stand for all three heads (JAX ``serve.py:73-79``).
+    The graph gets self loops for every model, as the JAX predictor adds
+    them (``serve.py:43``), also for the zoo models that trained without
+    them (GraphSAGE, GIN, MLP, DeeperGCN, ConvNet).
     ``state_dict``: weights to load into ``model`` (strict), or None to
     serve the model's current weights. ``adjacency_method``: ``"auto"``
-    and ``"blocked"`` build the single layout unless the skew rule picks
-    tiers; ``"tiered"`` forces tiers. ``matmul_precision``: JAX's
+    resolves by the padded node count, as the trainer does;
+    ``"blocked"`` builds the single layout unless the skew rule picks
+    tiers; ``"tiered"``, ``"dense"`` and ``"gather"`` force theirs.
+    ``matmul_precision``: JAX's
     precision name that every forward runs under (as the JAX serve CLI
     builds its predictor under ``jax.default_matmul_precision``); see
     ``utils/platform.matmul_precision``. A model built with
@@ -52,10 +65,9 @@ class KTGNNPredictor:
         if to_undirected:
             data = to_undirected_np(data)
         self.graph = with_self_loops(graph_from_dict(data)).to(self.device)
-        if adjacency_method == "auto":
-            adjacency_method = "blocked"
         self.adj = adjacency_from_graph(
-            self.graph, method=adjacency_method, node_block=128,
+            self.graph, method=adjacency_method,
+            node_block=128 if isinstance(model, (KTGNN, KTGNNNoDTC)) else 256,
             device=self.device,
         )
         if state_dict is not None:
@@ -64,7 +76,9 @@ class KTGNNPredictor:
 
     def _forward(self, g: Graph) -> Dict[str, np.ndarray]:
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
-            lp_s, lp_t, lp_that = self.model(g, self.adj)
+            outs = self.model(g, self.adj)
+            lp_s, lp_t, lp_that = (outs[:3] if isinstance(outs, tuple)
+                                   else (outs,) * 3)
             n = g.num_nodes
             # one host transfer for all three heads
             both = torch.stack([lp_s[:n], lp_t[:n], lp_that[:n]]).cpu()
@@ -131,7 +145,12 @@ class KTGNNPredictor:
         return self.predict()[head].argmax(1)
 
     def embeddings(self) -> np.ndarray:
-        """Final-layer node embeddings (reference get_emb equivalent)."""
+        """Final-layer node embeddings (reference get_emb equivalent); a
+        KT-GNN model's alone."""
+        if not hasattr(self.model, "embed"):
+            raise ValueError(
+                f"{type(self.model).__name__} has no node embeddings; "
+                "embeddings() serves KT-GNN")
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
             emb = self.model.embed(self.graph, self.adj)
             return emb[: self.graph.num_nodes].cpu().numpy()

@@ -17,6 +17,11 @@ A single-head model (``KTGNN_noDTC``, ``no_dtc=True`` with KTGNN, or a
 zoo model) trains on ``masked_nll`` over the train mask alone, with every
 loss term of the history equal to it and a KL of 0, is selected by that
 loss, and scores its one head everywhere (JAX ``stage2.py:626-629``).
+``need_complement`` runs KT-GNN's feature complementor over frontiers
+built once per run, and its ``loss_dist`` joins the loss (JAX
+``stage2.py:547-558, 620-623``). ``ConvNet`` reads its
+pseudo-coordinates from the data's ``edge_attr`` (the reference's
+``data.edge_attr``), and without them raises JAX's ``ValueError``.
 
 Each epoch is one train step (forward in train mode, loss, backward
 through the attention kernels' autograd Functions, Adam, StepLR) and one
@@ -30,9 +35,12 @@ a device buffer, and the host scores them after one copy per chunk.
 kernels' bf16 instantiations) and ``matmul_precision`` is set around the
 whole run (JAX ``stage2.py:410-429``): ``"default"`` with bf16 messages
 and scan mode is the JAX package's production recipe
-(``config.py:80-96``). Options of the JAX ``Stage2Config`` that the port
-does not run yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+(``config.py:80-96``). ``adjacency_method="auto"`` resolves by the
+padded node count (``ops/spmm.py::resolve_adjacency_method``; the slot
+layouts at every size since the H100 measurement), ``"dense"`` and
+``"gather"`` run KT-GNN's attention and the SpMMs in plain PyTorch.
+``n_shards > 1`` raises ``NotImplementedError`` naming the ROADMAP item
+that brings it.
 """
 
 from __future__ import annotations
@@ -50,10 +58,15 @@ import torch
 from bridged_gnn_tpu_torch.graph import (
     Graph,
     coalesce_np,
+    dst_order,
     graph_from_dict,
     with_self_loops,
 )
-from bridged_gnn_tpu_torch.nn.backbones import MODEL_NAMES, build_backbone
+from bridged_gnn_tpu_torch.nn.backbones import build_backbone
+from bridged_gnn_tpu_torch.nn.complementor import (
+    build_frontier_edges,
+    pad_frontiers,
+)
 from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN, MSG_DTYPES, KTGNNNoDTC
 from bridged_gnn_tpu_torch.ops import fused_kernels
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency, adjacency_from_graph
@@ -91,14 +104,22 @@ class Stage2Config:
     seed: int = 0
     no_dtc: bool = False
     to_undirected: bool = False
-    # 'auto' = one padded layout, or degree tiers when the skew rule fires
+    # 'auto' = dense up to ops/spmm.DENSE_MAX_NODES padded nodes, else
+    # 'blocked': one padded layout, or degree tiers when the skew rule
+    # fires; 'tiered', 'dense' and 'gather' force theirs
     adjacency_method: str = "auto"
     log_every: int = 0  # 0 = silent
     ckpt_dir: Optional[str] = None   # enable periodic checkpoints + resume
     ckpt_every: int = 50
     resume: bool = False
     save_best_path: Optional[str] = None  # pickle best-model variables
-    need_complement: bool = False   # not ported (see _NOT_PORTED)
+    # KT-GNN's feature complementor (reference need_complement; off in
+    # every run.sh config): the first dim_share features are observed,
+    # complement_step frontiers, and the distribution loss when asked
+    need_complement: bool = False
+    dim_share: int = 0
+    complement_step: int = 1
+    use_dist_loss: bool = False
     # epochs per host round trip (0 = the per-epoch loop); on the card
     # one CUDA graph of an epoch replayed k times per chunk
     scan_epochs: int = 0
@@ -120,18 +141,15 @@ class Stage2Config:
 
 # field, the values the port runs, the ROADMAP.md item that brings the rest
 _NOT_PORTED = (
-    ("model_name", ("KTGNN", "KTGNN_noDTC") + MODEL_NAMES,
-     "Queue 1 item 8 (ConvNet/SplineConv)"),
-    ("need_complement", (False,), "Queue 1 item 8 (the complementor)"),
-    ("adjacency_method", ("auto", "blocked", "tiered"),
-     "Queue 1 item 5 (the dense path)"),
     ("n_shards", (1,), "Queue 1 item 9 (multi-device)"),
 )
 
 
 def check_ported(cfg: Stage2Config) -> None:
     """Raise ``NotImplementedError`` for a value the port does not run
-    yet, ``ValueError`` for one that no runtime takes."""
+    yet, ``ValueError`` for one that no runtime takes, and ``TypeError``
+    for the complementor on a model without it, where the JAX runtime's
+    model refuses the frontiers with one."""
     for field, ported, item in _NOT_PORTED:
         value = getattr(cfg, field)
         if value not in ported:
@@ -146,6 +164,10 @@ def check_ported(cfg: Stage2Config) -> None:
             "only for CPU tensors; see ROADMAP.md Queue 1 item 10")
     if cfg.memory_policy not in ("auto", "plain", "lean"):
         raise ValueError(f"memory_policy: {cfg.memory_policy!r}")
+    if cfg.need_complement and not _multi_head(cfg):
+        raise TypeError(
+            f"need_complement runs on KTGNN alone; {built_model_name(cfg)} "
+            "takes no frontiers")
     if cfg.scan_epochs < 0:
         raise ValueError(f"scan_epochs must be >= 0, got {cfg.scan_epochs}")
     if cfg.message_dtype not in MSG_DTYPES:
@@ -200,13 +222,22 @@ def _multi_head(cfg: Stage2Config) -> bool:
     return cfg.model_name == "KTGNN" and not cfg.no_dtc
 
 
+def built_model_name(cfg: Stage2Config) -> str:
+    """The model :func:`build_model` builds: ``"KTGNN_noDTC"`` for
+    ``no_dtc`` with KTGNN, else ``cfg.model_name``."""
+    return ("KTGNN_noDTC" if cfg.no_dtc and cfg.model_name == "KTGNN"
+            else cfg.model_name)
+
+
 def prepare_stage2_graph(
     data: Dict[str, np.ndarray], cfg: Stage2Config, device="cuda",
 ) -> Tuple[Graph, Adjacency]:
     """The training graph on ``device`` (self loops added for
-    :data:`SELF_LOOP_MODELS`) and its adjacency: for KT-GNN the
-    ``node_block=128`` slot layout the predictor serves with, for the zoo
-    the JAX package's ``node_block=256`` one, or degree tiers."""
+    :data:`SELF_LOOP_MODELS`) and its adjacency by
+    ``cfg.adjacency_method`` (``"auto"`` resolved by the padded node
+    count): for the slot layouts, KT-GNN's ``node_block=128`` one the
+    predictor serves with and the zoo's ``node_block=256`` one, or degree
+    tiers."""
     dev = resolve_device(device)
     data = dict(data)
     # reference quirk kept: unlabeled nodes can never be train
@@ -219,12 +250,36 @@ def prepare_stage2_graph(
     if cfg.model_name in SELF_LOOP_MODELS:
         g = with_self_loops(g)
     g = g.to(dev)
-    method = ("blocked" if cfg.adjacency_method == "auto"
-              else cfg.adjacency_method)
     adj = adjacency_from_graph(
-        g, method=method, node_block=128 if _ktgnn_family(cfg) else 256,
-        device=dev)
+        g, method=cfg.adjacency_method,
+        node_block=128 if _ktgnn_family(cfg) else 256, device=dev)
     return g, adj
+
+
+def model_inputs(data: Dict[str, np.ndarray], cfg: Stage2Config,
+                 g: Graph) -> Dict[str, Any]:
+    """What the model's forward takes beside the graph, on ``g``'s
+    device: KT-GNN's complementor frontiers, built once from ``g``'s
+    edges (JAX ``stage2.py:547-558``), or ConvNet's ``pseudo``, the data's
+    ``edge_attr`` in ``g``'s edge order (zero on padded edges); else
+    nothing."""
+    if cfg.need_complement:
+        fronts = build_frontier_edges(
+            g.edge_index_np(), g.central_mask.cpu().numpy()[: g.num_nodes],
+            step=cfg.complement_step)
+        return dict(frontiers=pad_frontiers(fronts, g.num_nodes_padded,
+                                            device=g.x.device))
+    if cfg.model_name == "ConvNet" and "edge_attr" in data:
+        if cfg.to_undirected:
+            raise ValueError("ConvNet's edge_attr cannot follow "
+                             "to_undirected's merged edges")
+        attr = np.asarray(data["edge_attr"], dtype=np.float32)
+        order = dst_order(np.asarray(data["edge_index"]), g.num_nodes)
+        pseudo = np.zeros((g.num_edges_padded,) + attr.shape[1:],
+                          np.float32)
+        pseudo[: len(order)] = attr[order]
+        return dict(pseudo=torch.from_numpy(pseudo).to(g.x.device))
+    return {}
 
 
 def build_model(cfg: Stage2Config, num_classes: int, in_channels: int,
@@ -256,6 +311,10 @@ def build_model(cfg: Stage2Config, num_classes: int, in_channels: int,
             remat=remat,
             root_weight=cfg.root_weight,
             msg_dtype=cfg.message_dtype,
+            need_complement=cfg.need_complement,
+            dim_share=cfg.dim_share,
+            step=cfg.complement_step,
+            use_dist_loss=cfg.use_dist_loss,
             generator=gen,
         )
     else:
@@ -280,25 +339,36 @@ def resolve_memory_policy(cfg: Stage2Config) -> str:
     f32 step's peak at 1,990,748,160 bytes, which lean does not lower
     (the per-slot cotangent ``[slots, hidden]`` sets it), and a bf16
     step's at 1,641,013,760, which lean lowers by 15% (PERF.md §7): both
-    far below the card's 80 GB."""
-    if not _multi_head(cfg) or cfg.memory_policy == "auto":
+    far below the card's 80 GB. An explicit ``"lean"`` for another model
+    runs plain, as in JAX, with a warning."""
+    if not _multi_head(cfg):
+        if cfg.memory_policy == "lean":
+            warnings.warn(
+                f"memory_policy='lean' recomputes KT-GNN's embedding convs; "
+                f"{built_model_name(cfg)} runs plain", UserWarning,
+                stacklevel=2)
         return "plain"
-    return cfg.memory_policy
+    return "plain" if cfg.memory_policy == "auto" else cfg.memory_policy
 
 
 def stage2_loss(model: torch.nn.Module, g: Graph, adj: Adjacency,
-                lam: float, generator: Optional[torch.Generator]
+                lam: float, generator: Optional[torch.Generator],
+                inputs: Optional[Dict[str, Any]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss of one train-mode forward (dropout from ``generator``,
-    batch statistics) and its terms: for KT-GNN ``(2·L_s + L_t + L_t̂)/4
-    + λ·KL(t̂ ‖ t)``; for a single-head model the NLL over the train mask,
-    which every term repeats, with a KL of 0."""
+    batch statistics; ``inputs`` from :func:`model_inputs`) and its
+    terms: for KT-GNN ``(2·L_s + L_t + L_t̂)/4 + λ·KL(t̂ ‖ t)``, plus the
+    complementor's ``loss_dist`` when it gives one; for a single-head
+    model the NLL over the train mask, which every term repeats, with a
+    KL of 0."""
     model.train()
+    inputs = inputs or {}
     if not isinstance(model, KTGNN):
-        loss = masked_nll(model(g, adj, generator), g.y, g.train_mask)
+        loss = masked_nll(model(g, adj, generator, **inputs), g.y,
+                          g.train_mask)
         return loss, dict(loss_s=loss, loss_t1=loss, loss_t2=loss,
                           loss_kl=torch.zeros_like(loss))
-    lp_s, lp_t, lp_that = model(g, adj, generator)
+    lp_s, lp_t, lp_that, loss_dist = model(g, adj, generator, **inputs)
     tar_train = g.train_mask & ~g.central_mask
     aux = dict(
         loss_s=masked_nll(lp_s, g.y, g.train_mask),
@@ -308,37 +378,42 @@ def stage2_loss(model: torch.nn.Module, g: Graph, adj: Adjacency,
     )
     loss = ((2.0 * aux["loss_s"] + aux["loss_t1"] + aux["loss_t2"]) / 4.0
             + lam * aux["loss_kl"])
+    if loss_dist is not None:
+        # reference main_graph_knowledge_transfer.py:60-63
+        loss = loss + loss_dist
     return loss, aux
 
 
 def train_step(model: torch.nn.Module, g: Graph, adj: Adjacency,
                opt: torch.optim.Optimizer, lam: float,
-               generator: Optional[torch.Generator]
+               generator: Optional[torch.Generator],
+               inputs: Optional[Dict[str, Any]] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One optimizer step on :func:`stage2_loss`. Returns the loss and its
     terms at the parameters before the step."""
     opt.zero_grad(set_to_none=True)
-    loss, aux = stage2_loss(model, g, adj, lam, generator)
+    loss, aux = stage2_loss(model, g, adj, lam, generator, inputs)
     loss.backward()
     opt.step()
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
-def _heads(model: torch.nn.Module, g: Graph, adj: Adjacency):
+def _heads(model: torch.nn.Module, g: Graph, adj: Adjacency,
+           inputs: Optional[Dict[str, Any]] = None):
     """Eval-mode log-probabilities of the three heads (source, target,
     target-hat); a single-head model's one head stands for all three."""
     model.eval()
     with torch.no_grad():
-        heads = model(g, adj)
-    return heads if isinstance(heads, tuple) else (heads,) * 3
+        heads = model(g, adj, **(inputs or {}))
+    return heads[:3] if isinstance(heads, tuple) else (heads,) * 3
 
 
 def _eval_arrays(model: torch.nn.Module, g: Graph, adj: Adjacency,
-                 need_probs: bool):
+                 need_probs: bool, inputs: Optional[Dict[str, Any]] = None):
     """Eval-mode predictions of the three heads on the host, and their
     positive-class probabilities when ``need_probs`` (for auc)."""
     with torch.no_grad():
-        heads = _heads(model, g, adj)
+        heads = _heads(model, g, adj, inputs)
         preds = torch.stack([lp.argmax(1) for lp in heads]).cpu().numpy()
         probs = (torch.stack([lp[:, 1].exp() for lp in heads]).cpu().numpy()
                  if need_probs else None)
@@ -382,6 +457,7 @@ class _ScanRun:
     model: torch.nn.Module
     g: Graph
     adj: Adjacency
+    inputs: Dict[str, Any]  # model_inputs: frontiers or pseudo
     opt: torch.optim.Optimizer
     gen: torch.Generator
     lam: float
@@ -397,13 +473,14 @@ class _ScanRun:
     record: torch.Tensor   # f64 [rows, 2 + 15·bins]: loss, loss_t2, counts
 
 
-def _scan_run(model, g, adj, opt, gen, cfg: Stage2Config, lr: torch.Tensor,
-              epochs_done: int) -> _ScanRun:
+def _scan_run(model, g, adj, inputs, opt, gen, cfg: Stage2Config,
+              lr: torch.Tensor, epochs_done: int) -> _ScanRun:
     dev = g.x.device
     c = g.num_classes
     splits = torch.stack([g.train_mask, g.val_mask, g.test_mask]).int()
     return _ScanRun(
-        model=model, g=g, adj=adj, opt=opt, gen=gen, lam=cfg.Lambda,
+        model=model, g=g, adj=adj, inputs=inputs, opt=opt, gen=gen,
+        lam=cfg.Lambda,
         lr=lr, schedule=cfg.use_scheduler, step_size=cfg.step_size,
         gamma=cfg.gamma,
         step=torch.tensor(epochs_done, dtype=torch.int64, device=dev),
@@ -422,14 +499,14 @@ def _epoch_body(run: _ScanRun) -> None:
     row ``i`` of the record, and ``i`` advances. Nothing in it waits for
     the device, so a CUDA graph can capture it."""
     loss, aux = train_step(run.model, run.g, run.adj, run.opt, run.lam,
-                           run.gen)
+                           run.gen, run.inputs)
     run.step += 1
     if run.schedule:
         # StepLR's own chained product, so the rate is the float the
         # per-epoch loop's scheduler holds, bit for bit
         run.lr.copy_(torch.where(run.step % run.step_size == 0,
                                  run.lr * run.gamma, run.lr))
-    heads = _heads(run.model, run.g, run.adj)
+    heads = _heads(run.model, run.g, run.adj, run.inputs)
     preds = torch.stack([heads[h].argmax(1) for h, _ in _TABLES])
     counts = _confusion_counts(preds, run.masks, run.y_bin, run.bins)
     row = torch.cat([torch.stack([loss, aux["loss_t2"]]).double(),
@@ -507,6 +584,7 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
                  device) -> Dict[str, Any]:
     dev = resolve_device(device)
     g, adj = prepare_stage2_graph(data, cfg, dev)
+    inputs = model_inputs(data, cfg, g)
     num_classes = g.num_classes
     mem_mode = resolve_memory_policy(cfg)
     if mem_mode != "plain" and cfg.log_every:
@@ -533,7 +611,7 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
     need_probs = cfg.metric == "auc"
 
     def evaluate():
-        preds, probs = _eval_arrays(model, g, adj, need_probs)
+        preds, probs = _eval_arrays(model, g, adj, need_probs, inputs)
 
         def score(head, mask):
             # probs: positive-class probability for auc (reference
@@ -609,13 +687,15 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
     timer = EpochTimer(dev, num_edges=g.num_edges)
     scan_info = None
     if use_scan:
-        run = _scan_run(model, g, adj, opt, gen, cfg, lr, start_epoch - 1)
+        run = _scan_run(model, g, adj, inputs, opt, gen, cfg, lr,
+                        start_epoch - 1)
         scan_info = _scan_loop(run, cfg, timer, start_epoch, record,
                                check_numerics, save if ckptr else None)
     else:
         for epoch in range(start_epoch, cfg.num_epoch + 1):
             with timer:
-                loss, aux = train_step(model, g, adj, opt, cfg.Lambda, gen)
+                loss, aux = train_step(model, g, adj, opt, cfg.Lambda, gen,
+                                       inputs)
                 if sched is not None:
                     sched.step()
                 loss, loss_t2 = float(loss), float(aux["loss_t2"])

@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's KT-GNN serving and training paths and its
-stage-2 model zoo on one GPU.
+"""Drive the PyTorch/CUDA port's KT-GNN serving and training paths, its
+stage-2 model zoo and the rest of stage 2 on one GPU.
 
     python3 chip_smoke.py
 
@@ -134,7 +134,36 @@ Phases, in order; any failure exits non-zero:
    kernels its aggregations imply (APPNP 10 SpMMs per pass, GAT, GATv2,
    DeeperGCN and MLP none); and the training CLI with ``--no_dtc`` on a
    ``.dat`` the phase writes, which must train GraphSAGE without the
-   scheduler and save ``model_GraphSAGE_bench_best.pkl``.
+   scheduler and save ``model_GraphSAGE_bench_best.pkl``;
+17. serving zoo checkpoints: the training CLI with ``--no_dtc`` trains
+   GraphSAGE for 2 epochs on a ``.dat`` of the bench graph and saves it,
+   ``train_ktgnn`` saves a KTGNNNoDTC checkpoint; the serving CLI's
+   ``_load_predictor`` serves each (``--model_name GraphSAGE``,
+   ``--no_dtc``) on the card: one predict's kernel calls replayed
+   against their plain versions, its launches (2 SpMMs at D=128 and 64;
+   1 selective forward at the classes), predict ×10 (median), card
+   against CPU log-probs within 1e-4, and /healthz, a cached and a live
+   /v1/predict over HTTP;
+18. ConvNet on the bench graph with seeded pseudo-coordinates in [0, 1]
+   as ``edge_attr``: the weighted SpMM calls of one epoch replayed as in
+   phase 16, 2 loop epochs (6 launches at D=16 and 6 at the classes per
+   epoch), card against CPU at dropout 0 (losses rtol 1e-4, weights
+   phase 11's tolerances);
+19. KT-GNN with the feature complementor (``dim_share`` 64, two
+   frontiers, ``use_dist_loss``) on the bench graph: card against CPU at
+   dropout 0 for 2 epochs (losses with ``loss_dist`` within rtol 1e-4),
+   7 epochs in scan mode (chunks of 3) against the loop under phase 14's
+   rule with phase 8's launches per epoch, one traced loop epoch, and
+   the complementor's device time per epoch (measured alone under the
+   profiler) over the traced epoch's;
+20. the dense and gather adjacencies against blocked: KT-GNN and
+   GraphSAGE under each method on ``make_sync_dataset`` at its defaults
+   (3,500 nodes) and ``make_benchmark_graph(n=8192)``: 8 loop and 12
+   scan epochs (medians), predict ×10 (median) and each run's peak
+   device memory; the methods' loop losses within rtol 1e-4 of
+   blocked's; the dense-node threshold these times support (the largest
+   measured size where KT-GNN's loop and scan epochs and predict are no
+   slower on dense) printed beside ``ops/spmm.py::DENSE_MAX_NODES``.
 
 Phase 7 also runs one ``memory_policy="lean"`` step per graph (the
 embedding conv recomputed in the backward) against the plain step: loss
@@ -161,8 +190,9 @@ loop epoch, plain, bound (bf16 row bytes) and library from the replayed
 calls, and the bf16 wide calls. Phase 16 adds ``gather_reduce``: its
 launches and in-run ms per epoch of the ``--no_dtc`` bench loop, plain,
 bound and library (``torch.sparse.mm``; ``index_add_`` beside it) summed
-over one epoch's replayed calls, the hub loop's ms and the wide calls.
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+over one epoch's replayed calls, the hub loop's ms and the wide calls,
+and its launches on phase 17's served GraphSAGE predict and phase 18's
+ConvNet epoch. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
 
@@ -170,6 +200,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -233,6 +264,10 @@ ZOO_CLI_EPOCHS = 3       # phase 16: the CLI on a .dat
 PANEL_CHECK_D = 128      # phase 16: the replayed call held bit-identical at
 PANEL_CHECK_WIDTHS = (4, 32, 64, 128)   # these forced panel widths
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+# phases 3-16 hold the kernels against their plain versions: they ask for
+# the slot layouts ("blocked": one layout, or tiers where the skew rule
+# fires), whatever "auto" would pick
+KERNEL_METHOD = "blocked"
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside tensor cores
 
 
@@ -779,7 +814,8 @@ def serve_phase(name, pred, data, model, kernel, expect_tiered: bool,
         check_heads(preds, n, num_classes, f"{name} {what}")
 
     t0 = time.perf_counter()
-    ref = KTGNNPredictor(copy.deepcopy(model), None, data, device="cpu")
+    ref = KTGNNPredictor(copy.deepcopy(model), None, data,
+                         adjacency_method=KERNEL_METHOD, device="cpu")
     ref_first = ref.predict()
     ref_s = time.perf_counter() - t0
     err = max(float(np.abs(first[h] - ref_first[h]).max()) for h in HEADS)
@@ -806,10 +842,13 @@ def serve_phase(name, pred, data, model, kernel, expect_tiered: bool,
     )
 
 
-def http_phase(pred) -> dict:
+def http_phase(pred, app=None) -> dict:
+    """/healthz, a cached and a live /v1/predict through ``make_server``
+    on an ephemeral port, for ``app`` (by default a ServingApp of
+    ``pred``)."""
     from bridged_gnn_tpu_torch.cli.serve import ServingApp, make_server
 
-    app = ServingApp(predictor=pred)
+    app = app or ServingApp(predictor=pred)
     srv = make_server(app)
     port = srv.server_address[1]
     th = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -1163,6 +1202,7 @@ def scan_phase(name, data, tiered: bool, n_layouts: int,
     from bridged_gnn_tpu_torch.train import stage2
 
     cfg = stage2.Stage2Config(
+        adjacency_method=KERNEL_METHOD,
         num_epoch=SCAN_EPOCHS, scan_epochs=SCAN_CHUNK,
         step_size=SCAN_STEP_SIZE, check_numerics=True, to_undirected=True)
     t0 = time.perf_counter()
@@ -1281,7 +1321,8 @@ def bf16_serve_phase(name, data, kernel, tiered: bool, n_layouts: int,
     t0 = time.perf_counter()
     preds = {dt: KTGNNPredictor(
         seeded_model(BENCH["num_classes"], BENCH["dim"], BENCH["seed"],
-                     msg_dtype=dt), None, data, device="cuda")
+                     msg_dtype=dt), None, data,
+        adjacency_method=KERNEL_METHOD, device="cuda")
         for dt in ("bfloat16", None)}
     setup_s = time.perf_counter() - t0
     p16, p32 = preds["bfloat16"], preds[None]
@@ -1385,6 +1426,7 @@ def bf16_train_phase(name, data, tiered: bool, n_layouts: int,
     freed_by_gc = allocated - torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     cfg16 = stage2.Stage2Config(
+        adjacency_method=KERNEL_METHOD,
         num_epoch=epochs, scan_epochs=BF16_CHUNK, to_undirected=True,
         check_numerics=True, message_dtype="bfloat16",
         matmul_precision="default")
@@ -1513,16 +1555,17 @@ def name_ties(name, data, cfg, loop, diffs) -> list:
     evals, graph = [], {}
     eval_arrays = stage2._eval_arrays
 
-    def recording(model, g, adj, need_probs):
+    def recording(model, g, adj, need_probs, inputs=None):
         model.eval()
         with torch.no_grad():
-            val, idx = torch.stack(model(g, adj)).topk(2, dim=-1)
+            val, idx = torch.stack(stage2._heads(model, g, adj,
+                                                 inputs)).topk(2, dim=-1)
         evals.append(((val[..., 0] - val[..., 1]).cpu().numpy(),
                       idx[..., 0].cpu().numpy(), idx[..., 1].cpu().numpy()))
         if not graph:
             graph.update({m: getattr(g, m).cpu().numpy() for m in
                           ("y", "train_mask", "val_mask", "test_mask")})
-        return eval_arrays(model, g, adj, need_probs)
+        return eval_arrays(model, g, adj, need_probs, inputs)
 
     with mock.patch.object(stage2, "_eval_arrays", recording):
         again = stage2.train_ktgnn(data, cfg, device="cuda")
@@ -1717,7 +1760,8 @@ def no_dtc_cfg(**kw):
     from bridged_gnn_tpu_torch.train.stage2 import Stage2Config
 
     return Stage2Config(**{**dict(model_name="GraphSAGE", use_scheduler=False,
-                                  to_undirected=True), **kw})
+                                  to_undirected=True,
+                                  adjacency_method=KERNEL_METHOD), **kw})
 
 
 def cached_prepare(real):
@@ -1834,14 +1878,15 @@ def zoo_replay(data, cfg, layouts_want: int, panel_check: bool = False,
     from bridged_gnn_tpu_torch.train import stage2
 
     g, adj, model, opt, gen = train_setup(data, cfg)
+    inputs = stage2.model_inputs(data, cfg, g)
     layouts = layouts_of(adj)
     if len(layouts) != layouts_want:
         raise RuntimeError(f"zoo replay: {len(layouts)} layout(s), not "
                            f"{layouts_want}")
 
     def epoch():
-        stage2.train_step(model, g, adj, opt, cfg.Lambda, gen)
-        stage2._heads(model, g, adj)
+        stage2.train_step(model, g, adj, opt, cfg.Lambda, gen, inputs)
+        stage2._heads(model, g, adj, inputs)
 
     recs = [r for r in record_run(epoch, ("gather_reduce",))
             if width is None or r["d"] == width]
@@ -1862,7 +1907,7 @@ def zoo_replay(data, cfg, layouts_want: int, panel_check: bool = False,
             i = next(i for i, r in enumerate(recs) if r["d"] == PANEL_CHECK_D)
             out[i]["panel_widths_bit_identical"] = check_panel_widths(
                 recs[i]["inputs"])
-    del recs, model, opt
+    del recs, model, opt, inputs
     torch.cuda.empty_cache()
     return out
 
@@ -2248,7 +2293,8 @@ def zoo_phase(bench, hub, c: int, card: str) -> dict:
                 "GCN2", "DeeperGCN", "KTGNN_noDTC")] + [
                 ("KTGNN_noDTC", dict(root_weight=True))]:
             cfg = stage2.Stage2Config(model_name=name, to_undirected=True,
-                                      num_epoch=ZOO_OTHER_EPOCHS, **extra)
+                                      num_epoch=ZOO_OTHER_EPOCHS,
+                                      adjacency_method=KERNEL_METHOD, **extra)
             rec = zoo_train(f"zoo_{name}" + ("_root" if extra else ""),
                             bench, cfg, zoo_per_epoch(name, f, h, c), 1)
             out["others"].append(rec)
@@ -2300,6 +2346,452 @@ def zoo_row(zoo, card) -> dict:
     return row
 
 
+# ----------------------------------- phases 17-20: the rest of stage 2
+
+SERVE_ZOO_EPOCHS = 2     # phase 17: each checkpoint's training run
+CONVNET_EPOCHS = 2       # phase 18: loop epochs on the bench graph
+# phase 19: KT-GNN with the complementor (half the features observed, two
+# frontiers, the distribution loss); loop and scan epochs on the bench
+# graph (scan: 2 eager epochs, one capture, 5 replays)
+COMPLEMENT = dict(need_complement=True, dim_share=64, use_dist_loss=True,
+                  complement_step=2)
+COMPLEMENT_EPOCHS = 7
+COMPLEMENT_CHUNK = 3
+PATH_METHODS = ("dense", "gather", "blocked")   # phase 20
+PATH_LOOP_EPOCHS = 8     # phase 20: medians of epochs 3-8
+PATH_SCAN_EPOCHS = 12    # phase 20: chunks of 5, 5 and 2
+PATH_SCAN_CHUNK = 5
+
+
+def serve_zoo_phase(name, path, ckpt, flags, data, reps: int) -> dict:
+    """Phase 17 for one checkpoint: the port's serving CLI loads it
+    (``_load_predictor``, ``flags`` naming the model) on the card and on
+    the CPU; the card's kernel calls of one predict are replayed against
+    their plain versions; counts at 0, one predict's launches; predict
+    ×``reps`` on the host clock (median); card against CPU log-probs
+    within LOGPROB_ATOL; the app over HTTP (healthz, a cached and a live
+    predict)."""
+    import torch
+
+    from bridged_gnn_tpu_torch.cli import serve as tcli
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    argv = ["--mode", "predictor", "--ckpt", ckpt, "--path_data", path,
+            "--to_undirected"] + flags
+    t0 = time.perf_counter()
+    app = tcli._load_predictor(tcli.build_argparser().parse_args(
+        argv + ["--device", "cuda"]))
+    setup_s = time.perf_counter() - t0
+    pred = app.predictor
+    lays = layouts_of(pred.adj)
+    kernels = {fk.gather_reduce.__name__: (fk.gather_reduce,
+                                           fk.gather_reduce_plain),
+               fk.attention_sel_fwd.__name__: (fk.attention_sel_fwd,
+                                               fk.attention_sel_fwd_plain)}
+    recs = record_run(pred.predict, tuple(kernels))
+    kname = recs[0]["name"]
+    wrapper, plain = kernels[kname]
+    with torch.inference_mode():
+        replay = check_kernel(
+            kname, wrapper, plain, recs, lays, scaled=True,
+            **(dict(bound=gather_bound) if wrapper is fk.gather_reduce
+               else {}))
+    del recs
+    fk.reset_launch_counts()
+    first = pred.predict()
+    launches = {n: c for n, c in fk.launch_counts().items() if c}
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pred.predict()
+        times.append(time.perf_counter() - t0)
+    n, c = data["x"].shape[0], int(np.asarray(data["y"]).max()) + 1
+    check_heads(first, n, c, name)
+    t0 = time.perf_counter()
+    cpu = tcli._load_predictor(tcli.build_argparser().parse_args(
+        argv + ["--device", "cpu"])).predictor.predict()
+    cpu_s = time.perf_counter() - t0
+    err = max(float(np.abs(first[h] - cpu[h]).max()) for h in HEADS)
+    if err > LOGPROB_ATOL:
+        raise RuntimeError(f"{name}: card vs CPU log-probs differ by "
+                           f"{err:.3g} > {LOGPROB_ATOL}")
+    http = http_phase(pred, app)
+    return dict(
+        phase=name, model=app.meta["model_name"], setup_s=setup_s,
+        layouts=len(lays), node_block=lays[0].node_block,
+        edges=int(pred.graph.num_edges), launches_per_predict=launches,
+        predict_ms_median=statistics.median(times) * 1e3,
+        predict_ms=[t * 1e3 for t in times], max_abs_logprob_err_vs_cpu=err,
+        cpu_predict_s=cpu_s, http=http, replay=replay)
+
+
+def serve_zoo(bench, card: str) -> list:
+    """Phase 17: a GraphSAGE checkpoint trained by the port's training CLI
+    (``--no_dtc``, SERVE_ZOO_EPOCHS epochs, ``--save``) on a ``.dat`` of
+    the bench graph, served with ``--model_name GraphSAGE``; a KTGNNNoDTC
+    checkpoint of ``train_ktgnn`` (``save_best_path``) served with
+    ``--no_dtc``."""
+    import contextlib as cl
+    import io
+
+    from bridged_gnn_tpu_torch.cli import main_graph_knowledge_transfer as cli
+    from bridged_gnn_tpu_torch.train import stage2
+
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.dat")
+        write_dat(path, bench)
+        args = cli.build_argparser().parse_args([
+            "--path_data", path, "--no_dtc", "--num_epoch",
+            str(SERVE_ZOO_EPOCHS), "--to_undirected", "--save",
+            "--ckpt_dir", tmp, "--dataset_name", "bench", "--log_every",
+            "0"])
+        with cl.redirect_stdout(io.StringIO()):
+            cli.main(args)
+        sage = os.path.join(tmp, "model_GraphSAGE_bench_best.pkl")
+        no_dtc = os.path.join(tmp, "model_KTGNN_noDTC_bench_best.pkl")
+        stage2.train_ktgnn(bench, stage2.Stage2Config(
+            model_name="KTGNN_noDTC", num_epoch=SERVE_ZOO_EPOCHS,
+            to_undirected=True, save_best_path=no_dtc), device="cuda")
+        for name, ckpt, flags, kernel in (
+                ("serve_zoo_graphsage", sage, ["--model_name", "GraphSAGE"],
+                 "gather_reduce"),
+                ("serve_zoo_no_dtc", no_dtc, ["--no_dtc"],
+                 "attention_sel_fwd")):
+            rec = serve_zoo_phase(name, path, ckpt, flags, bench,
+                                  PREDICT_REPS)
+            if set(rec["launches_per_predict"]) != {kernel}:
+                raise RuntimeError(f"{name}: a predict launched "
+                                   f"{rec['launches_per_predict']}")
+            log(json.dumps(dict(card=card, **rec)))
+            out.append(rec)
+    return out
+
+
+def convnet_phase(bench, c: int, card: str) -> dict:
+    """Phase 18: ConvNet (two SplineConvs, dim 1, kernel size 2: K = 2
+    weighted SpMMs per conv, at D = 16 and at the classes) on the bench
+    graph with seeded pseudo-coordinates in [0, 1] as its ``edge_attr``:
+    the gather_reduce calls of one epoch replayed against their plain
+    version (phase 16's tolerance), CONVNET_EPOCHS loop epochs with their
+    launches asserted, and card against CPU at dropout 0 (phase 16's rule;
+    ConvNet's ELU has no kink, so no tie can part the weights)."""
+    from bridged_gnn_tpu_torch.train import stage2
+
+    rng = np.random.default_rng(BENCH["seed"])
+    data = dict(bench, edge_attr=rng.random(
+        (bench["edge_index"].shape[1], 1)).astype(np.float32))
+    cfg = stage2.Stage2Config(model_name="ConvNet", num_epoch=CONVNET_EPOCHS,
+                              adjacency_method=KERNEL_METHOD)
+    replay = zoo_replay(data, cfg, 1)
+    if not all(r["weighted"] for r in replay):
+        raise RuntimeError("convnet: an unweighted SpMM call")
+    for r in replay:
+        log(json.dumps(dict(kernel="gather_reduce", graph="bench_convnet",
+                            card=card, **r)))
+    # per epoch: the K = 2 forwards of each conv in the step and in the
+    # eval, and the two transposed SpMMs of each conv's x-gradient
+    rec = zoo_train("convnet_bench", data, cfg,
+                    {"gather_reduce": {16: 6, c: 6}}, 1)
+    log(json.dumps(dict(card=card, **rec)))
+    parity = parity_phase("convnet_parity", data, dataclasses.replace(
+        cfg, dropout=0.0))
+    log(json.dumps(dict(card=card, **parity)))
+    return dict(replay=replay, train=rec, parity=parity)
+
+
+def complementor_device_ms(data, cfg, prepared, reps: int = 3) -> dict:
+    """The complementor's device time in one epoch, measured alone on the
+    epoch's inputs under ``torch.profiler`` (the sum of its device ops,
+    as ``trace_phase`` sums an epoch's): its train-mode forward with the
+    backward of its output (a random cotangent) and ``loss_dist``, and its
+    eval-mode forward; the mean of ``reps`` after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bridged_gnn_tpu_torch.train import stage2
+
+    g = prepared[0]
+    inputs = stage2.model_inputs(data, cfg, g)
+    model = stage2.build_model(cfg, g.num_classes, g.num_features, "cuda")
+    comp = model.complementor
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    args = (g.x, inputs["frontiers"], g.central_mask, g.node_mask, gen)
+    ct = torch.randn(g.num_nodes_padded, comp.input_layer_o.weight.shape[0]
+                     + comp.input_layer_u.weight.shape[0], device="cuda")
+
+    def train():
+        comp.train()
+        out, ld = comp(*args)
+        ((out * ct).sum() + ld).backward()
+
+    def evaluate():
+        comp.eval()
+        with torch.no_grad():
+            comp(*args)
+
+    out = dict(frontier_edges=[int(m.sum()) for _, _, m in
+                               inputs["frontiers"]])
+    for name, fn in (("train_fwd_bwd", train), ("eval_fwd", evaluate)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        events = trace["traceEvents"] if isinstance(trace, dict) else trace
+        out[name] = sum(float(e["dur"]) for e in events
+                        if e.get("ph") == "X"
+                        and e.get("cat") in _DEVICE_CATS) / 1e3 / reps
+        out[name + "_host_ms"] = cuda_ms(fn, KERNEL_REPS)
+    return out
+
+
+def complementor_phase(bench, c: int, card: str) -> dict:
+    """Phase 19: KT-GNN with the feature complementor (COMPLEMENT) on the
+    bench graph. Card against CPU: 2 epochs at dropout 0 (the
+    complementor's coefficients too), the losses (``loss_dist``
+    included) within LOSS_RTOL. Loop and scan mode (chunks of
+    COMPLEMENT_CHUNK) at the defaults (dropout 0.5): phase 14's agreement
+    rule, the kernels launched as phase 8's per epoch (the complementor
+    launches none), epoch medians; one loop epoch traced and the
+    complementor's device time per epoch over it."""
+    import torch
+
+    from bridged_gnn_tpu_torch.nn import complementor
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train import stage2
+
+    out = {}
+    pcfg = stage2.Stage2Config(num_epoch=PARITY_EPOCHS, dropout=0.0,
+                               to_undirected=True,
+                               adjacency_method=KERNEL_METHOD, **COMPLEMENT)
+    with mock.patch.object(complementor, "ALPHA_DROPOUT", 0.0):
+        card_run = stage2.train_ktgnn(bench, pcfg, device="cuda")
+        t0 = time.perf_counter()
+        cpu_run = stage2.train_ktgnn(bench, pcfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    err = max(abs(a[k] - b[k]) / abs(b[k])
+              for a, b in zip(card_run["history"], cpu_run["history"],
+                              strict=True) for k in ("loss", "loss_t2"))
+    if not err <= LOSS_RTOL:
+        raise RuntimeError(f"complementor: card vs CPU losses differ by "
+                           f"{err:.3g} (relative) > {LOSS_RTOL}")
+    w_err = max(float((card_run["state_dict"][k] - w).abs().max())
+                for k, w in cpu_run["state_dict"].items())
+    out["parity"] = dict(
+        phase="complementor_parity", epochs=PARITY_EPOCHS,
+        max_rel_loss_err=err, max_abs_weight_err=w_err, cpu_run_s=cpu_s,
+        losses_card=[h["loss"] for h in card_run["history"]],
+        losses_cpu=[h["loss"] for h in cpu_run["history"]])
+    log(json.dumps(dict(card=card, **out["parity"])))
+    del card_run, cpu_run
+
+    cfg = stage2.Stage2Config(num_epoch=COMPLEMENT_EPOCHS,
+                              scan_epochs=COMPLEMENT_CHUNK, to_undirected=True,
+                              adjacency_method=KERNEL_METHOD, **COMPLEMENT)
+    prepared = stage2.prepare_stage2_graph(bench, cfg, "cuda")
+    want = {"attention_sel_fwd": {HIDDEN: 2, c: 6},
+            "attention_sel_bwd": {HIDDEN: 1, c: 3},
+            "slot_reduce": {HIDDEN: 1, c: 3}}
+    with mock.patch.object(stage2, "prepare_stage2_graph",
+                           lambda *a, **k: prepared):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        scan = stage2.train_ktgnn(bench, cfg, device="cuda")
+        peak = torch.cuda.max_memory_allocated()
+        fk.reset_launch_counts()
+        loop = stage2.train_ktgnn(bench, dataclasses.replace(
+            cfg, scan_epochs=0), device="cuda")
+        counted = {n: c_ for n, c_ in fk.launch_counts().items() if c_}
+        per_epoch = {k: {d: n * COMPLEMENT_EPOCHS for d, n in by_d.items()}
+                     for k, by_d in want.items()}
+        if counted != per_epoch or \
+                scan["scan"]["launches_per_replay"] != want:
+            raise RuntimeError(f"complementor: the loop launched {counted},"
+                               f" a replay {scan['scan']}; expected "
+                               f"{want} per epoch")
+        loss_err = max(abs(a[k] - b[k]) / abs(b[k])
+                       for a, b in zip(scan["history"], loop["history"],
+                                       strict=True)
+                       for k in ("loss", "loss_t2"))
+        if not loss_err <= LOSS_RTOL:
+            raise RuntimeError(f"complementor: scan vs loop losses differ "
+                               f"by {loss_err:.3g}")
+        if scan["best"]["epoch"] != loop["best"]["epoch"]:
+            raise RuntimeError("complementor: scan and loop best epochs "
+                               "differ")
+        diffs = [(a["epoch"], k, a[k], b[k])
+                 for a, b in zip(scan["history"], loop["history"])
+                 for k in ("train", "val", "test") if a[k] != b[k]]
+        ties = name_ties("complementor", bench, dataclasses.replace(
+            cfg, scan_epochs=0), loop, diffs) if diffs else []
+        traced = trace_phase("complementor_trace", bench, dataclasses.replace(
+            cfg, scan_epochs=0, num_epoch=TRACE_EPOCHS))
+    comp = complementor_device_ms(bench, cfg, prepared)
+    del prepared
+    comp_ms = comp["train_fwd_bwd"] + comp["eval_fwd"]
+    out["train"] = dict(
+        phase="complementor_train", epochs=COMPLEMENT_EPOCHS,
+        chunk=COMPLEMENT_CHUNK, **scan["scan"], max_rel_loss_err=loss_err,
+        scores_equal=not diffs, score_ties=ties,
+        loop_epoch_s_median=loop["throughput"]["p50_s"],
+        scan_epoch_s_median=scan["throughput"]["p50_s"],
+        scan_max_memory_allocated=peak,
+        losses_loop=[h["loss"] for h in loop["history"]],
+        complementor_ms=comp, traced_epoch_device_ms=traced["device_ms"],
+        complementor_share_of_device_ms=comp_ms / traced["device_ms"],
+        trace=traced)
+    log(json.dumps(dict(card=card, **out["train"])))
+    return out
+
+
+def path_data(name: str) -> dict:
+    """Phase 20's graphs: ``make_sync_dataset`` at its defaults (3,500
+    nodes, the synthetic stage-1 graphs' size) and the benchmark graph at
+    8,192 nodes (the JAX package's dense limit), split 60/20/20 as the
+    bench graph."""
+    from bridged_gnn_tpu_torch.data.synthetic import (
+        make_benchmark_graph,
+        make_sync_dataset,
+    )
+
+    if name == "bench8k":
+        return make_benchmark_graph(**dict(BENCH, n=8192))
+    data = make_sync_dataset(seed=BENCH["seed"])
+    r = np.random.default_rng(BENCH["seed"]).random(data["x"].shape[0])
+    return dict(data, train_mask=r < 0.6, val_mask=(r >= 0.6) & (r < 0.8),
+                test_mask=r >= 0.8)
+
+
+def path_run(data, model_name: str, method: str) -> dict:
+    """One model on one adjacency method on the card: PATH_LOOP_EPOCHS
+    loop epochs and PATH_SCAN_EPOCHS in scan mode (epoch medians, peak
+    device memory, each run's kernel launches), and predict ×PREDICT_REPS
+    (median, peak) on the trained weights."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.serve import KTGNNPredictor
+    from bridged_gnn_tpu_torch.train import stage2
+
+    extra = (dict(model_name="GraphSAGE", use_scheduler=False)
+             if model_name == "GraphSAGE" else {})
+    cfg = stage2.Stage2Config(num_epoch=PATH_LOOP_EPOCHS,
+                              to_undirected=True, adjacency_method=method,
+                              **extra)
+    out = dict(graph_nodes=int(data["x"].shape[0]), model=model_name,
+               method=method)
+    for mode, run_cfg in (("loop", cfg), ("scan", dataclasses.replace(
+            cfg, num_epoch=PATH_SCAN_EPOCHS, scan_epochs=PATH_SCAN_CHUNK))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launch_counts()
+        res = stage2.train_ktgnn(data, run_cfg, device="cuda")
+        out[f"{mode}_epoch_ms_median"] = res["throughput"]["p50_s"] * 1e3
+        out[f"{mode}_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out[f"{mode}_launches"] = {n: c for n, c in
+                                   fk.launch_counts().items() if c}
+        out[f"{mode}_losses"] = [h["loss"] for h in res["history"]]
+        if not np.all(np.isfinite(out[f"{mode}_losses"])):
+            raise RuntimeError(f"{model_name} on {method}: losses "
+                               f"{out[f'{mode}_losses']}")
+        if mode == "loop":
+            state = res["state_dict"]
+    g = stage2.prepare_stage2_graph(data, cfg, "cpu")[0]
+    model = stage2.build_model(cfg, g.num_classes, g.num_features, "cpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pred = KTGNNPredictor(model, state, data, adjacency_method=method,
+                          device="cuda")
+    pred.predict()
+    times = []
+    for _ in range(PREDICT_REPS):
+        t0 = time.perf_counter()
+        pred.predict()
+        times.append(time.perf_counter() - t0)
+    out.update(predict_ms_median=statistics.median(times) * 1e3,
+               predict_max_memory_allocated=torch.cuda.max_memory_allocated())
+    if method == "dense" and pred.adj.dense is None:
+        raise RuntimeError("phase 20: the dense method built no matrix")
+    del pred
+    return out
+
+
+def dense_rule(recs) -> int:
+    """The padded-node threshold the measurements support: the largest
+    measured padded size at which dense is no slower than blocked on
+    KT-GNN's loop and scan epochs and its predict, provided it is also no
+    slower on every smaller measured size; 0 when it is slower on the
+    smallest."""
+    by_size = {}
+    for r in recs:
+        if r["model"] == "KTGNN":
+            by_size.setdefault(r["n_pad"], {})[r["method"]] = r
+    chosen = 0
+    for n_pad in sorted(by_size):
+        d, b = by_size[n_pad]["dense"], by_size[n_pad]["blocked"]
+        if all(d[k] <= b[k] for k in ("loop_epoch_ms_median",
+                                      "scan_epoch_ms_median",
+                                      "predict_ms_median")):
+            chosen = n_pad
+        else:
+            break
+    return chosen
+
+
+def paths_phase(card: str) -> dict:
+    """Phase 20: KT-GNN and GraphSAGE under "dense", "gather" and
+    "blocked" on each of phase 20's graphs (``path_run``); the three
+    methods' loop losses agree within LOSS_RTOL (the same seeded init and
+    dropout masks, another summation order); the dense and gather runs
+    launch no kernel, the blocked ones theirs. Prints the rule the
+    measurements support beside ``ops/spmm.py::DENSE_MAX_NODES``."""
+    from bridged_gnn_tpu_torch.graph import round_up, NODE_BLOCK
+    from bridged_gnn_tpu_torch.ops import spmm
+
+    recs = []
+    for gname in ("sync", "bench8k"):
+        data = path_data(gname)
+        n_pad = round_up(data["x"].shape[0], NODE_BLOCK)
+        for model_name in ("KTGNN", "GraphSAGE"):
+            runs = {m: path_run(data, model_name, m) for m in PATH_METHODS}
+            base = runs["blocked"]["loop_losses"]
+            for m, r in runs.items():
+                err = max(abs(a - b) / abs(b)
+                          for a, b in zip(r["loop_losses"], base))
+                if not err <= LOSS_RTOL:
+                    raise RuntimeError(f"phase 20 {gname} {model_name}: "
+                                       f"{m} against blocked losses differ "
+                                       f"by {err:.3g}")
+                if (m == "blocked") != bool(r["loop_launches"]):
+                    raise RuntimeError(f"phase 20 {gname} {model_name} {m}:"
+                                       f" launched {r['loop_launches']}")
+                r.update(graph=gname, n_pad=n_pad,
+                         max_rel_loss_err_vs_blocked=err)
+                log(json.dumps(dict(phase="adjacency_paths", card=card,
+                                    **{k: v for k, v in r.items()
+                                       if not k.endswith("_losses")})))
+                recs.append(r)
+    chosen = dense_rule(recs)
+    rule = dict(phase="dense_max_nodes", card=card, measured_rule=chosen,
+                dense_max_nodes=spmm.DENSE_MAX_NODES,
+                agrees=chosen == spmm.DENSE_MAX_NODES,
+                times={f"{r['graph']}:{r['model']}:{r['method']}": {
+                    k: r[k] for k in ("loop_epoch_ms_median",
+                                      "scan_epoch_ms_median",
+                                      "predict_ms_median")} for r in recs})
+    log(json.dumps(rule))
+    return dict(runs=recs, rule=rule)
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2338,8 +2830,10 @@ def main() -> int:
     from bridged_gnn_tpu_torch.serve import KTGNNPredictor
 
     t0 = time.perf_counter()
-    pred = KTGNNPredictor(copy.deepcopy(model), None, bench, device="cuda")
-    pred_t = KTGNNPredictor(copy.deepcopy(model), None, hub, device="cuda")
+    pred = KTGNNPredictor(copy.deepcopy(model), None, bench,
+                          adjacency_method=KERNEL_METHOD, device="cuda")
+    pred_t = KTGNNPredictor(copy.deepcopy(model), None, hub,
+                            adjacency_method=KERNEL_METHOD, device="cuda")
     log(f"card predictors (graph build, slot layouts) ready in "
         f"{time.perf_counter() - t0:.1f} s")
     if pred.adj.fast_fn is None or pred_t.adj.tiered_fn is None:
@@ -2391,7 +2885,7 @@ def main() -> int:
 
     # 7. backward kernels: each call of one training step on each graph,
     # replayed against the plain versions; bit-identical gradients
-    cfg = Stage2Config(to_undirected=True)
+    cfg = Stage2Config(to_undirected=True, adjacency_method=KERNEL_METHOD)
     replay = {}
     for name, data, is_tiered in (("bench", bench, False),
                                   ("hub", hub, True)):
@@ -2410,7 +2904,8 @@ def main() -> int:
     c = BENCH["num_classes"]
     train_single = train_phase(
         "train_single", bench, Stage2Config(num_epoch=TRAIN_EPOCHS,
-                                            to_undirected=True),
+                                            to_undirected=True,
+                                            adjacency_method=KERNEL_METHOD),
         tiered=False, n_layouts=1, num_classes=c)
     log(json.dumps(dict(card=card, **train_single)))
 
@@ -2419,7 +2914,8 @@ def main() -> int:
         raise RuntimeError(f"hub graph gave {n_tiers} tier(s)")
     train_tiered = train_phase(
         "train_tiered", hub, Stage2Config(num_epoch=TIERED_EPOCHS,
-                                          to_undirected=True),
+                                          to_undirected=True,
+                                          adjacency_method=KERNEL_METHOD),
         tiered=True, n_layouts=n_tiers, num_classes=c)
     log(json.dumps(dict(card=card, **train_tiered)))
     torch.cuda.empty_cache()
@@ -2428,14 +2924,15 @@ def main() -> int:
     for name, data in (("trace_single", bench), ("trace_tiered", hub)):
         log(json.dumps(dict(card=card, **trace_phase(
             name, data, Stage2Config(num_epoch=TRACE_EPOCHS,
-                                     to_undirected=True)))))
+                                     to_undirected=True,
+                                     adjacency_method=KERNEL_METHOD)))))
         torch.cuda.empty_cache()
 
     # 11. card vs CPU, dropout 0, same seeded init
     small = (bench if PARITY_NODES == BENCH["n"]
              else make_benchmark_graph(**dict(BENCH, n=PARITY_NODES)))
     pcfg = Stage2Config(num_epoch=PARITY_EPOCHS, dropout=0.0,
-                        to_undirected=True)
+                        to_undirected=True, adjacency_method=KERNEL_METHOD)
     for name, data in (("parity_single", small),
                        ("parity_tiered", hub_graph(small, BENCH["seed"]))):
         log(json.dumps(dict(card=card, **parity_phase(name, data, pcfg))))
@@ -2443,7 +2940,8 @@ def main() -> int:
     # 12. heavy rows below the skew rule: one layout, 1,024 heavy rows
     t0 = time.perf_counter()
     lead = lead_graph(bench, BENCH["seed"])
-    pred_l = KTGNNPredictor(copy.deepcopy(model), None, lead, device="cuda")
+    pred_l = KTGNNPredictor(copy.deepcopy(model), None, lead,
+                            adjacency_method=KERNEL_METHOD, device="cuda")
     if pred_l.adj.fast_fn is None:
         raise RuntimeError("the lead graph must keep one layout")
     lay_l = pred_l.adj.fast_fn.lay_dst
@@ -2496,6 +2994,25 @@ def main() -> int:
     # kernel, every other model, the CLI on a .dat
     zoo = zoo_phase(bench, hub, c, card)
     log(f"phase 16 (the model zoo): {zoo['s']:.1f} s")
+
+    # 17. serving zoo checkpoints through the serving CLI
+    t0 = time.perf_counter()
+    served = serve_zoo(bench, card)
+    log(f"phase 17 (serving zoo checkpoints): {time.perf_counter() - t0:.1f}"
+        " s")
+    # 18. ConvNet: weighted SpMMs through the padded SpMM kernel
+    t0 = time.perf_counter()
+    convnet = convnet_phase(bench, c, card)
+    log(f"phase 18 (ConvNet): {time.perf_counter() - t0:.1f} s")
+    # 19. KT-GNN with the feature complementor
+    t0 = time.perf_counter()
+    complement = complementor_phase(bench, c, card)
+    log(f"phase 19 (the complementor): {time.perf_counter() - t0:.1f} s")
+    # 20. the dense and gather adjacencies against blocked: "auto"'s rule
+    t0 = time.perf_counter()
+    paths_phase(card)
+    log(f"phase 20 (dense and gather paths): {time.perf_counter() - t0:.1f}"
+        " s")
 
     # summary, per kernel: its launches in its main-path phase and its
     # time inside that run (per predict for the forwards, per epoch for
@@ -2563,6 +3080,18 @@ def main() -> int:
         library_ms_tiered=sum(r["library_ms"] for r in hub_rows))
     kernels += bf16_rows(kernels, *bf16, card)
     kernels.append(zoo_row(zoo, card))
+    # the SpMM kernel on this slice's paths: a served GraphSAGE predict
+    # (phase 17) and a ConvNet epoch (phase 18)
+    kernels[-1].update(
+        launches_per_predict_zoo_by_d=served[0]["launches_per_predict"][
+            "gather_reduce"],
+        predict_ms_zoo=served[0]["predict_ms_median"],
+        launches_per_epoch_convnet_by_d=convnet["train"][
+            "launches_per_epoch_by_d"]["gather_reduce"],
+        ms_convnet=convnet["train"]["kernel_ms_per_epoch"]["gather_reduce"],
+        convnet_replay=[{k: r[k] for k in (
+            "d", "transpose", "weighted", "device_ms", "plain_ms", "bound_ms",
+            "library_ms", "max_abs_err")} for r in convnet["replay"]])
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

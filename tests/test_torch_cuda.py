@@ -576,11 +576,15 @@ def _scan_data(rng, method):
 
 
 def _scan_cfg(**kw):
+    """Scan mode on the slot layouts: "blocked" unless a test asks for
+    another method ("auto" would take a dense adjacency at these sizes,
+    where no kernel runs)."""
     from bridged_gnn_tpu_torch.train.stage2 import Stage2Config
 
     return Stage2Config(**{**dict(num_epoch=9, hidden=16, lr=1e-2,
                                   step_size=3, scan_epochs=4, dropout=0.5,
-                                  log_every=0), **kw})
+                                  log_every=0, adjacency_method="blocked"),
+                           **kw})
 
 
 @pytest.mark.cuda
@@ -1080,3 +1084,152 @@ def test_cuda_zoo_scan_equals_loop(rng, method):
         assert {k: hs[k] for k in ("train", "val", "test")} == \
             {k: hl[k] for k in ("train", "val", "test")}, hs["epoch"]
     assert scan["best"]["epoch"] == loop["best"]["epoch"]
+
+
+# ------------------------------- the rest of stage 2: ConvNet, serving the
+# zoo, the complementor, the dense and gather adjacencies
+
+
+@pytest.mark.cuda
+def test_cuda_convnet_weighted_gather_reduce_matches_plain(rng):
+    """ConvNet's SpMMs on the card are the padded SpMM kernel with the
+    basis columns as edge weights: each call of one train step and eval
+    forward (K = 2 per conv, forward and transposed) against its plain
+    version (rtol 1e-4, atol 1e-4 × the output's largest magnitude), and
+    per epoch 6 launches at 16 and 6 at the classes."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train import stage2
+
+    data = _zoo_data(rng, "blocked")
+    data["edge_attr"] = rng.random(data["edge_index"].shape[1]).astype(
+        np.float32)
+    cfg = stage2.Stage2Config(model_name="ConvNet", num_epoch=2,
+                              dropout=0.0, adjacency_method="blocked")
+    g, adj = stage2.prepare_stage2_graph(data, cfg, dev)
+    inputs = stage2.model_inputs(data, cfg, g)
+    model = stage2.build_model(cfg, g.num_classes, g.num_features, dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    fk.reset_launch_counts()
+    with fk.record_launches(keep_inputs=True) as recs:
+        stage2.train_step(model, g, adj, opt, 1.0, None, inputs)
+        stage2._heads(model, g, adj, inputs)
+    assert fk.gather_reduce.launches_by_d == {16: 6, 4: 6}
+    assert {r["name"] for r in recs} == {"gather_reduce"}
+    with torch.no_grad():
+        for r in recs:
+            lay, x, n_rows, w, transpose = r["inputs"]
+            assert w is not None
+            want = fk.gather_reduce_plain(lay, x, n_rows, w, transpose)
+            got = fk.gather_reduce(lay, x, n_rows, w, transpose)
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-4 * scale)
+    cpu = stage2.train_ktgnn(data, cfg, device="cpu")
+    card = stage2.train_ktgnn(data, cfg, device=dev)
+    for a, b in zip(card["history"], cpu["history"], strict=True):
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["GraphSAGE", "KTGNN_noDTC"])
+def test_cuda_zoo_predictor_matches_cpu(rng, name):
+    """A single-output model served on the card: one predict launches its
+    kernel (GraphSAGE the SpMM at 12 and 16, KTGNN_noDTC the selective
+    attention at the classes), the one head stands for all three, and
+    the log-probs match the CPU's within 1e-4."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.serve import KTGNNPredictor
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, build_model
+
+    data = _zoo_data(rng, "blocked")
+    model = build_model(Stage2Config(model_name=name, hidden=16), 4, 12,
+                        device="cpu")
+    want = KTGNNPredictor(model, None, data, adjacency_method="blocked",
+                          device="cpu").predict()
+    card = KTGNNPredictor(model, None, data, adjacency_method="blocked",
+                          device=dev)
+    fk.reset_launch_counts()
+    got = card.predict()
+    launched = {n: c for n, c in fk.launch_counts().items() if c}
+    assert launched == ({"gather_reduce": {12: 1, 16: 1}}
+                        if name == "GraphSAGE"
+                        else {"attention_sel_fwd": {4: 1}})
+    for head in want:
+        np.testing.assert_array_equal(got[head], got["source"])
+        np.testing.assert_allclose(got[head], want[head], atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["dense", "gather"])
+def test_cuda_dense_and_gather_match_cpu(rng, method):
+    """KT-GNN on a dense and on a gather adjacency on the card launches no
+    hand-written kernel (JAX runs these paths in XLA), follows its CPU
+    twin's losses at dropout 0 (rtol 1e-4), and runs in scan mode: the
+    dense matrix's scatter and the segment ops are captured in one CUDA
+    graph and replayed, the losses at the loop's (rtol 1e-4)."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, train_ktgnn
+
+    data = _zoo_data(rng, "blocked")
+    cfg = Stage2Config(num_epoch=2, hidden=16, dropout=0.0,
+                       adjacency_method=method)
+    want = train_ktgnn(data, cfg, device="cpu")
+    fk.reset_launch_counts()
+    got = train_ktgnn(data, cfg, device=dev)
+    assert not any(fk.launch_counts().values())
+    for a, b in zip(got["history"], want["history"], strict=True):
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
+    loop = train_ktgnn(data, _scan_cfg(scan_epochs=0,
+                                       adjacency_method=method), device=dev)
+    scan = train_ktgnn(data, _scan_cfg(adjacency_method=method), device=dev)
+    assert scan["scan"]["captures"] == 1 and scan["scan"]["replays"] > 0
+    for hs, hl in zip(scan["history"], loop["history"], strict=True):
+        assert abs(hs["loss"] - hl["loss"]) <= 1e-4 * abs(hl["loss"]), hs
+
+
+@pytest.mark.cuda
+def test_cuda_complementor_matches_cpu(rng, monkeypatch):
+    """KT-GNN with the complementor (two frontiers, the distribution
+    loss) on the card: 2 epochs against the CPU at dropout 0 (the
+    complementor's coefficients too), losses at rtol 1e-4; the kernels
+    launch as without it; scan mode captures the frontiers."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.nn import complementor
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, train_ktgnn
+
+    monkeypatch.setattr(complementor, "ALPHA_DROPOUT", 0.0)
+    data = _zoo_data(rng, "blocked")
+    kw = dict(need_complement=True, dim_share=4, complement_step=2,
+              use_dist_loss=True, adjacency_method="blocked")
+    cfg = Stage2Config(num_epoch=2, hidden=16, dropout=0.0, **kw)
+    want = train_ktgnn(data, cfg, device="cpu")
+    fk.reset_launch_counts()
+    got = train_ktgnn(data, cfg, device=dev)
+    assert fk.attention_sel_fwd.launches_by_d == {16: 4, 4: 12}
+    for a, b in zip(got["history"], want["history"], strict=True):
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
+    assert train_ktgnn(data, cfg, device=dev)["history"] == got["history"]
+    scan = train_ktgnn(data, _scan_cfg(**kw), device=dev)
+    assert scan["scan"]["captures"] == 1
+    assert np.all(np.isfinite([h["loss"] for h in scan["history"]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 64])
+def test_cuda_segment_sum_repeats_its_bits(rng, d):
+    """The segment sum on the card (GAT, DeeperGCN, the complementor, the
+    gather adjacency) adds each segment's entries in a fixed order: 400k
+    entries into 2,000 segments (200 each, unsorted) give the same bits
+    on every call, and the CPU's sum within 1e-4."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.ops.segment import segment_sum
+
+    ids = torch.from_numpy(rng.integers(0, 2000, 400_000)).to(dev)
+    data = torch.from_numpy(rng.normal(size=(400_000, d)).astype(
+        np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(400_000) < 0.9).to(dev)
+    first = segment_sum(data, ids, 2000, mask)
+    for _ in range(5):
+        assert torch.equal(segment_sum(data, ids, 2000, mask), first)
+    want = segment_sum(data.cpu(), ids.cpu(), 2000, mask.cpu())
+    torch.testing.assert_close(first.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -202,8 +202,11 @@ def test_adjacency_single_layout_when_not_skewed():
     assert aj.tiered_fn is None and at.tiered_fn is None
     assert_same_layout(aj.fast_fn.lay_dst, at.fast_fn.lay_dst)
     _check_kernel_index(aj.fast_fn.lay_dst, at.fast_fn.lay_dst)
-    with pytest.raises(ValueError, match="not ported"):
-        t_adjacency(gt, method="dense", device="cpu")
+    # the dense method builds a matrix and no layout; an unknown one raises
+    dense = t_adjacency(gt, method="dense", device="cpu")
+    assert dense.fast_fn is None and dense.dense is not None
+    with pytest.raises(ValueError, match="adjacency method"):
+        t_adjacency(gt, method="sparse", device="cpu")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

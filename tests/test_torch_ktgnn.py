@@ -235,8 +235,9 @@ def predictors(sync_case):
     data, jmodel, variables = sync_case
     jp = JPredictor(jmodel, variables, dict(data), kernel_fwd=True)
     model = _port_model(variables)
+    # the slot layout the JAX kernel path builds ("auto" is dense here)
     tp = KTGNNPredictor(model, state_dict_from_flax(model, variables),
-                        dict(data), device="cpu")
+                        dict(data), adjacency_method="blocked", device="cpu")
     return jp, tp
 
 
