@@ -7,7 +7,8 @@ default KTGNN serves ``KTGNNNoDTC``), behind a JSON-over-HTTP
 API (stdlib ``http.server``). Predictions over the loaded graph are cached
 at startup; requests carrying feature updates run the model live, and
 ``/v1/refresh`` installs new features persistently and rebuilds the
-cache. ``--mode similarity`` is not ported yet.
+cache. ``--mode similarity`` is not ported yet (ROADMAP.md Queue 1
+item 7).
 
 Endpoints:
   GET  /healthz            -> {"status": "ok", "backend": "cuda"|"cpu"}
@@ -274,9 +275,9 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(args) -> None:
     if args.mode != "predictor":
-        raise SystemExit(
-            "--mode similarity is not ported yet; serve it with "
-            "python -m bridged_gnn_tpu.cli.serve")
+        raise NotImplementedError(
+            "--mode similarity is not ported yet; see ROADMAP.md Queue 1 "
+            "item 7 (serve it with python -m bridged_gnn_tpu.cli.serve)")
     if not args.path_data:
         raise SystemExit("--mode predictor needs --path_data")
     app = _load_predictor(args)

@@ -15,7 +15,7 @@ million edges is not ported yet; numpy runs at every size.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -211,6 +211,123 @@ def with_self_loops(g: Graph) -> Graph:
         train_mask=host(g.train_mask), val_mask=host(g.val_mask),
         test_mask=host(g.test_mask), central_mask=host(g.central_mask),
     )
+
+
+# ---------------------------------------------------------------------------
+# Domain split, merge and reorder (stage 1's front and back end; JAX
+# graph.py:249-364, host numpy)
+# ---------------------------------------------------------------------------
+
+
+def merge_graphs_np(
+    src: Dict[str, np.ndarray],
+    tar: Dict[str, np.ndarray],
+    edge_index_cross: np.ndarray,
+    edge_index_within_src: Optional[np.ndarray] = None,
+    edge_index_within_tar: Optional[np.ndarray] = None,
+) -> Dict[str, np.ndarray]:
+    """Union of the source graph, the target graph and the proposed bridge
+    edges (reference ``merge_graphs``, main_bridged_graph.py:163-193):
+    target ids are offset by N_src, cross edges run src → tar, every
+    labeled source node is train and central, and the edges are
+    coalesced."""
+    n_src = src["x"].shape[0]
+    n_tar = tar["x"].shape[0]
+    n = n_src + n_tar
+    x = np.concatenate([src["x"], tar["x"]], axis=0)
+    y = np.concatenate([src["y"], tar["y"]], axis=0)
+
+    parts = [src["edge_index"], tar["edge_index"] + n_src]
+    cross = edge_index_cross.copy()
+    cross[1, :] += n_src
+    parts.append(cross)
+    if edge_index_within_src is not None:
+        parts.append(edge_index_within_src)
+    if edge_index_within_tar is not None:
+        parts.append(edge_index_within_tar + n_src)
+    edge_index = np.concatenate(parts, axis=1)
+
+    central_mask = np.zeros(n, dtype=bool)
+    central_mask[:n_src] = True
+    train_mask = np.zeros(n, dtype=bool)
+    val_mask = np.zeros(n, dtype=bool)
+    test_mask = np.zeros(n, dtype=bool)
+    train_mask[:n_src] = True
+    train_mask[: n_src][src["y"] == -1] = False
+    train_mask[n_src:][tar["train_mask"]] = True
+    val_mask[n_src:][tar["val_mask"]] = True
+    test_mask[n_src:][tar["test_mask"]] = True
+
+    edge_index = coalesce_np(edge_index, n)
+    return dict(
+        x=x, y=y, edge_index=edge_index, train_mask=train_mask,
+        val_mask=val_mask, test_mask=test_mask, central_mask=central_mask,
+    )
+
+
+def reorder_np(
+    merged: Dict[str, np.ndarray],
+    n_src: int,
+    mapper_idx_src: Dict[int, int],
+    mapper_idx_tar: Dict[int, int],
+) -> Dict[str, np.ndarray]:
+    """Permute the merged graph back to the original VS-graph's node order
+    (reference ``reorder``, main_bridged_graph.py:195-222); the mappers
+    take original ids to per-domain ids, target ids offset by N_src in
+    the merged order."""
+    n = merged["x"].shape[0]
+    perm = np.empty(n, dtype=np.int64)          # original id -> merged id
+    for orig, new in mapper_idx_src.items():
+        perm[orig] = new
+    for orig, new in mapper_idx_tar.items():
+        perm[orig] = new + n_src
+    inv = np.empty(n, dtype=np.int64)           # merged id -> original id
+    inv[perm] = np.arange(n)
+
+    out = {}
+    for key in ("x", "y", "train_mask", "val_mask", "test_mask",
+                "central_mask"):
+        out[key] = merged[key][perm]
+    out["edge_index"] = inv[merged["edge_index"]]
+    return out
+
+
+def domain_split_np(
+    data: Dict[str, np.ndarray],
+) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray], Dict[int, int],
+           Dict[int, int]]:
+    """Split a merged VS-graph into per-domain graphs with contiguous ids
+    (reference ``dataset_conversion`` core, utils.py:41-79): edges across
+    the domains are dropped; the mappers take original ids to new ids."""
+    central = data["central_mask"].astype(bool)
+    idxs_src = np.where(central)[0]
+    idxs_tar = np.where(~central)[0]
+    mapper_src = {int(o): i for i, o in enumerate(idxs_src)}
+    mapper_tar = {int(o): i for i, o in enumerate(idxs_tar)}
+
+    ei = data["edge_index"]
+    lut = np.full(len(central), -1, dtype=np.int64)
+    lut[idxs_src] = np.arange(len(idxs_src))
+    lut_t = np.full(len(central), -1, dtype=np.int64)
+    lut_t[idxs_tar] = np.arange(len(idxs_tar))
+
+    m_src = central[ei[0]] & central[ei[1]]
+    m_tar = (~central[ei[0]]) & (~central[ei[1]])
+    ei_src = lut[ei[:, m_src]]
+    ei_tar = lut_t[ei[:, m_tar]]
+
+    def sub(idxs, ei_new):
+        return dict(
+            x=data["x"][idxs],
+            y=data["y"][idxs],
+            edge_index=ei_new,
+            train_mask=np.zeros(len(idxs), dtype=bool),
+            val_mask=np.zeros(len(idxs), dtype=bool),
+            test_mask=np.zeros(len(idxs), dtype=bool),
+        )
+
+    return (sub(idxs_src, ei_src), sub(idxs_tar, ei_tar), mapper_src,
+            mapper_tar)
 
 
 def graph_from_dict(data: Dict[str, np.ndarray]) -> Graph:

@@ -7,6 +7,8 @@ rows only. Weights use the torch layout (``weight`` [out, in]);
 init families of the JAX package: :class:`TorchLinear` (``torch_dense``,
 the torch/PyG default) and :class:`GlorotLinear` (``glorot_dense``, PyG's
 glorot). Dropout draws its mask from a generator the caller passes.
+Stage 1's blocks (JAX ``nn/common.py:42-70, 203-286``): PairNorm, the MLP
+backbone, the autoencoder's decoder and the domain discriminator.
 """
 
 from __future__ import annotations
@@ -25,6 +27,31 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 0,
     s = (x * m).sum(dim=dim, keepdim=keepdim)
     n = m.sum(dim=dim, keepdim=keepdim)
     return s / n.clamp(min=1.0)
+
+
+def pair_norm(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+              mode: str = "PN", scale: float = 1.0) -> torch.Tensor:
+    """PairNorm (reference models/models.py:29-64; JAX
+    ``nn/common.py::pair_norm``). Modes ``"None"``, ``"PN"``, ``"PN-SI"``,
+    ``"PN-SCS"``; the column mean and PN's mean row norm are over the
+    rows where ``mask`` is True, so padded rows move neither."""
+    if mode == "None":
+        return x
+    if mask is None:
+        mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    col_mean = masked_mean(x, mask, dim=0, keepdim=True)
+    if mode == "PN":
+        xc = x - col_mean
+        rown = torch.sqrt(1e-6 + masked_mean((xc * xc).sum(1), mask))
+        return scale * xc / rown
+    if mode == "PN-SI":
+        xc = x - col_mean
+        rown = torch.sqrt(1e-6 + (xc * xc).sum(1, keepdim=True))
+        return scale * xc / rown
+    if mode == "PN-SCS":
+        rown = torch.sqrt(1e-6 + (x * x).sum(1, keepdim=True))
+        return scale * x / rown - col_mean
+    raise ValueError(f"unknown PairNorm mode: {mode}")
 
 
 def uniform_fan_in_(t: torch.Tensor, fan_in: int,
@@ -141,3 +168,102 @@ class GlorotLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return nn.functional.linear(x, self.weight, self.bias)
+
+
+def _layer_dims(dim_out: int, dim_hidden: int, layer_num: int):
+    return ([dim_out] if layer_num == 1
+            else [dim_hidden] * (layer_num - 1) + [dim_out])
+
+
+class MLPBackbone(nn.Module):
+    """Stage 1's MLP backbone (reference ``MLP``, models/models.py:852-893;
+    JAX ``nn/common.py::MLPBackbone``): Linear → [PairNorm] → ReLU →
+    dropout → … → Linear, torch-default init. The dropout rate is JAX's
+    constant, 0.5; as in JAX, no config sets it."""
+
+    dropout_p = 0.5
+
+    def __init__(self, dim_in: int, dim_out: int, dim_hidden: int = 64,
+                 layer_num: int = 2, use_norm: bool = False,
+                 norm_mode: str = "PN-SCS", norm_scale: float = 1.0, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dims = _layer_dims(dim_out, dim_hidden, layer_num)
+        self.layers = nn.ModuleList(
+            TorchLinear(a, b, generator=generator)
+            for a, b in zip([dim_in] + dims[:-1], dims))
+        self.use_norm = use_norm
+        self.norm_mode = norm_mode
+        self.norm_scale = norm_scale
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        for i, lin in enumerate(self.layers):
+            x = lin(x)
+            if i < len(self.layers) - 1:
+                if self.use_norm:
+                    x = pair_norm(x, mask, self.norm_mode, self.norm_scale)
+                x = torch.relu(x)
+                if self.training:
+                    x = dropout(x, self.dropout_p, generator)
+        return x
+
+
+class Decoder(nn.Module):
+    """The stage-1 autoencoder's decoder (reference models/models.py:
+    653-701; JAX ``nn/common.py::Decoder``): ``num_layer - 1`` times Linear
+    to ``dim_hidden`` → [PairNorm] → ReLU, then Linear to ``dim_out``."""
+
+    def __init__(self, dim_in: int, dim_hidden: int, dim_out: int,
+                 num_layer: int = 2, use_norm: bool = True,
+                 norm_mode: str = "PN", norm_scale: float = 1.0, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        widths = [dim_hidden] * (num_layer - 1) + [dim_out]
+        self.layers = nn.ModuleList(
+            TorchLinear(a, b, generator=generator)
+            for a, b in zip([dim_in] + widths[:-1], widths))
+        self.use_norm = use_norm
+        self.norm_mode = norm_mode
+        self.norm_scale = norm_scale
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        for lin in self.layers[:-1]:
+            x = lin(x)
+            if self.use_norm:
+                x = pair_norm(x, mask, self.norm_mode, self.norm_scale)
+            x = torch.relu(x)
+        return self.layers[-1](x)
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "leakyrelu": lambda v: nn.functional.leaky_relu(v, 0.2),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+}
+
+
+class Discriminator(nn.Module):
+    """The domain discriminator (reference models/models.py:753-813; JAX
+    ``nn/common.py::Discriminator``): ``num_layer - 1`` times Linear to
+    ``dim_hidden`` → activation, then Linear to 1 [→ sigmoid]."""
+
+    def __init__(self, dim_in: int, dim_hidden: int, num_layer: int = 2,
+                 act_fn: str = "relu", sigmoid_output: bool = True, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        widths = [dim_hidden] * (num_layer - 1) + [1]
+        self.layers = nn.ModuleList(
+            TorchLinear(a, b, generator=generator)
+            for a, b in zip([dim_in] + widths[:-1], widths))
+        self.act = _ACTIVATIONS[act_fn]
+        self.sigmoid_output = sigmoid_output
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for lin in self.layers[:-1]:
+            x = self.act(lin(x))
+        x = self.layers[-1](x)
+        return torch.sigmoid(x) if self.sigmoid_output else x

@@ -1,0 +1,585 @@
+"""Stage-1 training runtime: adversarial similarity learning (port of
+``bridged_gnn_tpu/train/stage1.py`` on one device; reference
+scripts.py:28-94, 430-555).
+
+  * Per epoch: class-balanced pairs sampled on the host (numpy, one
+    generator for the whole run), one similarity/autoencoder step, then
+    one discriminator step on the step's detached embeddings.
+  * Three torch Adams, as the JAX package's two ``optax.multi_transform``
+    groups give them: ``source`` (lr 1e-2, L2 weight decay 5e-3),
+    ``target`` (lr 1e-3, betas (0.5, 0.999)) for the similarity step and
+    ``disc`` (lr 1e-3, betas (0.5, 0.999)) for the discriminator step.
+    The similarity loss's generator term also leaves gradients on the
+    discriminator; JAX's frozen group drops them, and so does the port,
+    which clears them before the discriminator's own backward.
+  * Loss: three pair BCEs + (generator BCE + 0.1·reconstruction MSE)
+    [+ the two classifiers' NLL]; the discriminator's BCE with real =
+    source and fake = target, averaged.
+  * Evaluation: balanced samples of 100k pairs (or every pair) per
+    relation and split; the model is kept by the cross-domain pair F1 on
+    val.
+
+With the ``gnn`` backbone every SAGE aggregation is the padded SpMM
+kernel (``csrc/gather_reduce.cu``): per training step two forwards per
+domain and, in the backward, the transposed SpMM for every conv input
+that needs a gradient (not the source's raw features), so three.
+
+The JAX package's scan mode (``scan_epochs``), device sampling
+(``device_sampling``, its ``DeviceStage1Evaluator``) and row sharding
+(``n_shards``) raise ``NotImplementedError`` naming the ROADMAP.md item
+that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pickle
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from bridged_gnn_tpu_torch.graph import Graph, graph_from_dict
+from bridged_gnn_tpu_torch.nn.stage1 import AdversarialLearnerV2
+from bridged_gnn_tpu_torch.ops.spmm import Adjacency, adjacency_from_graph
+from bridged_gnn_tpu_torch.train.metrics import eval_metric
+from bridged_gnn_tpu_torch.train.samplers import (
+    PairEnumerator,
+    PairEnumeratorCross,
+    enumerate_all_pairs,
+)
+from bridged_gnn_tpu_torch.train.stage2 import masked_nll
+from bridged_gnn_tpu_torch.utils.platform import resolve_device
+from bridged_gnn_tpu_torch.utils.profiling import EpochTimer
+from bridged_gnn_tpu_torch.utils.sanitizers import assert_all_finite
+
+_EPS = 1e-7  # probability clamp of the BCEs
+EVAL_CHUNK = 131072  # pairs scored per call in evaluation
+
+
+@dataclasses.dataclass
+class Stage1Config:
+    hidden_dim: int = 64
+    num_layer: int = 2
+    num_epoch: int = 400
+    start_eval_epoch: int = 300
+    eval_per_epoch: int = 1
+    max_class_num: int = 10
+    sample_size: int = 40000
+    sim_mode: str = "mlp"
+    backbone: str = "mlp"
+    norm_mode: str = "None"
+    norm_scale: float = 1.0
+    use_clf: bool = True
+    use_norm: bool = True
+    eval_mode: str = "sampling"  # 'sampling' | 'all'
+    eval_sample_size: int = 100000
+    seed: int = 0
+    repeat: int = 1
+    metric: str = "f1"
+    verbose: bool = False
+    ckpt_dir: Optional[str] = None   # periodic checkpoints + resume
+    ckpt_every: int = 100
+    resume: bool = False
+    # quantile filter restricting pair eval to high-confidence predictions
+    # (reference conf_lower_bound, scripts.py:350-358); None = all pairs
+    conf_lower_bound: Optional[float] = None
+    # raise FloatingPointError on a non-finite similarity loss or
+    # parameter, every epoch
+    check_numerics: bool = False
+    # options of the JAX runtime the port does not run yet; any other
+    # value than the default raises (see _NOT_PORTED)
+    scan_epochs: int = 0
+    device_sampling: bool = False
+    n_shards: int = 1
+
+
+# field, the values the port runs, the ROADMAP.md item that brings the rest
+_NOT_PORTED = (
+    ("scan_epochs", (0,), "Queue 1 item 12 (stage-1 scan mode)"),
+    ("device_sampling", (False,), "Queue 1 item 12 (stage-1 scan mode)"),
+    ("n_shards", (1,), "Queue 1 item 9 (multi-device)"),
+)
+
+
+def check_ported(cfg: Stage1Config) -> None:
+    """Raise ``NotImplementedError`` for a value the port does not run
+    yet."""
+    for field, ported, item in _NOT_PORTED:
+        value = getattr(cfg, field)
+        if value not in ported:
+            raise NotImplementedError(
+                f"Stage1Config.{field}={value!r} is not ported (the port "
+                f"runs {list(ported)}); see ROADMAP.md {item}")
+
+
+def bce(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    p = probs.clamp(_EPS, 1 - _EPS)
+    return -(targets * torch.log(p)
+             + (1 - targets) * torch.log(1 - p)).mean()
+
+
+def build_model(cfg: Stage1Config, src: Dict, tar: Dict, device="cuda",
+                seed: Optional[int] = None) -> AdversarialLearnerV2:
+    """The stage-1 model of ``cfg`` for the two domains, its init drawn
+    from ``seed`` (default ``cfg.seed``), on ``device``."""
+    gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+    model = AdversarialLearnerV2(
+        dim_in_src=src["x"].shape[1],
+        dim_in_tar=tar["x"].shape[1],
+        num_classes_src=int(np.asarray(src["y"]).max()) + 1,
+        num_classes_tar=int(np.asarray(tar["y"]).max()) + 1,
+        dim_hidden=cfg.hidden_dim,
+        source_clf=cfg.use_clf,
+        use_norm=cfg.use_norm,
+        norm_mode=cfg.norm_mode,
+        norm_scale=cfg.norm_scale,
+        backbone=cfg.backbone,
+        sim_mode=cfg.sim_mode,
+        num_layer=cfg.num_layer,
+        generator=gen,
+    )
+    return model.to(resolve_device(device))
+
+
+def make_optimizers(model: AdversarialLearnerV2
+                    ) -> Dict[str, torch.optim.Adam]:
+    """The three Adams of the reference (scripts.py:464-469; JAX
+    ``_group_optimizers``): ``source`` and ``target`` step together in the
+    similarity step, ``disc`` in the discriminator step."""
+    return dict(
+        source=torch.optim.Adam(model.source_learner.parameters(), lr=1e-2,
+                                weight_decay=5e-3),
+        target=torch.optim.Adam(model.target_learner.parameters(), lr=1e-3,
+                                betas=(0.5, 0.999)),
+        disc=torch.optim.Adam(model.discriminator.parameters(), lr=1e-3,
+                              betas=(0.5, 0.999)),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage1Graphs:
+    """Both domains on one device: features, node masks, labels and
+    train masks (padded rows), and the adjacencies (None for the ``mlp``
+    backbone)."""
+
+    g_src: Graph
+    g_tar: Graph
+    adj_src: Optional[Adjacency]
+    adj_tar: Optional[Adjacency]
+
+
+def prepare_stage1_graphs(src_d: Dict, tar_d: Dict, backbone: str,
+                          device="cuda") -> Stage1Graphs:
+    """Padded graphs of both domains on ``device`` and, for the ``gnn``
+    backbone, their adjacencies (``"auto"``: the slot layouts of the
+    padded SpMM kernel)."""
+    dev = resolve_device(device)
+    g_src = graph_from_dict(src_d).to(dev)
+    g_tar = graph_from_dict(tar_d).to(dev)
+    gnn = backbone == "gnn"
+    return Stage1Graphs(
+        g_src=g_src, g_tar=g_tar,
+        adj_src=adjacency_from_graph(g_src, "auto", device=dev)
+        if gnn else None,
+        adj_tar=adjacency_from_graph(g_tar, "auto", device=dev)
+        if gnn else None)
+
+
+def sim_loss(model: AdversarialLearnerV2, G: Stage1Graphs,
+             idxs: Dict[str, torch.Tensor], y_pairs: Dict[str, torch.Tensor],
+             use_clf: bool, generator: Optional[torch.Generator]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The similarity/autoencoder loss of one train-mode forward (JAX
+    ``sim_loss``; reference scripts.py:37-63) and its parts; ``h_src`` and
+    ``h_tar`` detached for the discriminator step."""
+    gs, gt = G.g_src, G.g_tar
+    model.train()
+    out = model.train_forward(
+        gs.x, G.adj_src, gt.x, G.adj_tar, idxs["src1"], idxs["src2"],
+        idxs["tar1"], idxs["tar2"], idxs["cross1"], idxs["cross2"],
+        mask_src=gs.node_mask, mask_tar=gt.node_mask, generator=generator)
+    loss_src = bce(out["probs_pair_src"][:, 0], y_pairs["src"])
+    loss_tar = bce(out["probs_pair_tar"][:, 0], y_pairs["tar"])
+    loss_cross = bce(out["probs_pair_cross"][:, 0], y_pairs["cross"])
+    # AE: reconstruction MSE over real rows + generator BCE (:50-55)
+    nmt = gt.node_mask.to(out["recons"].dtype)
+    n_real = nmt.sum().clamp(min=1)
+    loss_recons = (((out["recons"] - out["h0_tar"]) ** 2) * nmt[:, None]
+                   ).sum() / (n_real * out["recons"].shape[1])
+    d_probs = out["d_tar"][:, 0].clamp(_EPS, 1 - _EPS)
+    loss_g = -(torch.log(d_probs) * nmt).sum() / n_real
+    loss_ae = loss_g + loss_recons * 0.1
+    loss = loss_src + loss_tar + loss_cross + loss_ae
+    if use_clf:
+        loss = loss + masked_nll(out["log_clf_src"], gs.y, gs.train_mask)
+        loss = loss + masked_nll(out["log_clf_tar"], gt.y, gt.train_mask)
+    aux = dict(
+        loss_ae=loss_ae, loss_g=loss_g, loss_recons=loss_recons,
+        probs_src=out["probs_pair_src"][:, 0],
+        probs_tar=out["probs_pair_tar"][:, 0],
+        probs_cross=out["probs_pair_cross"][:, 0],
+        h_src=out["h_src"].detach(), h_tar=out["h_tar"].detach(),
+    )
+    return loss, aux
+
+
+def _step(opts, params) -> None:
+    """Step ``opts`` with a zero gradient where a parameter got none, as
+    the JAX package's optax groups update every parameter of theirs."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    for opt in opts:
+        opt.step()
+
+
+def sim_step(model, opts, G, idxs, y_pairs, use_clf, generator
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One step of the source and target Adams on :func:`sim_loss`;
+    returns the loss and its parts at the parameters before the step. The
+    discriminator is not stepped; its gradients from ``loss_g`` stay
+    until :func:`d_step` clears them."""
+    for opt in opts.values():
+        opt.zero_grad(set_to_none=True)
+    loss, aux = sim_loss(model, G, idxs, y_pairs, use_clf, generator)
+    loss.backward()
+    _step((opts["source"], opts["target"]),
+          list(model.source_learner.parameters())
+          + list(model.target_learner.parameters()))
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+
+def d_loss(model, h_src, h_tar, nm_src, nm_tar) -> torch.Tensor:
+    """The discriminator's BCE (scripts.py:84-92): real = the source's
+    rows, fake = the target's, each the mean over real rows."""
+    p_real = model.discriminate(h_src)[:, 0]
+    p_fake = model.discriminate(h_tar)[:, 0]
+    m_src = nm_src.to(p_real.dtype)
+    m_tar = nm_tar.to(p_fake.dtype)
+    real = -(torch.log(p_real.clamp(_EPS, 1 - _EPS)) * m_src).sum() \
+        / m_src.sum().clamp(min=1)
+    fake = -(torch.log((1 - p_fake).clamp(_EPS, 1 - _EPS)) * m_tar).sum() \
+        / m_tar.sum().clamp(min=1)
+    return (real + fake) / 2
+
+
+def d_step(model, opts, G, h_src, h_tar) -> torch.Tensor:
+    """One step of the discriminator's Adam on :func:`d_loss`, from the
+    similarity step's detached embeddings (JAX ``d_step``)."""
+    opts["disc"].zero_grad(set_to_none=True)
+    loss = d_loss(model, h_src, h_tar, G.g_src.node_mask,
+                  G.g_tar.node_mask)
+    loss.backward()
+    _step((opts["disc"],), list(model.discriminator.parameters()))
+    return loss.detach()
+
+
+def _confidence_mask(probs: np.ndarray, conf_lower_bound) -> np.ndarray:
+    """Restrict evaluation to high-confidence pair predictions (reference
+    ``conf_lower_bound`` quantile filter, scripts.py:350-358): keep pairs
+    whose probability lies in the extreme quantiles."""
+    if conf_lower_bound is None:
+        return np.ones(len(probs), dtype=bool)
+    assert 0.0 <= conf_lower_bound <= 1.0
+    high = np.quantile(probs, conf_lower_bound)
+    low = np.quantile(probs, 1 - conf_lower_bound)
+    return (probs >= high) | (probs <= low)
+
+
+def _pair_scores_in_chunks(score_fn, idx1: np.ndarray, idx2: np.ndarray,
+                           device, chunk: int = EVAL_CHUNK) -> np.ndarray:
+    """A pair-scoring closure over host index arrays, ``chunk`` pairs a
+    call."""
+    out = np.empty(len(idx1), dtype=np.float32)
+    for s in range(0, len(idx1), chunk):
+        e = min(s + chunk, len(idx1))
+        i1 = torch.from_numpy(np.asarray(idx1[s:e], np.int64)).to(device)
+        i2 = torch.from_numpy(np.asarray(idx2[s:e], np.int64)).to(device)
+        out[s:e] = score_fn(i1, i2).cpu().numpy()
+    return out
+
+
+class Stage1Evaluator:
+    """Pair prediction and node classification on val or test
+    (scripts.py:315-426; JAX ``Stage1Evaluator``), of the weights the
+    model holds when called.
+
+    The JAX evaluator re-encodes both graphs for every chunk of pairs it
+    scores. Eval mode is deterministic, so this one encodes both domains
+    once per call and scores every chunk from those embeddings: the
+    numbers are the same (``tests/test_torch_stage1.py`` holds it)."""
+
+    def __init__(self, model: AdversarialLearnerV2, G: Stage1Graphs,
+                 src_d: Dict, tar_d: Dict, cfg: Stage1Config,
+                 rng: np.random.Generator, chunk: int = EVAL_CHUNK):
+        self.model = model
+        self.G = G
+        self.src_d, self.tar_d = src_d, tar_d
+        self.cfg = cfg
+        self.chunk = chunk
+        self.enus = {
+            split: (PairEnumerator(src_d, split, rng),
+                    PairEnumerator(tar_d, split, rng),
+                    PairEnumeratorCross(src_d, tar_d, split, rng))
+            for split in ("val", "test")
+        }
+
+    def _scores(self, fn, idx1, idx2) -> np.ndarray:
+        return _pair_scores_in_chunks(fn, idx1, idx2, self.G.g_src.x.device,
+                                      self.chunk)
+
+    def _metric(self, y_pair, probs) -> float:
+        keep = _confidence_mask(probs, self.cfg.conf_lower_bound)
+        return eval_metric(y_pair[keep], (probs[keep] > 0.5).astype(int),
+                           self.cfg.metric, "binary", probs[keep])
+
+    def _within(self, data, fn, enu, split) -> float:
+        cfg = self.cfg
+        if cfg.eval_mode == "sampling":
+            idx1, idx2 = enu.balanced_sampling(
+                max_class_num=enu.num_classes,
+                sample_size=cfg.eval_sample_size, shuffle=False)
+        else:
+            mask1 = (np.asarray(data["train_mask"])
+                     | np.asarray(data["val_mask"])
+                     | np.asarray(data["test_mask"]))
+            mask2 = np.asarray(
+                data["val_mask" if split == "val" else "test_mask"])
+            idx1, idx2 = enumerate_all_pairs(np.where(mask1)[0],
+                                             np.where(mask2)[0])
+        y = np.asarray(data["y"])
+        y_pair = (y[idx1] == y[idx2]).astype(int)
+        return self._metric(y_pair, self._scores(fn, idx1, idx2))
+
+    def _cross(self, fn, split) -> float:
+        cfg = self.cfg
+        enu = self.enus[split][2]
+        if cfg.eval_mode == "sampling":
+            idx1, idx2 = enu.balanced_sampling(
+                max_class_num=enu.num_classes,
+                sample_size=cfg.eval_sample_size, shuffle=False)
+        else:
+            # reference eval_cross_domain_v2 'all' (scripts.py:316-332)
+            sd, td = self.src_d, self.tar_d
+
+            def m(d, *names):
+                return np.logical_or.reduce(
+                    [np.asarray(d[f"{n}_mask"]) for n in names])
+
+            if split == "val":
+                pairs = ((m(sd, "val"), m(td, "train", "val")),
+                         (m(sd, "train"), m(td, "val")))
+            else:
+                pairs = ((m(sd, "test"), m(td, "train", "test", "val")),
+                         (m(sd, "train", "val"), m(td, "test")))
+            both = [enumerate_all_pairs(np.where(a)[0], np.where(b)[0])
+                    for a, b in pairs]
+            idx1 = np.concatenate([both[0][0], both[1][0]])
+            idx2 = np.concatenate([both[0][1], both[1][1]])
+        y_pair = (np.asarray(self.src_d["y"])[idx1]
+                  == np.asarray(self.tar_d["y"])[idx2]).astype(int)
+        return self._metric(y_pair, self._scores(fn, idx1, idx2))
+
+    def encode(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both domains' eval-mode embeddings."""
+        G = self.G
+        self.model.eval()
+        with torch.no_grad():
+            return self.model.encode_domains(
+                G.g_src.x, G.adj_src, G.g_tar.x, G.adj_tar,
+                G.g_src.node_mask, G.g_tar.node_mask)
+
+    def __call__(self, split: str, epoch: int = 0):
+        """(src pair score, src clf score, tar pair score, tar clf score,
+        cross pair score) on ``split``. ``epoch`` keeps JAX's signature;
+        the host sampler advances its own generator."""
+        z_src, z_tar = self.encode()
+        sim = self.model.source_learner.sim_net
+        enu_src, enu_tar, _ = self.enus[split]
+        with torch.no_grad():
+            pair_src = self._within(
+                self.src_d, lambda a, b: sim.similarity(z_src, a, b),
+                enu_src, split)
+            pair_tar = self._within(
+                self.tar_d, lambda a, b: sim.similarity(z_tar, a, b),
+                enu_tar, split)
+            pair_cross = self._cross(
+                lambda a, b: sim.similarity_cross_domain(z_src, z_tar, a, b),
+                split)
+            clf = {}
+            for name, data, z in (("src", self.src_d, z_src),
+                                  ("tar", self.tar_d, z_tar)):
+                mask = np.asarray(
+                    data["val_mask" if split == "val" else "test_mask"])
+                pred = sim.classify(z).argmax(1).cpu().numpy()
+                clf[name] = eval_metric(np.asarray(data["y"])[mask],
+                                        pred[: len(mask)][mask],
+                                        self.cfg.metric, "macro")
+        return pair_src, clf["src"], pair_tar, clf["tar"], pair_cross
+
+
+def _to_device(arrays: Dict[str, np.ndarray], dev) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def train_adversarial(
+    src_d: Dict[str, np.ndarray],
+    tar_d: Dict[str, np.ndarray],
+    cfg: Optional[Stage1Config] = None,
+    ckpt_path: Optional[str] = None,
+    device="cuda",
+) -> Dict[str, Any]:
+    """A full stage-1 run on ``device`` (reference main_adv_v2,
+    scripts.py:430-555). Returns the best scores (``best``), the model
+    holding the best weights, those weights as a state dict on the CPU
+    (``state_dict``) and in the flax layout (``variables``, what
+    ``ckpt_path`` gets), the per-repeat scores and their summary, the
+    per-epoch losses (``history``), the epoch timer's summary and the
+    evaluations' seconds (``eval_s``)."""
+    from bridged_gnn_tpu_torch.io.flax_weights import (
+        flax_variables_from_state_dict,
+    )
+
+    cfg = cfg or Stage1Config()
+    check_ported(cfg)
+    dev = resolve_device(device)
+    G = prepare_stage1_graphs(src_d, tar_d, cfg.backbone, dev)
+    y_src_np = np.asarray(src_d["y"])
+    y_tar_np = np.asarray(tar_d["y"])
+
+    final = {"train": [], "val": [], "test": []}
+    best_overall = None
+    timer = EpochTimer(dev)
+    history, eval_s = [], []
+    for rep in range(cfg.repeat):
+        seed = cfg.seed if cfg.seed is not None else rep
+        host_rng = np.random.default_rng(seed)
+        model = build_model(cfg, src_d, tar_d, dev, seed)
+        opts = make_optimizers(model)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        enu_src = PairEnumerator(src_d, "train", host_rng)
+        enu_tar = PairEnumerator(tar_d, "train", host_rng)
+        enu_cross = PairEnumeratorCross(src_d, tar_d, "train", host_rng)
+        evaluator = Stage1Evaluator(model, G, src_d, tar_d, cfg, host_rng)
+
+        best = {"epoch": -1, "train": (0, 0, 0), "val": (0, 0, 0),
+                "test": (0, 0, 0), "loss": 666.0}
+        best_state = None
+        start_epoch = 1
+        ckptr = None
+        if cfg.ckpt_dir and cfg.repeat == 1:
+            from bridged_gnn_tpu_torch.train.checkpoint import (
+                TrainCheckpointer,
+            )
+
+            ckptr = TrainCheckpointer(cfg.ckpt_dir)
+            raw = ckptr.restore() if cfg.resume else None
+            if raw is not None:
+                model.load_state_dict(raw["model"])
+                for name, opt in opts.items():
+                    opt.load_state_dict(raw["optimizers"][name])
+                gen.set_state(raw["generator"])
+                host_rng.bit_generator.state = pickle.loads(
+                    raw["host_rng_state"].numpy().tobytes())
+                start_epoch = int(raw["epoch"]) + 1
+
+        def sample_epoch():
+            i1s, i2s = enu_src.sampling(cfg.max_class_num, cfg.sample_size)
+            i1t, i2t = enu_tar.sampling(cfg.max_class_num, cfg.sample_size)
+            i1c, i2c = enu_cross.sampling(cfg.max_class_num,
+                                          cfg.sample_size)
+            idxs = dict(src1=i1s, src2=i2s, tar1=i1t, tar2=i2t, cross1=i1c,
+                        cross2=i2c)
+            y_pairs = dict(
+                src=(y_src_np[i1s] == y_src_np[i2s]).astype(np.float32),
+                tar=(y_tar_np[i1t] == y_tar_np[i2t]).astype(np.float32),
+                cross=(y_src_np[i1c] == y_tar_np[i2c]).astype(np.float32),
+            )
+            return idxs, y_pairs
+
+        for epoch in range(start_epoch, cfg.num_epoch + 1):
+            t0 = time.time()
+            with timer:
+                idxs_np, y_pairs_np = sample_epoch()
+                idxs = _to_device(
+                    {k: v.astype(np.int64) for k, v in idxs_np.items()}, dev)
+                y_pairs = _to_device(y_pairs_np, dev)
+                loss_sim, aux = sim_step(model, opts, G, idxs, y_pairs,
+                                         cfg.use_clf, gen)
+                loss_d = d_step(model, opts, G, aux["h_src"], aux["h_tar"])
+            losses = dict(loss=float(loss_sim), loss_d=float(loss_d),
+                          loss_ae=float(aux["loss_ae"]))
+            history.append(dict(rep=rep, epoch=epoch, **losses))
+            train_scores = tuple(
+                eval_metric(y_pairs_np[k].astype(int),
+                            (aux[f"probs_{k}"] > 0.5).cpu().numpy()
+                            .astype(int), cfg.metric, "binary")
+                for k in ("src", "tar", "cross"))
+            if cfg.verbose:
+                print(f"[rep {rep}] epoch {epoch:03d} loss "
+                      f"{losses['loss']:.4f} d {losses['loss_d']:.4f} ae "
+                      f"{losses['loss_ae']:.4f} pair {train_scores} "
+                      f"{time.time() - t0:.2f}s")
+            if cfg.check_numerics:
+                assert_all_finite(
+                    {"loss_sim": loss_sim,
+                     "params": dict(model.named_parameters())},
+                    f"stage-1 state at epoch {epoch}")
+            if (epoch >= cfg.start_eval_epoch
+                    and epoch % cfg.eval_per_epoch == 0):
+                t_eval = time.perf_counter()
+                val = evaluator("val", epoch)
+                test = evaluator("test", epoch)
+                eval_s.append(time.perf_counter() - t_eval)
+                if val[4] > best["val"][2]:
+                    best.update(epoch=epoch, train=train_scores,
+                                val=(val[0], val[2], val[4]),
+                                test=(test[0], test[2], test[4]),
+                                loss=losses["loss"])
+                    best_state = _cpu_state(model)
+            if ckptr is not None and (epoch % cfg.ckpt_every == 0
+                                      or epoch == cfg.num_epoch):
+                ckptr.save(epoch, dict(
+                    model=model.state_dict(),
+                    optimizers={n: o.state_dict() for n, o in opts.items()},
+                    generator=gen.get_state(), epoch=epoch,
+                    # the host sampler's state: the same pair stream on
+                    # resume
+                    host_rng_state=torch.frombuffer(bytearray(
+                        pickle.dumps(host_rng.bit_generator.state)),
+                        dtype=torch.uint8),
+                ))
+        if best_state is None:
+            best_state = _cpu_state(model)
+        final["train"].append(best["train"])
+        final["val"].append(best["val"])
+        final["test"].append(best["test"])
+        if best_overall is None or best["val"][2] >= best_overall[0]:
+            best_overall = (best["val"][2], best_state, best, model)
+
+    _, best_state, best, model = best_overall
+    model.load_state_dict(best_state)
+    model.eval()
+    variables = flax_variables_from_state_dict(model, best_state)
+    if ckpt_path:
+        with open(ckpt_path, "wb") as f:
+            pickle.dump(variables, f)
+    # per-repeat aggregation (reference scripts.py:545-555): mean, std and
+    # best of the (src, tar, cross) pair scores across repeats
+    summary = {}
+    for key in ("train", "val", "test"):
+        arr = np.asarray(final[key], dtype=np.float64)
+        if arr.size:
+            summary[key] = dict(mean=arr.mean(axis=0).tolist(),
+                                std=arr.std(axis=0).tolist(),
+                                best=arr.max(axis=0).tolist())
+    return dict(best=best, model=model, state_dict=best_state,
+                variables=variables, final=final, summary=summary,
+                history=history, throughput=timer.summary(), eval_s=eval_s)
+
+
+def _cpu_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu().clone()
+            for k, v in model.state_dict().items()}

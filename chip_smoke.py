@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port's KT-GNN serving and training paths, its
-stage-2 model zoo and the rest of stage 2 on one GPU.
+stage-2 model zoo, the rest of stage 2 and stage 1 on one GPU.
 
     python3 chip_smoke.py
 
@@ -163,7 +163,40 @@ Phases, in order; any failure exits non-zero:
    device memory; the methods' loop losses within rtol 1e-4 of
    blocked's; the dense-node threshold these times support (the largest
    measured size where KT-GNN's loop and scan epochs and predict are no
-   slower on dense) printed beside ``ops/spmm.py::DENSE_MAX_NODES``.
+   slower on dense) printed beside ``ops/spmm.py::DENSE_MAX_NODES``;
+21. stage 1, the stage-1 CLI's default model (``--version v1``: SAGE
+   encoder, cosine head; hidden 128, 2 layers, 40,000-pair samples, 8
+   classes) on the JAX package's production-scale stage-1 graph
+   (``make_sync_dataset("relational-intra", n_src=20000, n_tar=15000,
+   dim=128, num_classes=8, avg_degree=10, seed=0)``, its
+   ``dataset_conversion(seed=0)``): the padded SpMM calls of one
+   training step (4 forwards and 3 transposed at D=128) replayed as in
+   phase 16; 30 loop epochs evaluating at 20, 25 and 30 (7 launches a
+   step, 8 an evaluation, no other kernel; epoch and evaluation medians
+   on the host clock); one epoch traced as phase 10's; card against CPU
+   for 2 epochs at dropout 0 from the same init and pairs: the sim, d
+   and AE losses within rtol 1e-4, weights within phase 11's tolerances
+   or, where they part, elements whose gradient (with the L2 term) lay
+   within 1e-6 of 0 at a step of the CPU run, each within 2·lr a step
+   (Adam's step there is set by rounding: the similarity head's biases
+   that a batch norm removes are such), and lin_self_2's running mean
+   within what those biases move it;
+22. the bridge from phase 21's model (k_cross 20, k_within 3, both
+   filters, row block 1000): the encode, the cross top-k, each within
+   top-k and the filters and merge timed, the top-ks beside their
+   matmul's bound (2·R·C·H f32 operations), edges, homophily and peak
+   device memory; the same build on the CPU with the same weights,
+   whose edges must equal the card's but for named near-ties (a top-k
+   pair within 1e-5 of its row's k-th, a filter's quantile cut within
+   1e-5, a classifier argmax within 1e-5 of a tie); a v2 model (MLP
+   backbone, mlp head, 4 epochs) through the mlp head's bridge, with and
+   without the bf16-screened rerank of 200 candidates, each with its
+   peak memory;
+23. ``run.sh`` recipe 0 through the port's two CLIs in this process:
+   the stage-1 CLI with the recipe's flags (``--version v2``), the same
+   with ``--version v1`` (its SpMM launches counted: 7 a step, 8 an
+   evaluation and the bridge's encodes, by width), and the stage-2 CLI
+   on the v2 run's npz, which must print ``[stage-2 best]``.
 
 Phase 7 also runs one ``memory_policy="lean"`` step per graph (the
 embedding conv recomputed in the backward) against the plain step: loss
@@ -192,7 +225,10 @@ launches and in-run ms per epoch of the ``--no_dtc`` bench loop, plain,
 bound and library (``torch.sparse.mm``; ``index_add_`` beside it) summed
 over one epoch's replayed calls, the hub loop's ms and the wide calls,
 and its launches on phase 17's served GraphSAGE predict and phase 18's
-ConvNet epoch. The last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+ConvNet epoch; phase 21's training run adds its launches to the count
+(``launches_stage1_by_d``, ``ms_stage1`` per epoch, one step's replayed
+calls in ``stage1_replay``). The last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
 
@@ -1095,19 +1131,23 @@ _HAND_KERNEL = re.compile(
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def trace_phase(name, data, cfg, window=-1, epochs=1) -> dict:
-    """Phase 10 (and 14): ``train_ktgnn`` under ``torch.profiler`` with
-    each epoch timer window marked (an epoch, or a scan chunk); reads the
-    device operations of window ``window`` (the last by default), which
-    holds ``epochs`` epochs, from the Chrome trace. Times and counts are
-    per epoch. The mark opens after the timer's first synchronize and
-    closes after a synchronize at the window's end, so the window's
-    device work lies inside it."""
+def trace_phase(name, data, cfg, window=-1, epochs=1, trainer=None) -> dict:
+    """Phase 10 (and 14, 21): ``train_ktgnn`` (or ``trainer``, a (module,
+    run) pair whose ``run()`` trains with the module's ``EpochTimer``)
+    under ``torch.profiler`` with each epoch timer window marked (an
+    epoch, or a scan chunk); reads the device operations of window
+    ``window`` (the last by default), which holds ``epochs`` epochs, from
+    the Chrome trace. Times and counts are per epoch. The mark opens
+    after the timer's first synchronize and closes after a synchronize at
+    the window's end, so the window's device work lies inside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from bridged_gnn_tpu_torch.train import stage2
     from bridged_gnn_tpu_torch.utils.profiling import EpochTimer
+
+    module, run = trainer or (
+        stage2, lambda: stage2.train_ktgnn(data, cfg, device="cuda"))
 
     mark = "chip_smoke.epoch"
     timers = []
@@ -1130,10 +1170,10 @@ def trace_phase(name, data, cfg, window=-1, epochs=1) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
-        with mock.patch.object(stage2, "EpochTimer", MarkedTimer), profile(
+        with mock.patch.object(module, "EpochTimer", MarkedTimer), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
         ) as prof:
-            stage2.train_ktgnn(data, cfg, device="cuda")
+            run()
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
@@ -1890,6 +1930,27 @@ def zoo_replay(data, cfg, layouts_want: int, panel_check: bool = False,
 
     recs = [r for r in record_run(epoch, ("gather_reduce",))
             if width is None or r["d"] == width]
+    out = check_gather_calls(recs, layouts)
+    if panel_check:
+        with torch.no_grad():
+            i = next(i for i, r in enumerate(recs) if r["d"] == PANEL_CHECK_D)
+            out[i]["panel_widths_bit_identical"] = check_panel_widths(
+                recs[i]["inputs"])
+    del recs, model, opt, inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_gather_calls(recs, layouts) -> list:
+    """Recorded gather_reduce calls replayed against the plain version
+    (the reduce's tolerance: rtol 1e-4, atol 1e-4 × the output's largest
+    magnitude), launched twice for bit-identical outputs, timed beside
+    their bound, torch.sparse.mm and index_add_, with their panels,
+    gathered bytes and rate."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
     with torch.no_grad():
         out = check_kernel("gather_reduce", fk.gather_reduce,
                            fk.gather_reduce_plain, recs, layouts,
@@ -1903,12 +1964,6 @@ def zoo_replay(data, cfg, layouts_want: int, panel_check: bool = False,
                      index_add_device_ms=cuda_device_ms(call, KERNEL_REPS),
                      **gather_panels_of(rec["inputs"], r))
             del call
-        if panel_check:
-            i = next(i for i, r in enumerate(recs) if r["d"] == PANEL_CHECK_D)
-            out[i]["panel_widths_bit_identical"] = check_panel_widths(
-                recs[i]["inputs"])
-    del recs, model, opt, inputs
-    torch.cuda.empty_cache()
     return out
 
 
@@ -2795,6 +2850,584 @@ def paths_phase(card: str) -> dict:
 # --------------------------------------------------------------------- main
 
 
+# --------------------------------------------- phases 21-23: stage 1
+
+# phase 21: the JAX package's production-scale stage-1 graph
+# (tools/bench_pipeline_scale.py:49-52) and the stage-1 CLI's default
+# model, --version v1 (SAGE encoder, cosine head), at hidden 128
+STAGE1_DATA = dict(n_src=20000, n_tar=15000, dim=128, num_classes=8,
+                   avg_degree=10, seed=0)
+STAGE1_MODEL = dict(hidden_dim=128, num_layer=2, backbone="gnn",
+                    sim_mode="cosine", max_class_num=8, sample_size=40000)
+STAGE1_EPOCHS = 30       # phase 21: loop epochs, evaluating from epoch 20
+STAGE1_EVAL_FROM = 20    # every 5 (epochs 20, 25, 30)
+STAGE1_EVAL_EVERY = 5
+STAGE1_PARITY_EPOCHS = 2
+# a training step's SpMM launches by width: two convs per domain forward,
+# and the x-gradient of every conv input but the source's raw features
+STAGE1_PER_STEP = {128: 7}
+STAGE1_EVAL_FORWARDS = 8   # per evaluation: both domains encoded per split
+# card vs CPU: an element whose gradient (plus the L2 term) lies within
+# this of 0 takes Adam steps set by its last bits (eps 1e-8), of any sign
+ADAM_NOISE = 1e-6
+STAGE1_GROUPS = {"source_learner": (1e-2, 5e-3),   # (lr, weight decay)
+                 "target_learner": (1e-3, 0.0), "discriminator": (1e-3, 0.0)}
+# phase 22: the bridge build from phase 21's model
+BRIDGE = dict(k_cross=20, k_within=3, check_cross=True, check_within=True,
+              row_block=1000)
+NEAR_TIE = 1e-5          # a score this close to its row's k-th, or to a
+                         # filter's quantile cut, is a near-tie
+V2_EPOCHS = 4            # phase 22: the v2 model (mlp backbone, mlp head)
+MLP_RERANK = 200
+# phase 23: run.sh recipe 0, stage 1 (its stage 2 takes the CLI defaults
+# and these)
+RECIPE0 = ["--dataset_name", "sync_unrelational", "--k_within", "3",
+           "--k_cross", "10", "--num_epoch", "100", "--start_eval_epoch",
+           "80", "--eval_per_epoch", "5", "--seed", "0", "--save"]
+RECIPE0_STAGE2 = ["--num_layer", "2", "--hidden_dim", "64",
+                  "--to_undirected"]
+# recipe 0 with --version v1 (64 features, hidden 64, the target's
+# 128-wide translation): a step launches {64: 5, 128: 2} (forwards 64, 64,
+# 64 and 128; transposed 64, 64 and 128), each of the 5 evaluations and
+# the bridge's encodes {64: 6, 128: 2}
+RECIPE0_V1_LAUNCHES = {"gather_reduce": {64: 5 * 100 + 6 * 5 + 6,
+                                         128: 2 * 100 + 2 * 5 + 2}}
+
+
+def stage1_data():
+    from bridged_gnn_tpu_torch.data.datasets import dataset_conversion
+    from bridged_gnn_tpu_torch.data.synthetic import make_sync_dataset
+
+    data = make_sync_dataset("relational-intra", **STAGE1_DATA)
+    return dataset_conversion(data, seed=0)
+
+
+def stage1_cfg(**kw):
+    from bridged_gnn_tpu_torch.train.stage1 import Stage1Config
+
+    return Stage1Config(**{**STAGE1_MODEL, **kw})
+
+
+def stage1_pairs(src, tar, cfg):
+    """One epoch's pairs and their labels, on the card, as the trainer's
+    host sampler draws them for seed 0."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train import samplers
+
+    rng = np.random.default_rng(0)
+    enus = (samplers.PairEnumerator(src, "train", rng),
+            samplers.PairEnumerator(tar, "train", rng),
+            samplers.PairEnumeratorCross(src, tar, "train", rng))
+    (s1, s2), (t1, t2), (c1, c2) = (
+        e.sampling(cfg.max_class_num, cfg.sample_size) for e in enus)
+    ys, yt = src["y"], tar["y"]
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).cuda()
+
+    idxs = {k: dev(v.astype(np.int64)) for k, v in dict(
+        src1=s1, src2=s2, tar1=t1, tar2=t2, cross1=c1, cross2=c2).items()}
+    y_pairs = {k: dev(v.astype(np.float32)) for k, v in dict(
+        src=ys[s1] == ys[s2], tar=yt[t1] == yt[t2],
+        cross=ys[c1] == yt[c2]).items()}
+    return idxs, y_pairs
+
+
+def stage1_replay(src, tar) -> list:
+    """Phase 21's kernel replay: the gather_reduce calls of one v1
+    training step (similarity step and discriminator step), held to
+    STAGE1_PER_STEP (4 forwards, 3 transposed), each replayed as phase
+    16's (check_gather_calls)."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    cfg = stage1_cfg()
+    G = ts1.prepare_stage1_graphs(src, tar, "gnn", "cuda")
+    model = ts1.build_model(cfg, src, tar, "cuda")
+    opts = ts1.make_optimizers(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    idxs, y_pairs = stage1_pairs(src, tar, cfg)
+
+    def step():
+        _, aux = ts1.sim_step(model, opts, G, idxs, y_pairs, True, gen)
+        ts1.d_step(model, opts, G, aux["h_src"], aux["h_tar"])
+
+    fk.reset_launch_counts()
+    recs = record_run(step, ("gather_reduce",))
+    counted = {n: c for n, c in fk.launch_counts().items() if c}
+    transposed = sorted(bool(r["inputs"][4]) for r in recs)
+    if counted != {"gather_reduce": STAGE1_PER_STEP} \
+            or transposed != [False] * 4 + [True] * 3:
+        raise RuntimeError(f"stage-1 step: launched {counted}, transposed "
+                           f"{transposed}; expected {STAGE1_PER_STEP}, 4 "
+                           "forward and 3 transposed")
+    out = check_gather_calls(
+        recs, layouts_of(G.adj_src) + layouts_of(G.adj_tar))
+    del recs, model, opts, G
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage1_train(src, tar) -> dict:
+    """Phase 21's main path: ``train_adversarial`` of the v1 model for
+    STAGE1_EPOCHS epochs, counts at 0 just before, CUDA events around
+    every launch: STAGE1_PER_STEP a step and STAGE1_EVAL_FORWARDS forwards
+    an evaluation, no other kernel; epoch and evaluation medians on the
+    host clock; the kernel's time per epoch in the steps and per
+    evaluation."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    cfg = stage1_cfg(num_epoch=STAGE1_EPOCHS,
+                     start_eval_epoch=STAGE1_EVAL_FROM,
+                     eval_per_epoch=STAGE1_EVAL_EVERY)
+    spans, real_eval = [], ts1.Stage1Evaluator.__call__
+
+    def marked(self, split, epoch=0):
+        first = len(recs)
+        out = real_eval(self, split, epoch)
+        spans.append((first, len(recs)))
+        return out
+
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with fk.record_launches() as recs, \
+            mock.patch.object(ts1.Stage1Evaluator, "__call__", marked):
+        res = ts1.train_adversarial(src, tar, cfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    evals = len(res["eval_s"])
+    counted = {n: c for n, c in fk.launch_counts().items() if c}
+    want = {"gather_reduce": {128: STAGE1_PER_STEP[128] * STAGE1_EPOCHS
+                              + STAGE1_EVAL_FORWARDS * evals}}
+    losses = [h["loss"] for h in res["history"]]
+    if counted != want or evals != 3 or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"stage-1 training: launched {counted} (want "
+                           f"{want}) in {evals} evaluations; losses "
+                           f"{losses}")
+    in_eval = {i for a, b in spans for i in range(a, b)}
+    ms = [r["start"].elapsed_time(r["stop"]) for r in recs]
+    return dict(
+        phase="stage1_train", epochs=STAGE1_EPOCHS, evaluations=evals,
+        src_nodes=int(src["x"].shape[0]), tar_nodes=int(tar["x"].shape[0]),
+        src_edges=int(src["edge_index"].shape[1]),
+        tar_edges=int(tar["edge_index"].shape[1]),
+        launches=counted,
+        launches_per_epoch_by_d={"gather_reduce": STAGE1_PER_STEP},
+        epoch_s_median=res["throughput"]["p50_s"],
+        epoch_s_mean=res["throughput"]["mean_s"],
+        eval_s_median=statistics.median(res["eval_s"]),
+        eval_s=res["eval_s"], run_s=run_s,
+        kernel_ms_per_epoch=sum(m for i, m in enumerate(ms)
+                                if i not in in_eval) / STAGE1_EPOCHS,
+        kernel_ms_per_eval=sum(ms[i] for i in in_eval) / evals,
+        best=res["best"], loss_first=losses[0], loss_last=losses[-1],
+        d_loss_last=res["history"][-1]["loss_d"],
+    ), res
+
+
+def stage1_adam_explain(noise, state, epochs):
+    """Card vs CPU after stage-1 training: which elements may part. A
+    parameter element may when its gradient plus the L2 term lay within
+    ADAM_NOISE of 0 at some step of the CPU run (``noise``: the least
+    |gradient| per element), and by at most 2·lr a step: Adam's step
+    there is set by the gradient's last bits, of any sign. Among them are
+    the similarity head's biases that lin_self_2's batch mean removes in
+    train mode (lin_self_0's, and lin_self_1's in the mlp head). So
+    lin_self_2's running mean may part by what they move it: per column,
+    momentum × steps × (Σ|W1| × their largest step, + the largest
+    step)."""
+    sim = "source_learner.sim_net."
+    step_bound = 2 * STAGE1_GROUPS["source_learner"][0] * epochs
+    w1 = state[sim + "lin_self_1.weight"].abs().sum(1)
+
+    def explain(apart):
+        named = {}
+        for key, (got, want, far) in apart.items():
+            d = (got - want).abs()[far]
+            if key == sim + "lin_self_2.running_mean":
+                bound = (0.1 * epochs * (w1 + 1.0) * step_bound)[far]
+                ok = bool((d <= bound).all())
+            elif key in noise:
+                lr = STAGE1_GROUPS[key.split(".")[0]][0]
+                ok = bool((noise[key][far] < ADAM_NOISE).all()
+                          and (d <= 2 * lr * epochs).all())
+            else:
+                ok = False
+            if not ok:
+                raise RuntimeError(
+                    f"stage-1 card vs CPU: {key} differs by "
+                    f"{float(d.max()):.3g} at {int(far.sum())} elements "
+                    "that no Adam-noise element explains")
+            named[key] = dict(elements=int(far.sum()),
+                              max_abs_diff=float(d.max()))
+        return named
+
+    return explain
+
+
+def stage1_parity(src, tar) -> dict:
+    """Phase 21, card against CPU: STAGE1_PARITY_EPOCHS epochs at dropout
+    0 from the same seeded init and host pair stream, no evaluation; the
+    sim, d and AE losses within LOSS_RTOL; weights and statistics within
+    phase 11's tolerances or explained by stage1_adam_explain."""
+    import torch
+
+    from bridged_gnn_tpu_torch.nn import common, stage1
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    cfg = stage1_cfg(num_epoch=STAGE1_PARITY_EPOCHS,
+                     start_eval_epoch=STAGE1_PARITY_EPOCHS + 1)
+    noise = {}
+    real_sim, real_d = ts1.sim_step, ts1.d_step
+
+    def least_grad(model, group):
+        for k, p in model.named_parameters():
+            if k.split(".")[0] in group:
+                lr, wd = STAGE1_GROUPS[k.split(".")[0]]
+                g = (p.grad + wd * before[k]).abs()
+                noise[k] = torch.minimum(noise[k], g) if k in noise else g
+
+    def sim_step(model, *args):
+        before.update({k: p.detach().clone()
+                       for k, p in model.named_parameters()})
+        out = real_sim(model, *args)
+        least_grad(model, ("source_learner", "target_learner"))
+        return out
+
+    def d_step(model, *args):
+        out = real_d(model, *args)
+        least_grad(model, ("discriminator",))
+        return out
+
+    before = {}
+    with contextlib.ExitStack() as stack:
+        for obj, attr in ((stage1.GraphEncoder, "dropout_p"),
+                          (common.MLPBackbone, "dropout_p"),
+                          (stage1.SourceLearnerV2, "clf_dropout_p")):
+            stack.enter_context(mock.patch.object(obj, attr, 0.0))
+        card = ts1.train_adversarial(src, tar, cfg, device="cuda")
+        t0 = time.perf_counter()
+        with mock.patch.object(ts1, "sim_step", sim_step), \
+                mock.patch.object(ts1, "d_step", d_step):
+            cpu = ts1.train_adversarial(src, tar, cfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    loss_err = max(abs(a[k] - b[k]) / abs(b[k])
+                   for a, b in zip(card["history"], cpu["history"])
+                   for k in ("loss", "loss_d", "loss_ae"))
+    if not loss_err <= LOSS_RTOL:
+        raise RuntimeError(f"stage-1 card vs CPU losses differ by "
+                           f"{loss_err:.3g} (relative) > {LOSS_RTOL}")
+    apart, w_err = {}, 0.0
+    for k, want in cpu["state_dict"].items():
+        got = card["state_dict"][k]
+        w_err = max(w_err, float((got - want).abs().max()))
+        far = ~torch.isclose(got, want, rtol=WEIGHT_RTOL, atol=WEIGHT_ATOL)
+        if far.any():
+            apart[k] = (got, want, far)
+    named = stage1_adam_explain(noise, cpu["state_dict"],
+                                STAGE1_PARITY_EPOCHS)(apart)
+    return dict(phase="stage1_parity", epochs=STAGE1_PARITY_EPOCHS,
+                max_rel_loss_err=loss_err, max_abs_weight_err=w_err,
+                adam_noise_apart=named, cpu_run_s=cpu_s,
+                losses_card=[h["loss"] for h in card["history"]],
+                losses_cpu=[h["loss"] for h in cpu["history"]])
+
+
+def stage1_phase(card: str):
+    """Phase 21: stage-1 training of the v1 model on the production-scale
+    graph: one step's kernel calls replayed, STAGE1_EPOCHS loop epochs
+    with evaluations, one traced epoch, card against CPU."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    src, tar, m_src, m_tar = stage1_data()
+    log(json.dumps(dict(phase="stage1_data", card=card,
+                        s=time.perf_counter() - t0)))
+    replay = stage1_replay(src, tar)
+    for r in replay:
+        log(json.dumps(dict(kernel="gather_reduce", graph="stage1",
+                            card=card, **r)))
+    train, res = stage1_train(src, tar)
+    log(json.dumps(dict(card=card, **train)))
+    cfg = stage1_cfg(num_epoch=2, start_eval_epoch=3)
+    traced = trace_phase("stage1_trace", None, cfg, trainer=(
+        ts1, lambda: ts1.train_adversarial(src, tar, cfg, device="cuda")))
+    log(json.dumps(dict(card=card, **traced)))
+    torch.cuda.empty_cache()
+    parity = stage1_parity(src, tar)
+    log(json.dumps(dict(card=card, **parity)))
+    s = time.perf_counter() - t_phase
+    log(f"phase 21 (stage-1 training): {s:.1f} s [{card}]")
+    return dict(replay=replay, train=train, trace=traced, parity=parity,
+                model=res["model"], data=(src, tar, m_src, m_tar), s=s)
+
+
+def _inverse(mapper: dict, n: int) -> np.ndarray:
+    inv = np.empty(n, dtype=np.int64)
+    for orig, new in mapper.items():
+        inv[new] = orig
+    return inv
+
+
+def recorded_bridge(model, G, data, device, timings=None):
+    """``gen_bridged_graph`` of BRIDGE on ``device``, with its proposals:
+    ``{kind: (edges in original ids [2, R·k], sims [R, k], top-k columns
+    [R, k])}`` for kind cross, within_source, within_target, and the
+    classifier's probabilities."""
+    from bridged_gnn_tpu_torch.bridge import build
+
+    src, tar, m_src, m_tar = data
+    inv = {"source": _inverse(m_src, len(m_src)),
+           "target": _inverse(m_tar, len(m_tar))}
+    props, probs = {}, {}
+    real_cross, real_within = build.propose_cross_edges, \
+        build.propose_within_edges
+
+    def cross(*args, **kw):
+        out = real_cross(*args, **kw)
+        ei, sims = out[0], out[1]
+        props["cross"] = (np.stack([inv["source"][ei[0]],
+                                    inv["target"][ei[1]]]), sims,
+                          ei[0].reshape(sims.shape))
+        probs.update(source=out[2], target=out[3])
+        return out
+
+    def within(model, g, adj, domain, *args, **kw):
+        ei, sims = real_within(model, g, adj, domain, *args, **kw)
+        props[f"within_{domain}"] = (inv[domain][ei], sims,
+                                     ei[0].reshape(sims.shape))
+        return ei, sims
+
+    with mock.patch.object(build, "propose_cross_edges", cross), \
+            mock.patch.object(build, "propose_within_edges", within):
+        merged = build.gen_bridged_graph(
+            model, G.g_src, G.adj_src, G.g_tar, G.adj_tar, m_src, m_tar,
+            sim_mode="cosine", timings=timings, **BRIDGE)
+    return merged, props, probs
+
+
+def bridge_near_ties(card, cpu) -> dict:
+    """Card against CPU bridge builds (recorded_bridge): every top-k column
+    one device keeps and the other does not lies within NEAR_TIE of its
+    row's k-th score on the device that keeps it; the classifier's argmax
+    is the same or within NEAR_TIE of a tie; and every edge in one final
+    graph and not the other is such a top-k pair or a proposal within
+    NEAR_TIE of its filter's quantile cut. Returns the named pairs."""
+    (m_card, p_card, c_card), (m_cpu, p_cpu, c_cpu) = card, cpu
+    named, topk_pairs = {}, set()
+    for kind in p_cpu:
+        rows = []
+        for side, (pairs, sims, cols), (_, _, other) in (
+                ("card", p_card[kind], p_cpu[kind]),
+                ("cpu", p_cpu[kind], p_card[kind])):
+            k = cols.shape[1]
+            for r in np.flatnonzero((np.sort(cols, 1)
+                                     != np.sort(other, 1)).any(1)):
+                for j in np.flatnonzero(~np.isin(cols[r], other[r])):
+                    gap = float(sims[r, j] - sims[r, k - 1])
+                    if abs(gap) > NEAR_TIE:
+                        raise RuntimeError(
+                            f"bridge {kind}: row {r} column {cols[r, j]} "
+                            f"kept on the {side} only, {gap:.3g} above the"
+                            f" row's k-th")
+                    pair = tuple(int(a) for a in pairs[:, r * k + j])
+                    topk_pairs.add(pair)
+                    rows.append(dict(side=side, row=int(r), pair=pair,
+                                     gap=gap))
+        named[kind] = rows
+    for dom in ("source", "target"):
+        a, b = c_card[dom], c_cpu[dom]
+        moved = np.flatnonzero(a.argmax(1) != b.argmax(1))
+        top2 = np.sort(b[moved], 1)[:, -2:]
+        if (top2[:, 1] - top2[:, 0] > NEAR_TIE).any():
+            raise RuntimeError(f"bridge: the classifier's argmax moved on "
+                               f"{dom} nodes {moved[:10]}")
+        named[f"argmax_{dom}"] = moved.tolist()
+
+    def edges(m):
+        return set(map(tuple, m["edge_index"].T.tolist()))
+
+    near_cut = set()
+    for props in (p_card, p_cpu):
+        for kind, (pairs, sims, _) in props.items():
+            flat = sims.reshape(-1)
+            cut = np.quantile(flat, 0.1)
+            for i in np.flatnonzero(np.abs(flat - cut) <= NEAR_TIE):
+                near_cut.add(tuple(int(a) for a in pairs[:, i]))
+    moved = edges(m_card) ^ edges(m_cpu)
+    unexplained = moved - topk_pairs - near_cut
+    if unexplained:
+        raise RuntimeError(f"bridge: {len(unexplained)} edges differ card "
+                           f"vs CPU without a near-tie: "
+                           f"{sorted(unexplained)[:10]}")
+    named["edges_apart"] = len(moved)
+    return named
+
+
+def bridge_phase(s1, card: str) -> dict:
+    """Phase 22: the bridge from phase 21's model (BRIDGE: k_cross 20,
+    k_within 3, both filters, row block 1000): each part's seconds
+    beside the scoring matmul's bound (2·R·C·H f32 operations), edges,
+    homophily and peak device memory; the same build on the CPU, equal up
+    to named near-ties; then a v2 model (mlp backbone and head, V2_EPOCHS
+    epochs) through the mlp head's bridge with and without the rerank
+    (MLP_RERANK candidates), each with its peak memory."""
+    import torch
+
+    from bridged_gnn_tpu_torch.bridge.build import gen_bridged_graph
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+    from bridged_gnn_tpu_torch.utils.diagnostics import eval_homophily
+
+    t_phase = time.perf_counter()
+    src, tar, m_src, m_tar = s1["data"]
+    n_s, n_t, h = src["x"].shape[0], tar["x"].shape[0], 128
+    model = s1["model"]
+    G = ts1.prepare_stage1_graphs(src, tar, "gnn", "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t0 = time.perf_counter()
+    on_card = recorded_bridge(model, G, s1["data"], "cuda", timings)
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    merged = on_card[0]
+    h1, h2 = eval_homophily(merged)
+
+    def mm_bound(r, c):
+        return 2.0 * r * c * h / F32_FLOPS_PER_S
+
+    out = dict(
+        phase="bridge", s=build_s, timings_s=timings,
+        matmul_bound_s=dict(cross_topk=mm_bound(n_t, n_s),
+                            within_source=mm_bound(n_s, n_s),
+                            within_target=mm_bound(n_t, n_t)),
+        edges=int(merged["edge_index"].shape[1]), homophily=h1,
+        homophily_2nd=h2, peak_bytes=peak)
+    t0 = time.perf_counter()
+    model_cpu = copy.deepcopy(model).cpu()
+    Gc = ts1.prepare_stage1_graphs(src, tar, "gnn", "cpu")
+    on_cpu = recorded_bridge(model_cpu, Gc, s1["data"], "cpu")
+    out["cpu_s"] = time.perf_counter() - t0
+    out["near_ties"] = bridge_near_ties(on_card, on_cpu)
+    out["cpu_edges"] = int(on_cpu[0]["edge_index"].shape[1])
+    del on_card, on_cpu, model_cpu, Gc
+    log(json.dumps(dict(card=card, **out)))
+
+    # v2: MLP backbone and mlp head, the mlp head's bridge
+    cfg = stage1_cfg(backbone="mlp", sim_mode="mlp", num_epoch=V2_EPOCHS,
+                     start_eval_epoch=V2_EPOCHS + 1)
+    t0 = time.perf_counter()
+    v2 = ts1.train_adversarial(src, tar, cfg, device="cuda")
+    v2_train_s = time.perf_counter() - t0
+    G2 = ts1.prepare_stage1_graphs(src, tar, "mlp", "cuda")
+    runs = {}
+    for rerank in (None, MLP_RERANK):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tm = {}
+        t0 = time.perf_counter()
+        g = gen_bridged_graph(v2["model"], G2.g_src, None, G2.g_tar, None,
+                              m_src, m_tar, sim_mode="mlp", timings=tm,
+                              rerank_candidates=rerank, **BRIDGE)
+        runs[rerank] = dict(
+            rerank=rerank, s=time.perf_counter() - t0, timings_s=tm,
+            edges=int(g["edge_index"].shape[1]),
+            homophily=eval_homophily(g)[0],
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            peak_over_base_bytes=torch.cuda.max_memory_allocated() - base,
+            edge_set=set(map(tuple, g["edge_index"].T.tolist())))
+    shared = len(runs[None]["edge_set"] & runs[MLP_RERANK]["edge_set"])
+    for r in runs.values():
+        r.pop("edge_set")
+        log(json.dumps(dict(phase="bridge_v2", card=card,
+                            v2_train_s=v2_train_s,
+                            losses=[x["loss"] for x in v2["history"]],
+                            edges_shared_exact_rerank=shared, **r)))
+    out["v2"] = list(runs.values())
+    del v2, G2, G
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 22 (bridge construction): {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+def recipe0_phase(card: str) -> dict:
+    """Phase 23: run.sh recipe 0 through the port's two CLIs on the card,
+    in this process: the stage-1 CLI with recipe 0's flags (--version v2:
+    no kernel), the same with the default --version v1, whose every
+    aggregation is the SpMM kernel (counts at 0 just before: 7 a step, 8
+    an evaluation, 8 in the bridge's encodes), and the stage-2 CLI on the
+    v2 run's npz, which must print [stage-2 best]."""
+    import contextlib as cl
+    import io
+
+    from bridged_gnn_tpu_torch.cli import main_bridged_graph as s1cli
+    from bridged_gnn_tpu_torch.cli import main_graph_knowledge_transfer as \
+        s2cli
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for version in ("v2", "v1"):
+            d = os.path.join(tmp, version)
+            argv = RECIPE0 + ["--version", version, "--out_dir", d,
+                              "--ckpt_dir", d]
+            text = io.StringIO()
+            fk.reset_launch_counts()
+            t0 = time.perf_counter()
+            with cl.redirect_stdout(text):
+                merged = s1cli.main(s1cli.build_argparser().parse_args(argv))
+            run_s = time.perf_counter() - t0
+            counted = {n: c for n, c in fk.launch_counts().items() if c}
+            npz = os.path.join(d, "sync_unrelational_bridged_graph.npz")
+            want = {} if version == "v2" else RECIPE0_V1_LAUNCHES
+            best = [ln for ln in text.getvalue().splitlines()
+                    if ln.startswith("[stage-1 best]")]
+            if counted != want or not best or not os.path.isfile(npz) \
+                    or not os.path.isfile(os.path.join(
+                        d, "model_AdvLearner_sync_unrelational_best.pkl")):
+                raise RuntimeError(
+                    f"recipe 0 stage 1 ({version}): launched {counted} "
+                    f"(want {want}), output tail "
+                    f"{text.getvalue()[-400:]!r}")
+            out[version] = dict(run_s=run_s, launches=counted,
+                                best=best[0],
+                                edges=int(merged["edge_index"].shape[1]))
+            log(json.dumps(dict(phase=f"recipe0_stage1_{version}",
+                                card=card, **out[version])))
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(text):
+            res = s2cli.main(s2cli.build_argparser().parse_args(
+                RECIPE0_STAGE2 + ["--path_data", os.path.join(
+                    tmp, "v2", "sync_unrelational_bridged_graph.npz")]))
+        run_s = time.perf_counter() - t0
+    best = [ln for ln in text.getvalue().splitlines()
+            if ln.startswith("[stage-2 best]")]
+    if not best:
+        raise RuntimeError(f"recipe 0 stage 2: no [stage-2 best]: "
+                           f"{text.getvalue()[-400:]!r}")
+    out["stage2"] = dict(run_s=run_s, best=best[0],
+                         epochs=len(res["history"]),
+                         mean_epoch_s=res["mean_epoch_time"])
+    log(json.dumps(dict(phase="recipe0_stage2", card=card, **out["stage2"])))
+    out["s"] = time.perf_counter() - t_phase
+    log(f"phase 23 (run.sh recipe 0 on the port): {out['s']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3013,6 +3646,13 @@ def main() -> int:
     paths_phase(card)
     log(f"phase 20 (dense and gather paths): {time.perf_counter() - t0:.1f}"
         " s")
+    # 21. stage 1: the adversarial similarity learner, v1, through the
+    # padded SpMM kernel
+    s1 = stage1_phase(card)
+    # 22. the bridge build from its model; the v2 model's mlp-head bridge
+    bridge_phase(s1, card)
+    # 23. run.sh recipe 0 through the port's two CLIs
+    recipe0_phase(card)
 
     # summary, per kernel: its launches in its main-path phase and its
     # time inside that run (per predict for the forwards, per epoch for
@@ -3092,6 +3732,24 @@ def main() -> int:
         convnet_replay=[{k: r[k] for k in (
             "d", "transpose", "weighted", "device_ms", "plain_ms", "bound_ms",
             "library_ms", "max_abs_err")} for r in convnet["replay"]])
+    # and on stage 1's (phase 21): the v1 training run's launches join the
+    # row's count; its in-run ms per epoch and one step's replayed calls
+    stage1_launches = s1["train"]["launches"]["gather_reduce"]
+    kernels[-1]["launches_zoo"] = kernels[-1]["launches"]
+    kernels[-1]["launches"] += sum(stage1_launches.values())
+    kernels[-1].update(
+        launches_stage1_by_d=stage1_launches,
+        ms_stage1=s1["train"]["kernel_ms_per_epoch"],
+        ms_stage1_per_eval=s1["train"]["kernel_ms_per_eval"],
+        stage1_replay=[{k: r[k] for k in (
+            "d", "transpose", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms",
+            "index_add_device_ms", "max_abs_err", "panels", "gather_tb_s")}
+            for r in s1["replay"]],
+        **{f"{name}_stage1": sum(r[k] for r in s1["replay"])
+           for name, k in (("ms_replayed_device", "device_ms"),
+                           ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+                           ("library_ms", "library_ms"))})
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

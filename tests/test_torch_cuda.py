@@ -1233,3 +1233,131 @@ def test_cuda_segment_sum_repeats_its_bits(rng, d):
         assert torch.equal(segment_sum(data, ids, 2000, mask), first)
     want = segment_sum(data.cpu(), ids.cpu(), 2000, mask.cpu())
     torch.testing.assert_close(first.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------- stage 1
+
+
+def _stage1_domains(variant="relational-intra", n_src=300, n_tar=200):
+    from bridged_gnn_tpu_torch.data.datasets import dataset_conversion
+    from bridged_gnn_tpu_torch.data.synthetic import make_sync_dataset
+
+    data = make_sync_dataset(variant, n_src=n_src, n_tar=n_tar, dim=24,
+                             num_classes=4, avg_degree=6, seed=0)
+    return dataset_conversion(data, seed=0)
+
+
+def _stage1_cfg(**kw):
+    from bridged_gnn_tpu_torch.train.stage1 import Stage1Config
+
+    return Stage1Config(**{**dict(
+        hidden_dim=32, backbone="gnn", sim_mode="cosine", max_class_num=4,
+        sample_size=3600, num_epoch=3, start_eval_epoch=2, eval_per_epoch=1,
+        eval_sample_size=2000), **kw})
+
+
+@pytest.mark.cuda
+def test_cuda_topk_tie_order_equals_cpu(rng):
+    """The bridge's top-k on the card puts equal scores in the CPU's
+    order, the lower column first (``lax.top_k``'s): integer scores with
+    most of each row tied, and the cosine of rows with exact duplicates;
+    and the rerank's bf16 screen keeps the CPU's candidates."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.ops import sddmm as tsd
+
+    ints = torch.from_numpy(rng.integers(0, 3, size=(700, 900)).astype(
+        np.float32))
+    for k in (1, 10, 300):
+        want = tsd.topk_lower_index(ints, k)
+        got = tsd.topk_lower_index(ints.to(dev), k)
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[0].cpu(), want[0])
+    z = rng.normal(size=(500, 16)).astype(np.float32)
+    z[100:300] = z[7]
+    zt = torch.from_numpy(z)
+    for dtype in (torch.float32, torch.bfloat16):
+        want = tsd.blockwise_pair_scores_topk(
+            tsd.cosine_score_block(zt.to(dtype), zt.to(dtype)), 500, 500,
+            20, row_block=128)
+        got = tsd.blockwise_pair_scores_topk(
+            tsd.cosine_score_block(zt.to(dev, dtype), zt.to(dev, dtype)),
+            500, 500, 20, row_block=128, device=dev)
+        assert torch.equal(got[1].cpu(), want[1])
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_stage1_step_gather_reduce_matches_plain(rng, monkeypatch):
+    """One v1 similarity step on the card launches the padded SpMM kernel
+    4 times forward (each conv's input: the source's 24 features, the
+    target's 128-wide translation, the hidden 32 twice) and 3 times
+    transposed (the source's raw features need no gradient); every call
+    matches its plain version at the reduce's tolerance (rtol 1e-4, atol
+    1e-4 × the output's largest magnitude) and is bit-identical on a
+    second launch."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    src, tar, _, _ = _stage1_domains()
+    cfg = _stage1_cfg()
+    G = ts1.prepare_stage1_graphs(src, tar, "gnn", dev)
+    model = ts1.build_model(cfg, src, tar, dev)
+    opts = ts1.make_optimizers(model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = [G.g_src.num_nodes, G.g_tar.num_nodes]
+    idxs = {k: torch.from_numpy(rng.integers(0, n[k.startswith(
+        ("tar", "cross2"))], 400)).to(dev)
+        for k in ("src1", "src2", "tar1", "tar2", "cross1", "cross2")}
+    y_pairs = {k: torch.from_numpy((rng.random(400) < 0.5).astype(
+        np.float32)).to(dev) for k in ("src", "tar", "cross")}
+    fk.reset_launch_counts()
+    with fk.record_launches(keep_inputs=True) as recs:
+        ts1.sim_step(model, opts, G, idxs, y_pairs, True, gen)
+    assert {n: c for n, c in fk.launch_counts().items() if c} == {
+        "gather_reduce": {24: 1, 32: 4, 128: 2}}
+    assert sorted(bool(r["inputs"][4]) for r in recs) == [False] * 4 + [
+        True] * 3
+    with torch.no_grad():
+        for r in recs:
+            got = fk.gather_reduce(*r["inputs"])
+            again = fk.gather_reduce(*r["inputs"])
+            want = fk.gather_reduce_plain(*r["inputs"])
+            assert torch.equal(got, again)
+            torch.testing.assert_close(
+                got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone,sim_mode", [("gnn", "cosine"),
+                                               ("mlp", "mlp")])
+def test_cuda_stage1_and_bridge_match_cpu(monkeypatch, backbone, sim_mode):
+    """``train_adversarial`` at dropout 0 on the card against the CPU from
+    the same seeded init and pair stream (losses rtol 1e-4), then the
+    bridge from the CPU run's weights on both: the same edges."""
+    _need_cuda()
+    from bridged_gnn_tpu_torch.bridge.build import gen_bridged_graph
+    from bridged_gnn_tpu_torch.nn import common, stage1
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    monkeypatch.setattr(stage1.GraphEncoder, "dropout_p", 0.0)
+    monkeypatch.setattr(common.MLPBackbone, "dropout_p", 0.0)
+    monkeypatch.setattr(stage1.SourceLearnerV2, "clf_dropout_p", 0.0)
+    src, tar, m_src, m_tar = _stage1_domains()
+    cfg = _stage1_cfg(backbone=backbone, sim_mode=sim_mode)
+    want = ts1.train_adversarial(src, tar, cfg, device="cpu")
+    got = ts1.train_adversarial(src, tar, cfg, device="cuda")
+    for a, b in zip(got["history"], want["history"], strict=True):
+        for k in ("loss", "loss_d", "loss_ae"):
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), (k, a, b)
+    graphs = {}
+    for dev in ("cpu", "cuda"):
+        model = ts1.build_model(cfg, src, tar, dev)
+        model.load_state_dict(want["state_dict"])
+        G = ts1.prepare_stage1_graphs(src, tar, backbone, dev)
+        graphs[dev] = gen_bridged_graph(
+            model, G.g_src, G.adj_src, G.g_tar, G.adj_tar, m_src, m_tar,
+            k_cross=8, k_within=3, check_cross=True, check_within=True,
+            sim_mode=sim_mode, row_block=64)
+    for k, v in graphs["cpu"].items():
+        np.testing.assert_array_equal(graphs["cuda"][k], v, k)

@@ -394,7 +394,7 @@ def test_cli_load_and_http(tmp_path, sync_case):
 def test_cli_similarity_mode_is_not_ported():
     args = tcli.build_argparser().parse_args(
         ["--mode", "similarity", "--ckpt", "x.pkl"])
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported.*item 7"):
         tcli.main(args)
 
 
