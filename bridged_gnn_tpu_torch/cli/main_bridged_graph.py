@@ -9,9 +9,13 @@ best.pkl``, which either package loads) and the bridged graph as npz
 writes the reference's ``state_dict`` layout.
 
 ``--topk_recall`` is accepted and selects exactly, as the JAX package
-does on every backend but the TPU. ``--scan_epochs``, ``--device_sampling``
-and ``--n_shards`` other than their defaults raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+does on every backend but the TPU. ``--scan_epochs K`` trains in scan
+mode (segments of up to K epochs, on the card one epoch captured in a
+CUDA graph and replayed); ``--device_sampling`` draws the training pairs
+on the device and evaluates with the device evaluator (it needs
+``--scan_epochs``, as in the JAX package). ``--n_shards`` other than 1
+raises ``NotImplementedError`` naming the ROADMAP.md item that brings
+it.
 
 Example (``run.sh`` recipe 0, then stage 2 on its output):
   python -m bridged_gnn_tpu_torch.cli.main_bridged_graph \
@@ -125,8 +129,8 @@ def main(args):
     cfg_flags = dict(scan_epochs=args.scan_epochs,
                      device_sampling=args.device_sampling,
                      n_shards=args.n_shards)
-    # refuse an option that is not ported, or a card that is absent,
-    # before any data is read
+    # refuse an option that is not ported or device sampling without
+    # scan mode, or a card that is absent, before any data is read
     check_ported(Stage1Config(**cfg_flags))
     resolve_device(args.device)
     set_random_seed(0)

@@ -1,7 +1,7 @@
 """Inference/serving layer: full-graph node classification with any
-stage-2 model.
+stage-2 model, and top-k similar-source queries with a stage-1 model.
 
-Port of ``bridged_gnn_tpu/serve.py::KTGNNPredictor``. The graph, its
+Port of ``bridged_gnn_tpu/serve.py``. ``KTGNNPredictor``: the graph, its
 adjacency and the model live on the device; every prediction is one
 forward under ``torch.inference_mode()``. On the card each KT-GNN
 attention call is one fused CUDA kernel launch per layout
@@ -12,18 +12,33 @@ kernel on its ``node_block=256`` layout. ``"auto"`` resolves by
 ``ops/spmm.py::resolve_adjacency_method``; on a dense or gather
 adjacency the attention and the SpMMs are plain PyTorch.
 
-``SimilarityScorer`` is not ported yet.
+``SimilarityScorer``: the online counterpart of the bridge build. The
+source corpus is encoded once and its columns projected through the
+similarity head; each query batch is encoded through the target
+autoencoder (a ``gnn`` backbone's SAGE aggregations run the padded SpMM
+kernel) and scored against every source column blockwise, with the
+bridge's top-k (``ops/sddmm.py``: ``lax.top_k``'s tie order).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from bridged_gnn_tpu_torch.graph import Graph, graph_from_dict, with_self_loops
+from bridged_gnn_tpu_torch.graph import (
+    Graph,
+    build_graph,
+    graph_from_dict,
+    with_self_loops,
+)
 from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN, KTGNNNoDTC
+from bridged_gnn_tpu_torch.ops.sddmm import (
+    blockwise_pair_scores_topk,
+    cosine_score_block,
+    pair_mlp_score_block,
+)
 from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph
 from bridged_gnn_tpu_torch.train.stage2 import to_undirected_np
 from bridged_gnn_tpu_torch.utils.platform import (
@@ -154,3 +169,119 @@ class KTGNNPredictor:
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
             emb = self.model.embed(self.graph, self.adj)
             return emb[: self.graph.num_nodes].cpu().numpy()
+
+
+class SimilarityScorer:
+    """Online cross-domain similarity over a fixed source corpus (JAX
+    ``serve.py:174-361``).
+
+    ``model``: a stage-1 ``AdversarialLearnerV2``; ``state_dict``: weights
+    to load into it (strict), or None for its own. ``g_src``: the source
+    corpus graph; ``adj_src``: its adjacency, built when None and the
+    backbone is ``gnn``. The corpus is encoded once, in eval mode, and its
+    columns projected: the mlp head's source factor
+    (``bridge/build.py::decompose_pair_mlp_head``), or the cosine head's
+    lin_self and biasatt residual (``_embed_cosine_side``).
+    ``approx_recall``: as the bridge's, exact off the TPU."""
+
+    def __init__(self, model: torch.nn.Module,
+                 state_dict: Optional[Mapping[str, torch.Tensor]],
+                 g_src: Graph, adj_src=None, sim_mode: str = "mlp",
+                 row_block: int = 256,
+                 approx_recall: Optional[float] = None, device="cuda"):
+        from bridged_gnn_tpu_torch.bridge.build import (
+            _embed_cosine_side,
+            decompose_pair_mlp_head,
+        )
+        from bridged_gnn_tpu_torch.ops.sddmm import _check_recall
+
+        _check_recall(approx_recall)
+        self.device = resolve_device(device)
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        self.model = model.to(self.device).eval()
+        self.sim_mode = sim_mode
+        self.row_block = row_block
+        self.approx_recall = approx_recall
+        self.gnn = model.source_learner.backbone == "gnn"
+        self.dim_in_tar = \
+            model.target_learner.equavilent_trans_layer_0.weight.shape[1]
+        g_src = g_src.to(self.device)
+        if adj_src is None and self.gnn:
+            adj_src = adjacency_from_graph(g_src, "auto",
+                                           device=self.device)
+        self.num_src = g_src.num_nodes
+        with torch.no_grad():
+            z_src = model.source_learner.encode(
+                g_src.x, adj_src, g_src.node_mask)[: self.num_src].float()
+            if sim_mode == "mlp":
+                head = decompose_pair_mlp_head(model)
+
+                def t(a):
+                    return torch.from_numpy(
+                        np.ascontiguousarray(a)).to(self.device)
+
+                self._w_tar = t(head["w_tar"])
+                self._cols = z_src @ t(head["w_src"])
+                self._head = (t(head["bias"]), t(head["w2"]), head["b2"])
+            elif sim_mode == "cosine":
+                self._project = lambda z: _embed_cosine_side(model, z)
+                self._cols = self._project(z_src)
+            else:
+                raise ValueError(sim_mode)
+
+    def _score_fn(self, z_rows: torch.Tensor):
+        """The score closure of encoded query rows: each side's head
+        projection, then the head's pair score against every column."""
+        if self.sim_mode == "mlp":
+            return pair_mlp_score_block(z_rows @ self._w_tar, self._cols,
+                                        *self._head)
+        return cosine_score_block(self._project(z_rows), self._cols)
+
+    def _encode_queries(self, x: np.ndarray, n: int,
+                        adj=None) -> torch.Tensor:
+        """Eval-mode target embeddings of the rows ``x``, the first ``n``
+        real (the statistics' mask), as isolated nodes (a self-loop
+        graph, so a SAGE mean sees the node alone) unless ``adj``, the
+        queries' own adjacency, is given."""
+        loops = np.arange(x.shape[0], dtype=np.int64)
+        g = build_graph(x, np.stack([loops, loops])).to(self.device)
+        if adj is None and self.gnn:
+            adj = adjacency_from_graph(g, "auto", device=self.device)
+        mask = torch.arange(g.num_nodes_padded, device=self.device) < n
+        return self.model.target_learner.encode(g.x, adj, mask)[0]
+
+    def topk_sources(self, x_tar: np.ndarray, k: int, adj_tar=None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """The ``k`` most similar source nodes of every query row: values
+        [n, k] descending (equal values by ascending column, as
+        ``lax.top_k``) and their source ids [n, k].
+
+        Without ``adj_tar`` the rows are padded to a multiple of 8 and
+        encoded as isolated nodes, the padding left out of the batch
+        statistics' mask; row blocks are JAX's (``serve.py:303-308``: as
+        few blocks of ``row_block`` as the padded rows need, each a
+        multiple of 8). ``adj_tar``: the queries' adjacency over their
+        own padded graph, for queries that form one."""
+        x_tar = np.asarray(x_tar, dtype=np.float32)
+        n = x_tar.shape[0]
+        with torch.no_grad():
+            if adj_tar is not None:
+                z = self._encode_queries(x_tar, n, adj_tar)
+                rows, row_block = n, self.row_block
+            else:
+                rows = max(8, _round8(n))
+                x_pad = np.zeros((rows, x_tar.shape[1]), np.float32)
+                x_pad[:n] = x_tar
+                z = self._encode_queries(x_pad, n)
+                n_blocks = -(-rows // min(self.row_block, rows))
+                row_block = _round8(-(-rows // n_blocks))
+            vals, idxs = blockwise_pair_scores_topk(
+                self._score_fn(z[:rows].float()), rows, self.num_src, k,
+                row_block=row_block, approx_recall=self.approx_recall,
+                device=self.device)
+            return vals[:n].cpu().numpy(), idxs[:n].cpu().numpy()
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8

@@ -19,15 +19,30 @@ scripts.py:28-94, 430-555).
     relation and split; the model is kept by the cross-domain pair F1 on
     val.
 
+Scan mode (``scan_epochs > 0``, JAX ``stage1.py:283-371, 1038-1129``)
+runs the epochs in segments that end on evaluation epochs
+(:func:`segment_bounds`). A segment's host-sampled pairs go to the
+device in one copy, into static ``[scan_epochs, ...]`` buffers that each
+epoch reads at its row; ``device_sampling`` draws them on the device
+instead (``train/device_sampler.py``), the targets from the labels
+there, so a segment copies nothing from the host. On the card the first
+epochs run eagerly, one epoch (similarity step, discriminator step, the
+three Adams, capturable) is then captured in a CUDA graph and replayed,
+one graph for every segment length; on the CPU every epoch runs eagerly,
+so CPU scan equals the CPU loop. Each segment makes one copy to the host
+(its losses, the last epoch's pair predictions and targets), evaluates,
+checks numerics and checkpoints at its end. With ``device_sampling`` the
+evaluation is :class:`DeviceStage1Evaluator` where JAX engages its own:
+one encode per domain, balanced pairs drawn on the device, confusion
+counts copied once.
+
 With the ``gnn`` backbone every SAGE aggregation is the padded SpMM
 kernel (``csrc/gather_reduce.cu``): per training step two forwards per
 domain and, in the backward, the transposed SpMM for every conv input
 that needs a gradient (not the source's raw features), so three.
 
-The JAX package's scan mode (``scan_epochs``), device sampling
-(``device_sampling``, its ``DeviceStage1Evaluator``) and row sharding
-(``n_shards``) raise ``NotImplementedError`` naming the ROADMAP.md item
-that brings them.
+Row sharding (``n_shards``) raises ``NotImplementedError`` naming the
+ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -35,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import pickle
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,13 +58,24 @@ import torch
 from bridged_gnn_tpu_torch.graph import Graph, graph_from_dict
 from bridged_gnn_tpu_torch.nn.stage1 import AdversarialLearnerV2
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency, adjacency_from_graph
-from bridged_gnn_tpu_torch.train.metrics import eval_metric
+from bridged_gnn_tpu_torch.train.device_sampler import (
+    DeviceBalancedSampler,
+    build_device_samplers,
+    pair_targets,
+    sample_epoch_on_device,
+)
+from bridged_gnn_tpu_torch.train.metrics import eval_metric, score_from_counts
+from bridged_gnn_tpu_torch.train.optim import load_optimizer_state
 from bridged_gnn_tpu_torch.train.samplers import (
     PairEnumerator,
     PairEnumeratorCross,
     enumerate_all_pairs,
 )
-from bridged_gnn_tpu_torch.train.stage2 import masked_nll
+from bridged_gnn_tpu_torch.train.stage2 import (
+    _confusion_counts,
+    masked_nll,
+    run_scan,
+)
 from bridged_gnn_tpu_torch.utils.platform import resolve_device
 from bridged_gnn_tpu_torch.utils.profiling import EpochTimer
 from bridged_gnn_tpu_torch.utils.sanitizers import assert_all_finite
@@ -86,32 +112,39 @@ class Stage1Config:
     # (reference conf_lower_bound, scripts.py:350-358); None = all pairs
     conf_lower_bound: Optional[float] = None
     # raise FloatingPointError on a non-finite similarity loss or
-    # parameter, every epoch
+    # parameter: every epoch, in scan mode at every segment's end
     check_numerics: bool = False
-    # options of the JAX runtime the port does not run yet; any other
-    # value than the default raises (see _NOT_PORTED)
+    # >0: up to this many epochs per segment, one host round trip each;
+    # segments end on evaluation epochs
     scan_epochs: int = 0
+    # draw the training pairs on the device (train/device_sampler.py):
+    # the host sampler's distributions, not its streams; needs
+    # scan_epochs > 0
     device_sampling: bool = False
+    # not ported yet; any other value than 1 raises (see _NOT_PORTED)
     n_shards: int = 1
 
 
 # field, the values the port runs, the ROADMAP.md item that brings the rest
 _NOT_PORTED = (
-    ("scan_epochs", (0,), "Queue 1 item 12 (stage-1 scan mode)"),
-    ("device_sampling", (False,), "Queue 1 item 12 (stage-1 scan mode)"),
     ("n_shards", (1,), "Queue 1 item 9 (multi-device)"),
 )
 
 
 def check_ported(cfg: Stage1Config) -> None:
     """Raise ``NotImplementedError`` for a value the port does not run
-    yet."""
+    yet, and JAX's ``ValueError`` for device sampling without scan mode
+    (the sampler lives inside the scanned epoch)."""
     for field, ported, item in _NOT_PORTED:
         value = getattr(cfg, field)
         if value not in ported:
             raise NotImplementedError(
                 f"Stage1Config.{field}={value!r} is not ported (the port "
                 f"runs {list(ported)}); see ROADMAP.md {item}")
+    if cfg.device_sampling and cfg.scan_epochs <= 0:
+        raise ValueError(
+            "device_sampling requires scan_epochs > 0 (the device sampler "
+            "lives inside the scanned epoch body)")
 
 
 def bce(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -143,18 +176,19 @@ def build_model(cfg: Stage1Config, src: Dict, tar: Dict, device="cuda",
     return model.to(resolve_device(device))
 
 
-def make_optimizers(model: AdversarialLearnerV2
+def make_optimizers(model: AdversarialLearnerV2, capturable: bool = False
                     ) -> Dict[str, torch.optim.Adam]:
     """The three Adams of the reference (scripts.py:464-469; JAX
     ``_group_optimizers``): ``source`` and ``target`` step together in the
-    similarity step, ``disc`` in the discriminator step."""
+    similarity step, ``disc`` in the discriminator step. ``capturable``:
+    their step counts on the device, as a CUDA graph's replays need."""
     return dict(
         source=torch.optim.Adam(model.source_learner.parameters(), lr=1e-2,
-                                weight_decay=5e-3),
+                                weight_decay=5e-3, capturable=capturable),
         target=torch.optim.Adam(model.target_learner.parameters(), lr=1e-3,
-                                betas=(0.5, 0.999)),
+                                betas=(0.5, 0.999), capturable=capturable),
         disc=torch.optim.Adam(model.discriminator.parameters(), lr=1e-3,
-                              betas=(0.5, 0.999)),
+                              betas=(0.5, 0.999), capturable=capturable),
     )
 
 
@@ -420,8 +454,237 @@ class Stage1Evaluator:
         return pair_src, clf["src"], pair_tar, clf["tar"], pair_cross
 
 
-def _to_device(arrays: Dict[str, np.ndarray], dev) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+def _seed_of(*parts: int) -> int:
+    """A 64-bit generator seed that depends on every one of ``parts``."""
+    return int(np.random.SeedSequence([int(p) for p in parts])
+               .generate_state(1, np.uint64)[0])
+
+
+RELATIONS = ("src", "tar", "cross")
+_SPLITS = ("val", "test")
+
+
+class DeviceStage1Evaluator:
+    """The evaluation of device sampling (JAX ``DeviceStage1Evaluator``,
+    ``stage1.py:576-808``), for ``eval_mode="sampling"`` and the metrics
+    that counts give (f1, acc; no ``conf_lower_bound``): balanced val and
+    test pairs drawn on the device (:class:`DeviceBalancedSampler`, each
+    domain's class count as ``max_class_num``, as the host evaluator
+    passes it), scored from one encode per domain, and every confusion
+    count formed there, without atomics or a sync (stage 2's
+    ``_confusion_counts``): ``[3, 2]`` per pair relation, ``[3, C+1]`` per
+    classifier, bin C holding ``y == -1``. One copy to the host; the
+    scores are ``score_from_counts``', the same floats ``eval_metric``
+    gives on the same rows.
+
+    A split's pairs at an epoch come from a generator seeded from
+    ``(seed + 0x5EED, split, epoch)``, so :meth:`both` equals the two
+    per-split calls bit for bit. Distribution-equal to the host
+    evaluator's numpy stream, not stream-equal."""
+
+    def __init__(self, model: AdversarialLearnerV2, G: "Stage1Graphs",
+                 src_d: Dict, tar_d: Dict, cfg: Stage1Config,
+                 seed: Optional[int] = None):
+        self.model, self.G, self.cfg = model, G, cfg
+        self.seed = (cfg.seed or 0) if seed is None else seed
+        dev = G.g_src.x.device
+        n_src = int(np.asarray(src_d["y"]).max()) + 1
+        n_tar = int(np.asarray(tar_d["y"]).max()) + 1
+        size = cfg.eval_sample_size
+        self.samplers = {split: (
+            DeviceBalancedSampler(src_d, n_src, size, split, device=dev),
+            DeviceBalancedSampler(tar_d, n_tar, size, split, device=dev),
+            DeviceBalancedSampler(src_d, n_src, size, split, data2=tar_d,
+                                  device=dev),
+        ) for split in _SPLITS}
+        self.labels = {"src": G.g_src.y.long(), "tar": G.g_tar.y.long()}
+        self.bins = (n_src + 1, n_tar + 1)
+        self.y_bin = tuple(torch.where(y < 0, n, y) for y, n in zip(
+            self.labels.values(), (n_src, n_tar)))
+        self.masks = {split: tuple(getattr(g, f"{split}_mask").int()[None]
+                                   for g in (G.g_src, G.g_tar))
+                      for split in _SPLITS}
+
+    def generator(self, split: str, epoch: int) -> torch.Generator:
+        gen = torch.Generator(device=self.G.g_src.x.device)
+        return gen.manual_seed(_seed_of(self.seed + 0x5EED,
+                                        _SPLITS.index(split), epoch))
+
+    def draw(self, split: str, epoch: int) -> Dict[str, Tuple[torch.Tensor,
+                                                              torch.Tensor]]:
+        """The pairs ``split``'s evaluation at ``epoch`` scores, by
+        relation."""
+        gen = self.generator(split, epoch)
+        return {rel: s.sample(gen)
+                for rel, s in zip(RELATIONS, self.samplers[split])}
+
+    def encode(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        G = self.G
+        self.model.eval()
+        with torch.no_grad():
+            return self.model.encode_domains(
+                G.g_src.x, G.adj_src, G.g_tar.x, G.adj_tar,
+                G.g_src.node_mask, G.g_tar.node_mask)
+
+    def _counts(self, z_src, z_tar, split: str, epoch: int) -> torch.Tensor:
+        """Every count of ``split`` at ``epoch``, flat: the three pair
+        tables, then the two classifiers'."""
+        sim = self.model.source_learner.sim_net
+        pairs = self.draw(split, epoch)
+        probs = dict(src=sim.similarity(z_src, *pairs["src"]),
+                     tar=sim.similarity(z_tar, *pairs["tar"]),
+                     cross=sim.similarity_cross_domain(z_src, z_tar,
+                                                       *pairs["cross"]))
+        truth = pair_targets(self.labels, {
+            f"{rel}{side}": pairs[rel][side - 1]
+            for rel in RELATIONS for side in (1, 2)})
+        out = []
+        for rel in RELATIONS:
+            pred = (probs[rel] > 0.5).long()[None]
+            out.append(_confusion_counts(
+                pred, torch.ones_like(pred, dtype=torch.int32),
+                truth[rel].long(), 2))
+        for z, y_bin, mask, bins in zip((z_src, z_tar), self.y_bin,
+                                        self.masks[split], self.bins):
+            out.append(_confusion_counts(sim.classify(z).argmax(1)[None],
+                                         mask, y_bin, bins))
+        return torch.cat([c.reshape(-1) for c in out])
+
+    def _scores(self, flat: np.ndarray) -> Tuple[float, ...]:
+        """(src pair, src clf, tar pair, tar clf, cross pair) scores from
+        one split's counts. A pair table gets an empty ``y == -1`` bin,
+        the layout ``score_from_counts`` reads."""
+        b_src, b_tar = self.bins
+        pair = [np.pad(t.reshape(3, 2), ((0, 0), (0, 1)))
+                for t in np.split(flat[:18], 3)]
+        clf_src = flat[18: 18 + 3 * b_src].reshape(3, b_src)
+        clf_tar = flat[18 + 3 * b_src:].reshape(3, b_tar)
+        metric = self.cfg.metric
+        return (score_from_counts(*pair[0], metric=metric,
+                                  f1_average="binary"),
+                score_from_counts(*clf_src, metric=metric,
+                                  f1_average="macro"),
+                score_from_counts(*pair[1], metric=metric,
+                                  f1_average="binary"),
+                score_from_counts(*clf_tar, metric=metric,
+                                  f1_average="macro"),
+                score_from_counts(*pair[2], metric=metric,
+                                  f1_average="binary"))
+
+    def both(self, epoch: int = 0):
+        """(val scores, test scores) from one encode per domain and one
+        copy to the host; equal to ``self("val", epoch), self("test",
+        epoch)``."""
+        z_src, z_tar = self.encode()
+        with torch.no_grad():
+            flat = torch.cat([self._counts(z_src, z_tar, split, epoch)
+                              for split in _SPLITS]).cpu().numpy()
+        half = len(flat) // 2
+        return self._scores(flat[:half]), self._scores(flat[half:])
+
+    def __call__(self, split: str, epoch: int = 0):
+        z_src, z_tar = self.encode()
+        with torch.no_grad():
+            flat = self._counts(z_src, z_tar, split, epoch).cpu().numpy()
+        return self._scores(flat)
+
+
+def use_device_evaluator(cfg: Stage1Config) -> bool:
+    """JAX's rule (``stage1.py:912-917``) for the device evaluator."""
+    return (cfg.device_sampling and cfg.eval_mode == "sampling"
+            and cfg.metric in ("f1", "acc") and cfg.conf_lower_bound is None)
+
+
+# ---------------------------------------------------------------- scan mode
+
+
+def segment_bounds(start_epoch: int, cfg: Stage1Config
+                   ) -> List[Tuple[int, int]]:
+    """Scan mode's segments ``(first, last)`` from ``start_epoch``: up to
+    ``scan_epochs`` epochs each, ending on every evaluation epoch (JAX
+    ``stage1.py:1043-1052``)."""
+    out, epoch = [], start_epoch
+    while epoch <= cfg.num_epoch:
+        last = min(epoch + cfg.scan_epochs - 1, cfg.num_epoch)
+        if last >= cfg.start_eval_epoch:
+            nxt = ((epoch - 1) // cfg.eval_per_epoch + 1) * cfg.eval_per_epoch
+            nxt = max(nxt, cfg.start_eval_epoch - 1)
+            last = min(last, max(nxt, epoch))
+        out.append((epoch, last))
+        epoch = last + 1
+    return out
+
+
+class _HostPairs:
+    """Scan mode's host-sampled pairs: a segment's epochs drawn by
+    ``sample`` (the loop's numpy sampler, in its order) and copied in one
+    transfer into a static ``[scan_epochs, 2·P]`` buffer; each epoch reads
+    its row ``i`` (a device counter), its targets from the labels on the
+    device."""
+
+    def __init__(self, sample: Callable[[], Dict[str, np.ndarray]],
+                 sizes: Tuple[int, ...], scan_epochs: int,
+                 labels: Dict[str, torch.Tensor], i: torch.Tensor):
+        self.sample, self.labels, self.i = sample, labels, i
+        self.splits = [n for n in sizes for _ in (1, 2)]
+        self.buf = torch.zeros(scan_epochs, sum(self.splits),
+                               dtype=torch.int64, device=i.device)
+
+    def load(self, k: int) -> None:
+        rows = []
+        for _ in range(k):
+            idxs = self.sample()
+            rows.append(np.concatenate([idxs[f"{rel}{side}"]
+                                        for rel in RELATIONS
+                                        for side in (1, 2)]))
+        self.buf[:k].copy_(torch.from_numpy(np.stack(rows)))
+
+    def __call__(self):
+        row = self.buf.index_select(0, self.i)[0]
+        idxs = dict(zip((f"{rel}{side}" for rel in RELATIONS
+                         for side in (1, 2)), row.split(self.splits)))
+        return idxs, pair_targets(self.labels, idxs)
+
+
+@dataclasses.dataclass
+class _ScanRun:
+    """What :func:`_scan_epoch` reads and writes. Every tensor keeps its
+    storage for the whole run, as a CUDA graph's replays need."""
+
+    model: AdversarialLearnerV2
+    G: "Stage1Graphs"
+    opts: Dict[str, torch.optim.Adam]
+    gen: torch.Generator           # dropout
+    generators: Tuple[torch.Generator, ...]   # every one the epoch draws
+    use_clf: bool
+    draw: Callable                 # this epoch's (idxs, y_pairs)
+    i: torch.Tensor                # int64 [1]: this epoch's record row
+    out: torch.Tensor              # f32, what a segment copies: the two
+    record: torch.Tensor           # views [scan_epochs, 3] (sim, d, AE
+    last: torch.Tensor             # losses) and [2, P] (the last epoch's
+                                   # predictions and targets by relation)
+
+
+def _scan_epoch(run: _ScanRun) -> None:
+    """One epoch of scan mode on tensors alone (JAX ``_epoch``,
+    ``stage1.py:283-310``): its pairs, the similarity step and the
+    discriminator step; the losses go to row ``i`` of the record, the
+    pair predictions and targets to ``last``, and ``i`` advances.
+    Nothing in it waits for the device, so a CUDA graph can capture
+    it."""
+    idxs, y_pairs = run.draw()
+    loss_sim, aux = sim_step(run.model, run.opts, run.G, idxs, y_pairs,
+                             run.use_clf, run.gen)
+    loss_d = d_step(run.model, run.opts, run.G, aux["h_src"], aux["h_tar"])
+    run.record.index_copy_(0, run.i, torch.stack(
+        [loss_sim, loss_d, aux["loss_ae"]])[None])
+    run.last.copy_(torch.stack([
+        torch.cat([aux[f"probs_{rel}"] > 0.5 for rel in RELATIONS]).float(),
+        torch.cat([y_pairs[rel] for rel in RELATIONS])]))
+    run.i += 1
+
+
+# -------------------------------------------------------------- the trainer
 
 
 def train_adversarial(
@@ -436,8 +699,10 @@ def train_adversarial(
     holding the best weights, those weights as a state dict on the CPU
     (``state_dict``) and in the flax layout (``variables``, what
     ``ckpt_path`` gets), the per-repeat scores and their summary, the
-    per-epoch losses (``history``), the epoch timer's summary and the
-    evaluations' seconds (``eval_s``)."""
+    per-epoch losses (``history``), the epoch timer's summary, the
+    evaluations' seconds (``eval_s``) and, in scan mode, ``scan``: the
+    last repeat's eager epochs, captures, replays, each replay's kernel
+    launches and segments."""
     from bridged_gnn_tpu_torch.io.flax_weights import (
         flax_variables_from_state_dict,
     )
@@ -446,23 +711,35 @@ def train_adversarial(
     check_ported(cfg)
     dev = resolve_device(device)
     G = prepare_stage1_graphs(src_d, tar_d, cfg.backbone, dev)
-    y_src_np = np.asarray(src_d["y"])
-    y_tar_np = np.asarray(tar_d["y"])
+    y_src, y_tar = np.asarray(src_d["y"]), np.asarray(tar_d["y"])
+    # each relation's labels on its two sides
+    pair_labels = (("src", y_src, y_src), ("tar", y_tar, y_tar),
+                   ("cross", y_src, y_tar))
+    scan = cfg.scan_epochs > 0
 
     final = {"train": [], "val": [], "test": []}
     best_overall = None
     timer = EpochTimer(dev)
-    history, eval_s = [], []
+    history, eval_s, scan_info = [], [], None
     for rep in range(cfg.repeat):
         seed = cfg.seed if cfg.seed is not None else rep
         host_rng = np.random.default_rng(seed)
         model = build_model(cfg, src_d, tar_d, dev, seed)
-        opts = make_optimizers(model)
+        opts = make_optimizers(model, capturable=scan and dev.type == "cuda")
         gen = torch.Generator(device=dev).manual_seed(seed)
-        enu_src = PairEnumerator(src_d, "train", host_rng)
-        enu_tar = PairEnumerator(tar_d, "train", host_rng)
-        enu_cross = PairEnumeratorCross(src_d, tar_d, "train", host_rng)
-        evaluator = Stage1Evaluator(model, G, src_d, tar_d, cfg, host_rng)
+        # device sampling draws from a generator of its own, so that its
+        # runs take the host-sampled runs' dropout masks
+        sampler_gen = (torch.Generator(device=dev).manual_seed(
+            _seed_of(seed, 0x5A3))
+            if cfg.device_sampling else None)
+        if not cfg.device_sampling:
+            enus = (PairEnumerator(src_d, "train", host_rng),
+                    PairEnumerator(tar_d, "train", host_rng),
+                    PairEnumeratorCross(src_d, tar_d, "train", host_rng))
+        evaluator = (
+            DeviceStage1Evaluator(model, G, src_d, tar_d, cfg, seed)
+            if use_device_evaluator(cfg)
+            else Stage1Evaluator(model, G, src_d, tar_d, cfg, host_rng))
 
         best = {"epoch": -1, "train": (0, 0, 0), "val": (0, 0, 0),
                 "test": (0, 0, 0), "loss": 666.0}
@@ -479,78 +756,103 @@ def train_adversarial(
             if raw is not None:
                 model.load_state_dict(raw["model"])
                 for name, opt in opts.items():
-                    opt.load_state_dict(raw["optimizers"][name])
+                    load_optimizer_state(opt, raw["optimizers"][name],
+                                         opt.param_groups[0]["lr"])
                 gen.set_state(raw["generator"])
+                if sampler_gen is not None and "sampler_generator" in raw:
+                    # a host-sampled run's checkpoint holds none
+                    sampler_gen.set_state(raw["sampler_generator"])
                 host_rng.bit_generator.state = pickle.loads(
                     raw["host_rng_state"].numpy().tobytes())
                 start_epoch = int(raw["epoch"]) + 1
 
-        def sample_epoch():
-            i1s, i2s = enu_src.sampling(cfg.max_class_num, cfg.sample_size)
-            i1t, i2t = enu_tar.sampling(cfg.max_class_num, cfg.sample_size)
-            i1c, i2c = enu_cross.sampling(cfg.max_class_num,
-                                          cfg.sample_size)
-            idxs = dict(src1=i1s, src2=i2s, tar1=i1t, tar2=i2t, cross1=i1c,
-                        cross2=i2c)
-            y_pairs = dict(
-                src=(y_src_np[i1s] == y_src_np[i2s]).astype(np.float32),
-                tar=(y_tar_np[i1t] == y_tar_np[i2t]).astype(np.float32),
-                cross=(y_src_np[i1c] == y_tar_np[i2c]).astype(np.float32),
-            )
-            return idxs, y_pairs
+        def sample_epoch() -> Dict[str, np.ndarray]:
+            (i1s, i2s), (i1t, i2t), (i1c, i2c) = (
+                e.sampling(cfg.max_class_num, cfg.sample_size) for e in enus)
+            return {k: v.astype(np.int64) for k, v in dict(
+                src1=i1s, src2=i2s, tar1=i1t, tar2=i2t, cross1=i1c,
+                cross2=i2c).items()}
 
-        for epoch in range(start_epoch, cfg.num_epoch + 1):
-            t0 = time.time()
-            with timer:
-                idxs_np, y_pairs_np = sample_epoch()
-                idxs = _to_device(
-                    {k: v.astype(np.int64) for k, v in idxs_np.items()}, dev)
-                y_pairs = _to_device(y_pairs_np, dev)
-                loss_sim, aux = sim_step(model, opts, G, idxs, y_pairs,
-                                         cfg.use_clf, gen)
-                loss_d = d_step(model, opts, G, aux["h_src"], aux["h_tar"])
-            losses = dict(loss=float(loss_sim), loss_d=float(loss_d),
-                          loss_ae=float(aux["loss_ae"]))
-            history.append(dict(rep=rep, epoch=epoch, **losses))
-            train_scores = tuple(
-                eval_metric(y_pairs_np[k].astype(int),
-                            (aux[f"probs_{k}"] > 0.5).cpu().numpy()
-                            .astype(int), cfg.metric, "binary")
-                for k in ("src", "tar", "cross"))
-            if cfg.verbose:
-                print(f"[rep {rep}] epoch {epoch:03d} loss "
-                      f"{losses['loss']:.4f} d {losses['loss_d']:.4f} ae "
-                      f"{losses['loss_ae']:.4f} pair {train_scores} "
-                      f"{time.time() - t0:.2f}s")
+        def train_f1s(y_pairs, preds):
+            return tuple(eval_metric(y_pairs[k].astype(int),
+                                     preds[k].astype(int), cfg.metric,
+                                     "binary")
+                         for k in RELATIONS)
+
+        def check_numerics(losses, epoch):
             if cfg.check_numerics:
                 assert_all_finite(
-                    {"loss_sim": loss_sim,
+                    {"loss_sim": losses,
                      "params": dict(model.named_parameters())},
                     f"stage-1 state at epoch {epoch}")
+
+        def maybe_eval(epoch, train_scores, loss):
+            nonlocal best_state
             if (epoch >= cfg.start_eval_epoch
                     and epoch % cfg.eval_per_epoch == 0):
                 t_eval = time.perf_counter()
-                val = evaluator("val", epoch)
-                test = evaluator("test", epoch)
+                if isinstance(evaluator, DeviceStage1Evaluator):
+                    val, test = evaluator.both(epoch)
+                else:
+                    val = evaluator("val", epoch)
+                    test = evaluator("test", epoch)
                 eval_s.append(time.perf_counter() - t_eval)
                 if val[4] > best["val"][2]:
                     best.update(epoch=epoch, train=train_scores,
                                 val=(val[0], val[2], val[4]),
                                 test=(test[0], test[2], test[4]),
-                                loss=losses["loss"])
+                                loss=loss)
                     best_state = _cpu_state(model)
-            if ckptr is not None and (epoch % cfg.ckpt_every == 0
-                                      or epoch == cfg.num_epoch):
-                ckptr.save(epoch, dict(
-                    model=model.state_dict(),
-                    optimizers={n: o.state_dict() for n, o in opts.items()},
-                    generator=gen.get_state(), epoch=epoch,
-                    # the host sampler's state: the same pair stream on
-                    # resume
-                    host_rng_state=torch.frombuffer(bytearray(
-                        pickle.dumps(host_rng.bit_generator.state)),
-                        dtype=torch.uint8),
-                ))
+
+        def save(epoch):
+            state = dict(
+                model=model.state_dict(),
+                optimizers={n: o.state_dict() for n, o in opts.items()},
+                generator=gen.get_state(), epoch=epoch,
+                # the host sampler's state: the same pair stream on
+                # resume
+                host_rng_state=torch.frombuffer(bytearray(
+                    pickle.dumps(host_rng.bit_generator.state)),
+                    dtype=torch.uint8))
+            if sampler_gen is not None:
+                state["sampler_generator"] = sampler_gen.get_state()
+            ckptr.save(epoch, state)
+
+        if scan:
+            scan_info = _train_scan(
+                cfg, rep, model, opts, G, gen, sampler_gen, src_d, tar_d,
+                sample_epoch, timer, start_epoch, history, train_f1s,
+                check_numerics, maybe_eval, save if ckptr else None)
+        else:
+            for epoch in range(start_epoch, cfg.num_epoch + 1):
+                t0 = time.time()
+                with timer:
+                    idxs_np = sample_epoch()
+                    y_np = {rel: (y1[idxs_np[f"{rel}1"]]
+                                  == y2[idxs_np[f"{rel}2"]]).astype(
+                                      np.float32)
+                            for rel, y1, y2 in pair_labels}
+                    loss_sim, aux = sim_step(
+                        model, opts, G, _to_device(idxs_np, dev),
+                        _to_device(y_np, dev), cfg.use_clf, gen)
+                    loss_d = d_step(model, opts, G, aux["h_src"],
+                                    aux["h_tar"])
+                losses = dict(loss=float(loss_sim), loss_d=float(loss_d),
+                              loss_ae=float(aux["loss_ae"]))
+                history.append(dict(rep=rep, epoch=epoch, **losses))
+                train_scores = train_f1s(
+                    y_np, {k: (aux[f"probs_{k}"] > 0.5).cpu().numpy()
+                           for k in RELATIONS})
+                if cfg.verbose:
+                    print(f"[rep {rep}] epoch {epoch:03d} loss "
+                          f"{losses['loss']:.4f} d {losses['loss_d']:.4f} "
+                          f"ae {losses['loss_ae']:.4f} pair {train_scores} "
+                          f"{time.time() - t0:.2f}s")
+                check_numerics(loss_sim, epoch)
+                maybe_eval(epoch, train_scores, losses["loss"])
+                if ckptr is not None and (epoch % cfg.ckpt_every == 0
+                                          or epoch == cfg.num_epoch):
+                    save(epoch)
         if best_state is None:
             best_state = _cpu_state(model)
         final["train"].append(best["train"])
@@ -577,7 +879,69 @@ def train_adversarial(
                                 best=arr.max(axis=0).tolist())
     return dict(best=best, model=model, state_dict=best_state,
                 variables=variables, final=final, summary=summary,
-                history=history, throughput=timer.summary(), eval_s=eval_s)
+                history=history, throughput=timer.summary(), eval_s=eval_s,
+                scan=scan_info)
+
+
+def _train_scan(cfg, rep, model, opts, G, gen, sampler_gen, src_d, tar_d,
+                sample_epoch, timer, start_epoch, history, train_f1s,
+                check_numerics, maybe_eval, save) -> dict:
+    """One repeat's epochs in scan mode (JAX ``stage1.py:1038-1129``): the
+    run's buffers and pair source (host-sampled stacks or the device
+    samplers), then stage 2's ``run_scan`` over :func:`segment_bounds`,
+    with the host's work at every segment's end: history, train F1,
+    numerics, evaluation and checkpoint."""
+    dev = G.g_src.x.device
+    samplers, labels = build_device_samplers(
+        src_d, tar_d, cfg.max_class_num, cfg.sample_size, device=dev)
+    sizes = tuple(samplers[rel].num_pairs for rel in RELATIONS)
+    i = torch.zeros(1, dtype=torch.int64, device=dev)
+    if sampler_gen is not None:
+        def draw():
+            return sample_epoch_on_device(samplers, labels, sampler_gen)
+
+        load, generators = None, (gen, sampler_gen)
+    else:
+        draw = _HostPairs(sample_epoch, sizes, cfg.scan_epochs, labels, i)
+        load, generators = draw.load, (gen,)
+    rows = 3 * cfg.scan_epochs
+    out = torch.zeros(rows + 2 * sum(sizes), dtype=torch.float32,
+                      device=dev)
+    run = _ScanRun(
+        model=model, G=G, opts=opts, gen=gen, generators=generators,
+        use_clf=cfg.use_clf, draw=draw, i=i, out=out,
+        record=out[:rows].view(-1, 3), last=out[rows:].view(2, -1))
+    split_at = np.cumsum(sizes)[:-1]
+
+    def after_segment(first, last, host):
+        k = last - first + 1
+        record = host[:rows].reshape(-1, 3)[:k]
+        ends = host[rows:].reshape(2, -1)
+        preds, ys = (dict(zip(RELATIONS, np.split(a, split_at)))
+                     for a in ends)
+        for j in range(k):
+            history.append(dict(rep=rep, epoch=first + j,
+                                loss=float(record[j, 0]),
+                                loss_d=float(record[j, 1]),
+                                loss_ae=float(record[j, 2])))
+        train_scores = train_f1s(ys, preds)
+        if cfg.verbose:
+            print(f"[rep {rep}] epochs {first}-{last} loss "
+                  f"{float(record[-1, 0]):.4f} pair {train_scores}")
+        check_numerics(record[:, 0], last)
+        maybe_eval(last, train_scores, float(record[-1, 0]))
+        if save is not None:
+            save(last)
+
+    segments = segment_bounds(start_epoch, cfg)
+    info = run_scan(segments, lambda: _scan_epoch(run), generators, i, timer,
+                    lambda first, last: out.cpu().numpy(), after_segment,
+                    load)
+    return dict(info, segments=segments)
+
+
+def _to_device(arrays: Dict[str, np.ndarray], dev) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
 
 def _cpu_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:

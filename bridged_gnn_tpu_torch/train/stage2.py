@@ -39,8 +39,9 @@ and scan mode is the JAX package's production recipe
 padded node count (``ops/spmm.py::resolve_adjacency_method``; the slot
 layouts at every size since the H100 measurement), ``"dense"`` and
 ``"gather"`` run KT-GNN's attention and the SpMMs in plain PyTorch.
-``n_shards > 1`` raises ``NotImplementedError`` naming the ROADMAP item
-that brings it.
+``n_shards > 1`` (or another multi-device field off its default)
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+:func:`run_scan` is the segment loop that stage 1's scan mode shares.
 """
 
 from __future__ import annotations
@@ -134,14 +135,25 @@ class Stage2Config:
     matmul_precision: Optional[str] = None
     # the convs' message tables: None (f32) or "bfloat16"
     message_dtype: Optional[str] = None
-    # an option of the JAX runtime the port does not run yet; any other
-    # value than the default raises (see _NOT_PORTED)
+    # JAX's compile-time knob (layouts as jit arguments or constants):
+    # the port's layouts are always tensors the kernels take, so every
+    # value it accepts ("auto", True, False) runs alike
+    pass_layouts: "str | bool" = "auto"
+    # options of the JAX runtime's multi-device training the port does
+    # not run yet; any other value than the default raises (see
+    # _NOT_PORTED)
     n_shards: int = 1
+    shard_layout: str = "halo"
+    halo_overlap: bool = False
+    halo_node_block: Optional[int] = None
 
 
 # field, the values the port runs, the ROADMAP.md item that brings the rest
 _NOT_PORTED = (
     ("n_shards", (1,), "Queue 1 item 9 (multi-device)"),
+    ("shard_layout", ("halo",), "Queue 1 item 9 (multi-device)"),
+    ("halo_overlap", (False,), "Queue 1 item 9 (multi-device)"),
+    ("halo_node_block", (None,), "Queue 1 item 9 (multi-device)"),
 )
 
 
@@ -170,6 +182,8 @@ def check_ported(cfg: Stage2Config) -> None:
             "takes no frontiers")
     if cfg.scan_epochs < 0:
         raise ValueError(f"scan_epochs must be >= 0, got {cfg.scan_epochs}")
+    if cfg.pass_layouts not in ("auto", True, False):
+        raise ValueError(f"pass_layouts: {cfg.pass_layouts!r}")
     if cfg.message_dtype not in MSG_DTYPES:
         raise ValueError(f"message_dtype must be one of {list(MSG_DTYPES)}, "
                          f"got {cfg.message_dtype!r}")
@@ -515,15 +529,17 @@ def _epoch_body(run: _ScanRun) -> None:
     run.i += 1
 
 
-def _capture(run: _ScanRun, stream: torch.cuda.Stream):
-    """One epoch captured in a CUDA graph on ``stream``, the dropout
-    generator registered with it; and the kernel launches each replay
-    makes, by wrapper and width. A failed capture raises."""
+def capture_epoch(body, generators, stream: torch.cuda.Stream):
+    """``body()``, one epoch, captured in a CUDA graph on ``stream``, the
+    ``generators`` it draws from registered with it; and the kernel
+    launches each replay makes, by wrapper and width. A failed capture
+    raises."""
     graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(run.gen)
+    for gen in generators:
+        graph.register_generator_state(gen)
     before = fused_kernels.launch_counts()
     with torch.cuda.graph(graph, stream=stream):
-        _epoch_body(run)
+        body()
     per_replay = {}
     for name, by_d in fused_kernels.launch_counts().items():
         diff = {d: n - before[name].get(d, 0) for d, n in by_d.items()
@@ -539,7 +555,7 @@ def _capture(run: _ScanRun, stream: torch.cuda.Stream):
 _CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
 
 
-def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+def capture_stream(dev: torch.device) -> torch.cuda.Stream:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     if index not in _CAPTURE_STREAMS:
         _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
@@ -738,32 +754,36 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
     )
 
 
-def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
-               start_epoch: int, record, check_numerics, save) -> dict:
-    """Scan mode's chunk loop (JAX ``stage2.py:896-968``). Each chunk of
-    ``k = min(scan_epochs, remaining)`` epochs runs :func:`_epoch_body` k
-    times, then makes one synchronize and one copy of its ``[k]`` rows of
-    losses and counts; the host scores them, records the epochs, checks
-    numerics and checkpoints.
+def run_scan(segments, body, generators, i: torch.Tensor,
+             timer: EpochTimer, fetch, after, load=None) -> dict:
+    """The segment loop of both trainers' scan modes. For each segment
+    ``(first, last)`` of k epochs, timed as one ``timer.chunk(k)``: the
+    segment's inputs (``load(k)``), the record row counter ``i`` zeroed,
+    ``body()`` k times, and ``fetch(first, last)``, the segment's one
+    synchronize and copy to the host; then, outside the timer,
+    ``after(first, last, fetched)``.
 
-    On the card the first :data:`WARMUP_EPOCHS` epochs run eagerly on a
-    side stream, the next is captured there once, and every later epoch
-    is a replay of that graph. On the CPU every epoch runs eagerly."""
-    dev = run.g.x.device
+    On the card the first :data:`WARMUP_EPOCHS` epochs run eagerly on the
+    capture stream, the next is captured there once (``generators``
+    registered with it), and every later epoch is a replay of that graph.
+    On the CPU every epoch runs eagerly. Returns the eager epochs, the
+    captures, the replays and each replay's kernel launches."""
+    dev = i.device
     on_card = dev.type == "cuda"
-    stream = _capture_stream(dev) if on_card else None
+    stream = capture_stream(dev) if on_card else None
     graph, per_replay = None, {}
     eager = replays = 0
     if stream is not None:
         stream.wait_stream(torch.cuda.current_stream(dev))
     with (torch.cuda.stream(stream) if on_card
           else contextlib.nullcontext()):
-        epoch = start_epoch
-        while epoch <= cfg.num_epoch:
-            k = min(cfg.scan_epochs, cfg.num_epoch - epoch + 1)
+        for first, last in segments:
+            k = last - first + 1
             captured, eager_before = False, eager
             with timer.chunk(k):
-                run.i.zero_()
+                if load is not None:
+                    load(k)
+                i.zero_()
                 for _ in range(k):
                     if not on_card or eager < WARMUP_EPOCHS:
                         with warnings.catch_warnings():
@@ -771,34 +791,56 @@ def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
                             # a capture, as the warm-up epochs do
                             warnings.filterwarnings(
                                 "ignore", message=".*capturable=True")
-                            _epoch_body(run)
+                            body()
                         eager += 1
                         continue
                     if graph is None:
-                        graph, per_replay = _capture(run, stream)
+                        graph, per_replay = capture_epoch(body, generators,
+                                                          stream)
                         captured = True
                     graph.replay()
                     replays += 1
-                # the chunk's one synchronize and device-to-host copy
-                rec = run.record[:k].cpu().numpy()
-                check_numerics(rec[:, :2], epoch + k - 1)
-            if (epoch == start_epoch or captured
+                fetched = fetch(first, last)
+            if (first == segments[0][0] or captured
                     or (on_card and eager > eager_before)):
-                # the first chunk, and on the card the warm-up epochs and
-                # the capture, stay out of the steady statistics
+                # the first segment, and on the card the warm-up epochs
+                # and the capture, stay out of the steady statistics
                 timer.warmup = len(timer.times)
-            counts = rec[:, 2:].reshape(k, len(_TABLES), 3, run.bins)
-            for j in range(k):
-                sc = [score_from_counts(*counts[j, t], metric=cfg.metric,
-                                        f1_average=cfg.f1_average)
-                      for t in range(len(_TABLES))]
-                record(epoch + j, float(rec[j, 0]), float(rec[j, 1]),
-                       dict(train=sc[0], val=sc[1], test=sc[2]),
-                       dict(source=sc[3], target=sc[4], target_hat=sc[2]))
-            epoch += k
-            if save is not None:
-                save(epoch - 1)
+            after(first, last, fetched)
     if stream is not None:
         torch.cuda.current_stream(dev).wait_stream(stream)
     return dict(eager_epochs=eager, captures=int(graph is not None),
                 replays=replays, launches_per_replay=per_replay)
+
+
+def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
+               start_epoch: int, record, check_numerics, save) -> dict:
+    """Scan mode's chunk loop (JAX ``stage2.py:896-968``) on
+    :func:`run_scan`: chunks of ``k = min(scan_epochs, remaining)``
+    epochs of :func:`_epoch_body`, each copying its ``[k]`` rows of
+    losses and counts to the host in one copy (numerics checked there);
+    the host scores them, records the epochs and checkpoints."""
+
+    def fetch(first, last):
+        rec = run.record[: last - first + 1].cpu().numpy()
+        check_numerics(rec[:, :2], last)
+        return rec
+
+    def after(first, last, rec):
+        k = last - first + 1
+        counts = rec[:, 2:].reshape(k, len(_TABLES), 3, run.bins)
+        for j in range(k):
+            sc = [score_from_counts(*counts[j, t], metric=cfg.metric,
+                                    f1_average=cfg.f1_average)
+                  for t in range(len(_TABLES))]
+            record(first + j, float(rec[j, 0]), float(rec[j, 1]),
+                   dict(train=sc[0], val=sc[1], test=sc[2]),
+                   dict(source=sc[3], target=sc[4], target_hat=sc[2]))
+        if save is not None:
+            save(last)
+
+    segments = [(e, min(e + cfg.scan_epochs, cfg.num_epoch + 1) - 1)
+                for e in range(start_epoch, cfg.num_epoch + 1,
+                               cfg.scan_epochs)]
+    return run_scan(segments, lambda: _epoch_body(run), (run.gen,), run.i,
+                    timer, fetch, after)

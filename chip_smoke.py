@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's KT-GNN serving and training paths, its
-stage-2 model zoo, the rest of stage 2 and stage 1 on one GPU.
+stage-2 model zoo, the rest of stage 2, stage 1 (loop and scan mode),
+the one-call pipeline and similarity serving on one GPU.
 
     python3 chip_smoke.py
 
@@ -196,7 +197,38 @@ Phases, in order; any failure exits non-zero:
    the stage-1 CLI with the recipe's flags (``--version v2``), the same
    with ``--version v1`` (its SpMM launches counted: 7 a step, 8 an
    evaluation and the bridge's encodes, by width), and the stage-2 CLI
-   on the v2 run's npz, which must print ``[stage-2 best]``.
+   on the v2 run's npz, which must print ``[stage-2 best]``;
+24. stage 1 in scan mode on phase 21's graph and model: (a) 30 epochs in
+   segments of 10 ending on the evaluations at 20, 25 and 30, pairs
+   sampled on the host, against phase 21's loop on the same pairs: losses
+   within rtol 1e-4 (capturable against foreach Adam, phase 14's rule),
+   the same best epoch, 7 SpMM launches at D=128 a replay and no other
+   kernel, 2 eager epochs and one capture counted; (b) the same with
+   ``device_sampling`` (its epoch median, and the device evaluator's 4
+   launches an evaluation), a 20-epoch run without evaluations traced as
+   phase 10's on its second segment (10 replays: busy share, top ops,
+   the kernel's ms per replayed epoch), and one epoch of the device
+   samplers' pairs checked on the host (train rows, m classes of
+   per_class ids a side, pair_enumeration order, (per_class·m)² pairs,
+   targets from the labels); (c) ``DeviceStage1Evaluator.both`` against
+   the host evaluator on phase 21's model (medians of 5 calls each),
+   ``both(e)`` equal to the per-split calls, each score ``eval_metric``'s
+   over the pairs it drew, 4 launches a call; (d) a device-sampled run
+   resumed from its first segment's checkpoint, bit-identical to the
+   straight run;
+25. ``run_pipeline`` on ``RECIPES["office_amazon2dslr_tpu"]``'s settings
+   with ``dataset_name="sync_unrelational"``, cut to 40 stage-1 epochs
+   (evaluating from 30) and 60 stage-2 epochs: the npz, each stage's
+   seconds, the bf16 attention and reduce kernels launched in stage 2;
+   then ``python -m bridged_gnn_tpu_torch.pipeline --config`` on its
+   JSON in a process of its own, which must print the three result
+   lines;
+26. similarity serving: a ``SimilarityScorer`` of phase 22's v2 model
+   (mlp head, exact), its top-20 of all 15,000 target rows against the
+   bridge's cross proposals, 256 rows against the same scorer on the CPU
+   (equal but for named near-ties within 1e-5), and ``/healthz``,
+   ``/meta`` and ``/v1/topk`` over HTTP (medians of 10 requests of 1 and
+   256 rows).
 
 Phase 7 also runs one ``memory_policy="lean"`` step per graph (the
 embedding conv recomputed in the backward) against the plain step: loss
@@ -227,7 +259,10 @@ over one epoch's replayed calls, the hub loop's ms and the wide calls,
 and its launches on phase 17's served GraphSAGE predict and phase 18's
 ConvNet epoch; phase 21's training run adds its launches to the count
 (``launches_stage1_by_d``, ``ms_stage1`` per epoch, one step's replayed
-calls in ``stage1_replay``). The last line is ``{"ok": true, "device":
+calls in ``stage1_replay``), and so do phase 24's scan runs
+(``launches_stage1_scan_by_d``; ``ms_stage1_scan_per_replayed_epoch``
+from the traced segment); phase 25's bf16 launches join the bf16 rows'
+counts (``launches_pipeline``). The last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -3168,7 +3203,8 @@ def stage1_phase(card: str):
     s = time.perf_counter() - t_phase
     log(f"phase 21 (stage-1 training): {s:.1f} s [{card}]")
     return dict(replay=replay, train=train, trace=traced, parity=parity,
-                model=res["model"], data=(src, tar, m_src, m_tar), s=s)
+                model=res["model"], data=(src, tar, m_src, m_tar), s=s,
+                loop_history=res["history"], loop_best=res["best"])
 
 
 def _inverse(mapper: dict, n: int) -> np.ndarray:
@@ -3355,6 +3391,7 @@ def bridge_phase(s1, card: str) -> dict:
                             losses=[x["loss"] for x in v2["history"]],
                             edges_shared_exact_rerank=shared, **r)))
     out["v2"] = list(runs.values())
+    out["v2_model"] = v2["model"]     # phase 26 serves it
     del v2, G2, G
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
@@ -3426,6 +3463,467 @@ def recipe0_phase(card: str) -> dict:
     out["s"] = time.perf_counter() - t_phase
     log(f"phase 23 (run.sh recipe 0 on the port): {out['s']:.1f} s [{card}]")
     return out
+
+
+# ------------------------------ phases 24-26: stage-1 scan, pipeline, serving
+
+# phase 24: phase 21's run in scan mode (segments of 10, ending on the
+# evaluations at 20, 25 and 30), host- and device-sampled
+STAGE1_SCAN = 10
+# (b): the device-sampled run traced, its evaluations off: the second
+# segment, 10 replays after the capture
+STAGE1_TRACE_EPOCHS = 20
+EVAL_REPS = 5            # (c): evaluator calls timed per kind
+RESUME_EPOCHS = 12       # (d): a device-sampled run of 3 segments of 4,
+RESUME_AT = 4            # resumed after the first
+# phase 25: RECIPES["office_amazon2dslr_tpu"] on sync_unrelational, depth
+# cut (the recipe: 400 stage-1 epochs evaluating from 300, 300 stage-2)
+PIPE_STAGE1 = dict(num_epoch=40, start_eval_epoch=30)
+PIPE_STAGE2 = dict(num_epoch=60)
+# phase 26: the scorer of phase 22's v2 model
+SERVE_K = 20             # BRIDGE's k_cross
+SERVE_ROW_BLOCK = 256    # the serving CLI's default
+SERVE_CPU_ROWS = 256     # target rows scored on the CPU too
+SERVE_REPS = 10          # /v1/topk requests timed per batch size
+SERVE_BATCHES = (1, 256)
+
+
+def stage1_scan_run(src, tar, **kw):
+    """``train_adversarial`` of the v1 model in scan mode on the card,
+    counts at 0 just before; returns the result, the run's seconds and
+    the wrappers' counts."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    cfg = stage1_cfg(**{**dict(num_epoch=STAGE1_EPOCHS,
+                               start_eval_epoch=STAGE1_EVAL_FROM,
+                               eval_per_epoch=STAGE1_EVAL_EVERY,
+                               scan_epochs=STAGE1_SCAN), **kw})
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ts1.train_adversarial(src, tar, cfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counted = {n: c for n, c in fk.launch_counts().items() if c}
+    info = res["scan"]
+    evals = len(res["eval_s"])
+    per_replay = {"gather_reduce": STAGE1_PER_STEP}
+    # the device evaluator encodes each domain once for both splits
+    per_eval = 4 if cfg.device_sampling else STAGE1_EVAL_FORWARDS
+    want = {"gather_reduce": {128: STAGE1_PER_STEP[128] * (
+        info["eager_epochs"] + info["captures"]) + per_eval * evals}}
+    if (info["launches_per_replay"] != per_replay or counted != want
+            or info["captures"] != 1
+            or info["eager_epochs"] + info["replays"] != cfg.num_epoch):
+        raise RuntimeError(f"stage-1 scan: {info}, counted {counted}, want "
+                           f"{want} and {per_replay} a replay")
+    return res, run_s, counted
+
+
+def check_device_pairs(src, tar, cfg) -> dict:
+    """Phase 24 (b): one epoch's pairs drawn by the device samplers the
+    run uses, on the card: every id a train row of its domain, each side
+    ``per_class`` ids of each of ``m`` classes (both sides the same
+    classes in the same order), in pair_enumeration order, and the count
+    JAX's sampler gives, ``(per_class · m)²``; targets from the labels."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train.device_sampler import (
+        build_device_samplers,
+        sample_epoch_on_device,
+    )
+
+    samplers, labels = build_device_samplers(
+        src, tar, cfg.max_class_num, cfg.sample_size, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    idxs, y_pairs = sample_epoch_on_device(samplers, labels, gen)
+    idxs = {k: v.cpu().numpy() for k, v in idxs.items()}
+    out = {}
+    for rel, d1, d2 in (("src", src, src), ("tar", tar, tar),
+                        ("cross", src, tar)):
+        s = samplers[rel]
+        a, b = idxs[f"{rel}1"], idxs[f"{rel}2"]
+        n = s.per_class * s.m
+        y1, y2 = np.asarray(d1["y"]), np.asarray(d2["y"])
+        side1, side2 = a[:n], b.reshape(n, n)[:, 0]
+        ok = (len(a) == len(b) == n * n == s.num_pairs
+              and np.asarray(d1["train_mask"])[a].all()
+              and np.asarray(d2["train_mask"])[b].all()
+              and (a.reshape(n, n) == side1).all()
+              and (b.reshape(n, n) == side2[:, None]).all())
+        for side, y in ((side1, y1), (side2, y2)):
+            blocks = y[side].reshape(s.m, s.per_class)
+            ok = ok and (blocks == blocks[:, :1]).all() \
+                and len(set(blocks[:, 0])) == s.m
+        ok = ok and (y1[side1].reshape(s.m, -1)[:, 0]
+                     == y2[side2].reshape(s.m, -1)[:, 0]).all()
+        ok = ok and np.array_equal(y_pairs[rel].cpu().numpy(),
+                                   (y1[a] == y2[b]).astype(np.float32))
+        if not ok:
+            raise RuntimeError(f"device pairs ({rel}) are not the sampler's")
+        out[rel] = dict(pairs=int(len(a)), classes=int(s.m),
+                        per_class=int(s.per_class))
+    return out
+
+
+def device_eval_phase(src, tar, model) -> dict:
+    """Phase 24 (c): ``DeviceStage1Evaluator.both`` against the host
+    evaluator on one model: medians of EVAL_REPS calls each; ``both(e)``
+    equal to the two per-split calls; each score ``eval_metric``'s over
+    the pairs it drew, scored on the host from the same embeddings; 4
+    SpMM launches a call (one encode per domain)."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+    from bridged_gnn_tpu_torch.train.metrics import eval_metric
+
+    cfg = stage1_cfg(scan_epochs=STAGE1_SCAN, device_sampling=True)
+    G = ts1.prepare_stage1_graphs(src, tar, "gnn", "cuda")
+    dev_ev = ts1.DeviceStage1Evaluator(model, G, src, tar, cfg)
+    host_ev = ts1.Stage1Evaluator(model, G, src, tar, cfg,
+                                  np.random.default_rng(0))
+
+    def timed(fn):
+        times = []
+        for e in range(EVAL_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(e)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    dev_s = timed(dev_ev.both)
+    host_s = timed(lambda e: (host_ev("val", e), host_ev("test", e)))
+    fk.reset_launch_counts()
+    both = dev_ev.both(7)
+    launches = {n: c for n, c in fk.launch_counts().items() if c}
+    if launches != {"gather_reduce": {128: 4}}:
+        raise RuntimeError(f"device evaluation launched {launches}")
+    if both != (dev_ev("val", 7), dev_ev("test", 7)):
+        raise RuntimeError("both() differs from the per-split calls")
+    z_src, z_tar = dev_ev.encode()
+    sim = model.source_learner.sim_net
+    ys, yt = np.asarray(src["y"]), np.asarray(tar["y"])
+    for split, scores in zip(("val", "test"), both):
+        pairs = dev_ev.draw(split, 7)
+        with torch.no_grad():
+            for score, rel, z1, z2, y1, y2 in (
+                    (scores[0], "src", z_src, None, ys, ys),
+                    (scores[2], "tar", z_tar, None, yt, yt),
+                    (scores[4], "cross", z_src, z_tar, ys, yt)):
+                i1, i2 = pairs[rel]
+                p = (sim.similarity(z1, i1, i2) if z2 is None
+                     else sim.similarity_cross_domain(z1, z2, i1, i2))
+                i1, i2 = i1.cpu().numpy(), i2.cpu().numpy()
+                want = eval_metric((y1[i1] == y2[i2]).astype(int),
+                                   (p > 0.5).cpu().numpy().astype(int),
+                                   "f1", "binary")
+                if score != want:
+                    raise RuntimeError(f"device evaluation {split} {rel}: "
+                                       f"{score} from counts, {want} "
+                                       "by eval_metric")
+    return dict(device_both_s_median=dev_s, host_val_test_s_median=host_s,
+                launches_per_call=launches, val=both[0], test=both[1],
+                pairs_per_relation=[s.num_pairs
+                                    for s in dev_ev.samplers["val"]])
+
+
+def stage1_resume_phase(src, tar) -> dict:
+    """Phase 24 (d): a device-sampled scan run checkpointed at its first
+    segment's end and resumed (its own warm-up epochs and capture) against
+    the straight run: the same losses, bit for bit."""
+    import dataclasses
+
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    cfg = stage1_cfg(num_epoch=RESUME_EPOCHS,
+                     start_eval_epoch=RESUME_EPOCHS + 1,
+                     scan_epochs=RESUME_AT, device_sampling=True)
+    straight = ts1.train_adversarial(src, tar, cfg, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        ts1.train_adversarial(src, tar, dataclasses.replace(
+            cfg, num_epoch=RESUME_AT, ckpt_dir=tmp), device="cuda")
+        resumed = ts1.train_adversarial(src, tar, dataclasses.replace(
+            cfg, ckpt_dir=tmp, resume=True), device="cuda")
+    if resumed["history"] != straight["history"][RESUME_AT:]:
+        raise RuntimeError("stage-1 scan resume: the resumed epochs differ "
+                           "from the straight run's")
+    return dict(epochs=RESUME_EPOCHS, resumed_at=RESUME_AT,
+                resumed_epochs=len(resumed["history"]), bit_identical=True)
+
+
+def stage1_scan_phase(s1, card: str) -> dict:
+    """Phase 24: phase 21's model and graph in scan mode. (a) host
+    sampling against phase 21's loop on the same pairs: losses within
+    LOSS_RTOL (capturable against foreach Adam, phase 14's rule), the
+    same best epoch, 7 SpMM launches a replay and no other kernel; (b)
+    device sampling: its epoch median, one traced segment's busy share,
+    and the device samplers' pairs checked; (c) the device evaluator
+    against the host one; (d) resume."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    t_phase = time.perf_counter()
+    src, tar, _, _ = s1["data"]
+    out = {}
+    # (a) host sampling against the loop
+    host, host_s, host_counts = stage1_scan_run(src, tar)
+    loop = s1["loop_history"]
+    loss_err = max(abs(a[k] - b[k]) / abs(b[k])
+                   for a, b in zip(host["history"], loop, strict=True)
+                   for k in ("loss", "loss_d", "loss_ae"))
+    if not loss_err <= LOSS_RTOL:
+        raise RuntimeError(f"stage-1 scan vs loop losses differ by "
+                           f"{loss_err:.3g} (relative) > {LOSS_RTOL}")
+    if host["best"]["epoch"] != s1["loop_best"]["epoch"]:
+        raise RuntimeError(f"stage-1 scan best epoch {host['best']['epoch']}"
+                           f" against the loop's {s1['loop_best']['epoch']}")
+    out["host"] = dict(
+        phase="stage1_scan_host", epochs=STAGE1_EPOCHS, scan=STAGE1_SCAN,
+        segments=host["scan"]["segments"], max_rel_loss_err=loss_err,
+        best_epoch=host["best"]["epoch"],
+        best_equal_loop=host["best"] == s1["loop_best"],
+        launches=host_counts, eager=host["scan"]["eager_epochs"],
+        replays=host["scan"]["replays"],
+        launches_per_replay=host["scan"]["launches_per_replay"],
+        epoch_s_median=host["throughput"]["p50_s"],
+        steady_epochs=host["throughput"]["steady_steps"],
+        eval_s_median=statistics.median(host["eval_s"]), run_s=host_s,
+        loop_epoch_s_median=s1["train"]["epoch_s_median"])
+    log(json.dumps(dict(card=card, **out["host"])))
+    # (b) device sampling: epoch median, a traced segment, the pairs
+    dev, dev_s, dev_counts = stage1_scan_run(src, tar, device_sampling=True)
+    cfg = stage1_cfg(num_epoch=STAGE1_TRACE_EPOCHS,
+                     start_eval_epoch=STAGE1_TRACE_EPOCHS + 1,
+                     scan_epochs=STAGE1_SCAN, device_sampling=True)
+    traced = trace_phase("stage1_scan_trace", None, cfg, window=1,
+                         epochs=STAGE1_SCAN, trainer=(
+                             ts1, lambda: ts1.train_adversarial(
+                                 src, tar, cfg, device="cuda")))
+    if traced["hand_kernel_launches"] != STAGE1_PER_STEP[128]:
+        raise RuntimeError(f"stage-1 traced segment: "
+                           f"{traced['hand_kernel_launches']} hand-written "
+                           "launches an epoch")
+    out["device"] = dict(
+        phase="stage1_scan_device", epochs=STAGE1_EPOCHS, scan=STAGE1_SCAN,
+        launches=dev_counts, eager=dev["scan"]["eager_epochs"],
+        replays=dev["scan"]["replays"],
+        launches_per_replay=dev["scan"]["launches_per_replay"],
+        epoch_s_median=dev["throughput"]["p50_s"],
+        epoch_s_mean=dev["throughput"]["mean_s"],
+        steady_epochs=dev["throughput"]["steady_steps"],
+        eval_s_median=statistics.median(dev["eval_s"]), run_s=dev_s,
+        best=dev["best"], losses_first_last=[dev["history"][0]["loss"],
+                                             dev["history"][-1]["loss"]],
+        pairs=check_device_pairs(src, tar, cfg))
+    log(json.dumps(dict(card=card, **out["device"])))
+    log(json.dumps(dict(card=card, **traced)))
+    out["trace"] = traced
+    torch.cuda.empty_cache()
+    # (c) the device evaluator; (d) resume
+    out["eval"] = device_eval_phase(src, tar, s1["model"])
+    log(json.dumps(dict(phase="stage1_device_eval", card=card,
+                        **out["eval"])))
+    out["resume"] = stage1_resume_phase(src, tar)
+    log(json.dumps(dict(phase="stage1_scan_resume", card=card,
+                        **out["resume"])))
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"phase 24 (stage-1 scan mode): {out['s']:.1f} s [{card}]")
+    return out
+
+
+def pipeline_phase(card: str) -> dict:
+    """Phase 25: ``run_pipeline`` on ``RECIPES["office_amazon2dslr_tpu"]``'s
+    settings with ``dataset_name="sync_unrelational"``, depth cut
+    (PIPE_STAGE1, PIPE_STAGE2), counts at 0 just before: it must write
+    the npz, give finite scores and launch the bf16 attention and reduce
+    kernels in stage 2; each stage's seconds and the launches. Then
+    ``python -m bridged_gnn_tpu_torch.pipeline --config`` on that
+    configuration's JSON, a process of its own, which must print the
+    three result lines."""
+    import dataclasses
+
+    from bridged_gnn_tpu_torch import pipeline
+    from bridged_gnn_tpu_torch.config import RECIPES
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    recipe = RECIPES["office_amazon2dslr_tpu"]
+    cfg = dataclasses.replace(
+        recipe, dataset_name="sync_unrelational",
+        stage1=dataclasses.replace(recipe.stage1, **PIPE_STAGE1),
+        stage2=dataclasses.replace(recipe.stage2, **PIPE_STAGE2))
+    npz = "sync_unrelational_bridged_graph.npz"
+    with tempfile.TemporaryDirectory() as tmp:
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = pipeline.run_pipeline(cfg, out_dir=tmp)
+        run_s = time.perf_counter() - t0
+        counted = {n: c for n, c in fk.launch_counts().items() if c}
+        wrote = os.path.isfile(os.path.join(tmp, npz))
+        path = os.path.join(tmp, "cfg.json")
+        with open(path, "w") as f:
+            f.write(cfg.to_json())
+        cli_dir = os.path.join(tmp, "cli")
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "bridged_gnn_tpu_torch.pipeline",
+             "--config", path, "--out_dir", cli_dir],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        cli_wrote = os.path.isfile(os.path.join(cli_dir, npz))
+    lines = {tag: [ln for ln in cli.stdout.splitlines()
+                   if ln.startswith(tag)]
+             for tag in ("[stage-1 best]", "[stage-2 best]", "[diagnostics]")}
+    bf16 = {n for n, by_d in counted.items()
+            if any(str(k).endswith(":bf16") for k in by_d)}
+    fwd = {"attention_sel_fwd", "attention_fwd"} & bf16
+    bwd = {"attention_sel_bwd", "attention_bwd"} & bf16
+    if (not wrote or not fwd or not bwd or "slot_reduce" not in bf16
+            or not np.isfinite(res["stage2"]["loss"])):
+        raise RuntimeError(f"pipeline: launched {counted}, npz {wrote}, "
+                           f"stage 2 {res['stage2']}")
+    if cli.returncode != 0 or not all(lines.values()) or not cli_wrote:
+        raise RuntimeError(f"pipeline CLI: rc {cli.returncode}, npz "
+                           f"{cli_wrote}, output tail {cli.stdout[-400:]!r}"
+                           f" {cli.stderr[-400:]!r}")
+    graph = res["bridged_graph"]
+    out = dict(phase="pipeline", recipe="office_amazon2dslr_tpu",
+               dataset="sync_unrelational", cuts=dict(
+                   stage1=PIPE_STAGE1, stage2=PIPE_STAGE2),
+               seconds=res["seconds"], run_s=run_s, launches=counted,
+               stage1_best=res["stage1"],
+               stage2_best={k: v for k, v in res["stage2"].items()
+                            if k != "per_head"},
+               diagnostics=res["diagnostics"],
+               nodes=int(graph["x"].shape[0]),
+               edges=int(graph["edge_index"].shape[1]),
+               cli_s=cli_s, cli_stage2_line=lines["[stage-2 best]"][0])
+    log(json.dumps(dict(card=card, **out)))
+    log(f"phase 25 (the pipeline): {run_s:.1f} s, its CLI {cli_s:.1f} s "
+        f"[{card}]")
+    return out
+
+
+def serve_similarity_phase(s1, bridge, card: str) -> dict:
+    """Phase 26: a ``SimilarityScorer`` of phase 22's v2 model (mlp
+    backbone and head), exact: its top-k of every target row against
+    the bridge's cross proposals (with the mlp backbone an isolated
+    node's encode is the graph's), SERVE_CPU_ROWS rows against the same
+    scorer on the CPU, both equal but for named near-ties (NEAR_TIE);
+    then /healthz, /meta and /v1/topk over HTTP, the medians of
+    SERVE_REPS requests of 1 and 256 rows."""
+    import copy as cp
+
+    import torch
+
+    from bridged_gnn_tpu_torch.bridge import build
+    from bridged_gnn_tpu_torch.cli.serve import ServingApp, make_server
+    from bridged_gnn_tpu_torch.graph import graph_from_dict
+    from bridged_gnn_tpu_torch.serve import SimilarityScorer
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    t_phase = time.perf_counter()
+    src, tar, _, _ = s1["data"]
+    model = bridge["v2_model"]
+    t0 = time.perf_counter()
+    scorer = SimilarityScorer(model, None, graph_from_dict(src),
+                              sim_mode="mlp", row_block=SERVE_ROW_BLOCK,
+                              device="cuda")
+    setup_s = time.perf_counter() - t0
+    G = ts1.prepare_stage1_graphs(src, tar, "mlp", "cuda")
+    ei, sims, *_ = build.propose_cross_edges(
+        model, G.g_src, None, G.g_tar, None, SERVE_K,
+        row_block=BRIDGE["row_block"], sim_mode="mlp")
+    n_tar = tar["x"].shape[0]
+    x_tar = np.asarray(tar["x"], np.float32)
+    got = scorer.topk_sources(x_tar, SERVE_K)
+    ties_bridge = topk_near_ties("bridge", got,
+                                 (sims, ei[0].reshape(n_tar, SERVE_K)))
+    cpu = SimilarityScorer(cp.deepcopy(model).cpu(), None,
+                           graph_from_dict(src), sim_mode="mlp",
+                           row_block=SERVE_ROW_BLOCK, device="cpu")
+    rows = x_tar[:SERVE_CPU_ROWS]
+    ties_cpu = topk_near_ties("cpu", scorer.topk_sources(rows, SERVE_K),
+                              cpu.topk_sources(rows, SERVE_K))
+    del cpu, G
+    app = ServingApp(scorer=scorer, meta=dict(mode="similarity"))
+    srv = make_server(app)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+
+    def call(path, body=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}",
+            data=None if body is None else json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    latency, ties_http = {}, {}
+    try:
+        codes = [call("/healthz")[0], call("/meta")[0]]
+        for n in SERVE_BATCHES:
+            body = {"x": x_tar[:n].tolist(), "k": SERVE_K}
+            code, answer = call("/v1/topk", body)     # warm-up
+            codes.append(code)
+            ties_http[n] = topk_near_ties(
+                f"/v1/topk ({n} rows)",
+                (answer["values"], answer["indices"]),
+                (got[0][:n], got[1][:n]))
+            times = []
+            for _ in range(SERVE_REPS):
+                t0 = time.perf_counter()
+                codes.append(call("/v1/topk", body)[0])
+                times.append(time.perf_counter() - t0)
+            latency[n] = statistics.median(times)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    if th.is_alive() or set(codes) != {200}:
+        raise RuntimeError(f"similarity HTTP answers: {codes}")
+    torch.cuda.synchronize()
+    out = dict(phase="serve_similarity", setup_s=setup_s,
+               sources=int(scorer.num_src), targets=int(n_tar), k=SERVE_K,
+               near_ties_bridge=ties_bridge, near_ties_cpu=ties_cpu,
+               near_ties_http={str(n): t for n, t in ties_http.items()},
+               cpu_rows=SERVE_CPU_ROWS, requests=len(codes),
+               topk_ms_median={str(n): 1e3 * s for n, s in latency.items()},
+               s=time.perf_counter() - t_phase)
+    log(json.dumps(dict(card=card, **out)))
+    log(f"phase 26 (similarity serving): {out['s']:.1f} s [{card}]")
+    return out
+
+
+def topk_near_ties(what, got, want) -> list:
+    """``(values, indices)`` of two top-ks: values within NEAR_TIE, and
+    each index equal unless its position's score lies within NEAR_TIE of
+    another in its row; those are returned, named (row, position, the
+    two indices)."""
+    (gv, gi), (wv, wi) = ((np.asarray(v), np.asarray(i)) for v, i in
+                          (got, want))
+    if gv.shape != wv.shape or not np.allclose(gv, wv, rtol=0,
+                                               atol=NEAR_TIE):
+        raise RuntimeError(f"similarity vs {what}: the values differ by "
+                           f"{float(np.abs(gv - wv).max()):.3g}")
+    named = []
+    for r, j in zip(*np.nonzero(gi != wi)):
+        gap = float(np.abs(np.delete(wv[r], j) - wv[r, j]).min())
+        if gap > NEAR_TIE:
+            raise RuntimeError(f"similarity vs {what}: row {r} position {j}"
+                               f" holds {gi[r, j]} against {wi[r, j]}, "
+                               f"{gap:.3g} from a tie")
+        named.append((int(r), int(j), int(gi[r, j]), int(wi[r, j]), gap))
+    return named
+
+
 
 
 def main() -> int:
@@ -3650,9 +4148,16 @@ def main() -> int:
     # padded SpMM kernel
     s1 = stage1_phase(card)
     # 22. the bridge build from its model; the v2 model's mlp-head bridge
-    bridge_phase(s1, card)
+    bridge = bridge_phase(s1, card)
     # 23. run.sh recipe 0 through the port's two CLIs
     recipe0_phase(card)
+    # 24. phase 21's run in scan mode: host and device sampling, the
+    # device evaluator, resume
+    s1_scan = stage1_scan_phase(s1, card)
+    # 25. the one-call pipeline on the production recipe's settings
+    pipe = pipeline_phase(card)
+    # 26. similarity serving from phase 22's v2 model
+    serve_similarity_phase(s1, bridge, card)
 
     # summary, per kernel: its launches in its main-path phase and its
     # time inside that run (per predict for the forwards, per epoch for
@@ -3750,6 +4255,30 @@ def main() -> int:
            for name, k in (("ms_replayed_device", "device_ms"),
                            ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
                            ("library_ms", "library_ms"))})
+    # stage-1 scan mode (phase 24): the host- and device-sampled runs'
+    # launches (eager epochs, capture, evaluations) join the count; a
+    # replay's launches and the kernel's time per replayed epoch in the
+    # traced segment
+    scan_launches = {}
+    for run in (s1_scan["host"], s1_scan["device"]):
+        for d, n in run["launches"]["gather_reduce"].items():
+            scan_launches[d] = scan_launches.get(d, 0) + n
+    kernels[-1]["launches"] += sum(scan_launches.values())
+    kernels[-1].update(
+        launches_stage1_scan_by_d=scan_launches,
+        launches_per_replay_stage1_scan=s1_scan["device"][
+            "launches_per_replay"]["gather_reduce"],
+        ms_stage1_scan_per_replayed_epoch=s1_scan["trace"][
+            "hand_kernels_ms"],
+        launches_stage1_device_eval=s1_scan["eval"]["launches_per_call"][
+            "gather_reduce"])
+    # the pipeline's stage 2 (phase 25) runs the bf16 instantiations
+    for name, by_d in pipe["launches"].items():
+        n = sum(c for k, c in by_d.items() if str(k).endswith(":bf16"))
+        for row in kernels:
+            if n and row["name"] == f"{name}_bf16":
+                row["launches_pipeline"] = n
+                row["launches"] += n
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

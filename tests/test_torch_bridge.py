@@ -263,9 +263,32 @@ def test_stage1_cli_feeds_the_stage2_cli(tmp_path):
     assert np.all(np.isfinite([h["loss"] for h in res["history"]]))
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--scan_epochs", "5"], "item 12"), (["--device_sampling"], "item 12"),
-    (["--n_shards", "2"], "item 9")])
+@pytest.mark.parametrize("flags", [["--scan_epochs", "2"],
+                                   ["--scan_epochs", "2",
+                                    "--device_sampling"]],
+                         ids=["scan", "device_sampling"])
+def test_stage1_cli_runs_scan_options(tmp_path, flags):
+    """The stage-1 CLI trains with ``--scan_epochs`` (and
+    ``--device_sampling``) on the CPU and builds the bridged graph; its
+    segment lines follow the evaluation epochs."""
+    argv = ["--dataset_name", "sync_unrelational", "--k_within", "3",
+            "--k_cross", "5", "--num_epoch", "4", "--start_eval_epoch", "2",
+            "--eval_per_epoch", "2", "--version", "v2", "--hidden_dim", "16",
+            "--out_dir", str(tmp_path), "--ckpt_dir", str(tmp_path),
+            "--device", "cpu", "--save"] + flags
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        merged = s1cli.main(s1cli.build_argparser().parse_args(argv))
+    out = text.getvalue()
+    assert "[rep 0] epochs 1-2 " in out and "[rep 0] epochs 3-4 " in out
+    assert "[stage-1 best]" in out
+    assert merged["x"].shape[0] == 3500
+    with pytest.raises(ValueError, match="scan_epochs"):
+        s1cli.main(s1cli.build_argparser().parse_args(
+            ["--device_sampling", "--device", "cpu"]))
+
+
+@pytest.mark.parametrize("flags,item", [(["--n_shards", "2"], "item 9")])
 def test_stage1_cli_refuses_unported_options(flags, item):
     args = s1cli.build_argparser().parse_args(
         ["--dataset_name", "sync_unrelational", "--device", "cpu"] + flags)

@@ -1361,3 +1361,170 @@ def test_cuda_stage1_and_bridge_match_cpu(monkeypatch, backbone, sim_mode):
             sim_mode=sim_mode, row_block=64)
     for k, v in graphs["cpu"].items():
         np.testing.assert_array_equal(graphs["cuda"][k], v, k)
+
+
+# ----------------------------------------------- stage-1 scan on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_sampling", [False, True],
+                         ids=["host", "device"])
+def test_cuda_stage1_scan_replays_equal_eager(device_sampling):
+    """Stage-1 scan mode on the card (2 eager epochs, one capture, the
+    rest replays) against the same run's epochs eager: the per-epoch loop
+    for host sampling, whose pairs and dropout masks the replays draw, so
+    the losses agree at the card's training tolerance (rtol 1e-4:
+    capturable against foreach Adam) and the best epoch is the same; and
+    each replay launches the v1 step's SpMMs, 4 forward and 3 transposed,
+    and no other kernel."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS
+
+    src, tar, _, _ = _stage1_domains()
+    cfg = _stage1_cfg(num_epoch=7, start_eval_epoch=3, eval_per_epoch=2,
+                      scan_epochs=3, device_sampling=device_sampling)
+    scan = ts1.train_adversarial(src, tar, cfg, device=dev)
+    info = scan["scan"]
+    assert info["eager_epochs"] == WARMUP_EPOCHS and info["captures"] == 1
+    assert info["replays"] == cfg.num_epoch - WARMUP_EPOCHS
+    assert info["launches_per_replay"] == {
+        "gather_reduce": {24: 1, 32: 4, 128: 2}}
+    assert np.all(np.isfinite([h["loss"] for h in scan["history"]]))
+    if device_sampling:
+        return
+    import dataclasses
+
+    loop = ts1.train_adversarial(src, tar, dataclasses.replace(
+        cfg, scan_epochs=0), device=dev)
+    for a, b in zip(scan["history"], loop["history"], strict=True):
+        for k in ("loss", "loss_d", "loss_ae"):
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), (k, a, b)
+    assert scan["best"]["epoch"] == loop["best"]["epoch"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_cls", [4, 2])
+def test_cuda_device_sampler_under_capture(max_cls):
+    """An epoch's device draw captured in a CUDA graph, with every class
+    (4) or a drawn subset of 2: a replay from a generator state gives the
+    eager draw from that state, and every pair is a train row."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.device_sampler import (
+        build_device_samplers,
+        sample_epoch_on_device,
+    )
+
+    src, tar, _, _ = _stage1_domains()
+    samplers, labels = build_device_samplers(src, tar, max_cls, 3600,
+                                             device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    eager = sample_epoch_on_device(samplers, labels, gen)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.stream(stream):
+        sample_epoch_on_device(samplers, labels, gen)   # warm-up
+        with torch.cuda.graph(graph, stream=stream):
+            idxs, y_pairs = sample_epoch_on_device(samplers, labels, gen)
+    torch.cuda.current_stream().wait_stream(stream)
+    gen.manual_seed(7)
+    graph.replay()
+    torch.cuda.synchronize()
+    for k, v in eager[0].items():
+        assert torch.equal(idxs[k], v), k
+    for k, v in eager[1].items():
+        assert torch.equal(y_pairs[k], v), k
+    for k, data in (("src1", src), ("tar2", tar), ("cross1", src),
+                    ("cross2", tar)):
+        assert np.asarray(data["train_mask"])[idxs[k].cpu().numpy()].all()
+
+
+@pytest.mark.cuda
+def test_cuda_device_evaluator_counts_its_pairs():
+    """On the card ``both`` equals the two per-split calls, launches the
+    SpMM 4 times (one encode per domain, 2 convs each), and each score
+    is ``eval_metric``'s on the pairs it drew."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+    from bridged_gnn_tpu_torch.train.metrics import eval_metric
+
+    src, tar, _, _ = _stage1_domains()
+    cfg = _stage1_cfg(num_epoch=4, start_eval_epoch=9, scan_epochs=2,
+                      device_sampling=True)
+    res = ts1.train_adversarial(src, tar, cfg, device=dev)
+    G = ts1.prepare_stage1_graphs(src, tar, "gnn", dev)
+    ev = ts1.DeviceStage1Evaluator(res["model"], G, src, tar, cfg)
+    fk.reset_launch_counts()
+    val, test = ev.both(5)
+    assert sum(fk.gather_reduce.launches_by_d.values()) == 4
+    assert (val, test) == (ev("val", 5), ev("test", 5))
+    z_src, z_tar = ev.encode()
+    sim = res["model"].source_learner.sim_net
+    pairs = ev.draw("val", 5)
+    ys, yt = np.asarray(src["y"]), np.asarray(tar["y"])
+    with torch.no_grad():
+        for score, rel, z1, z2, y1, y2 in (
+                (val[0], "src", z_src, None, ys, ys),
+                (val[2], "tar", z_tar, None, yt, yt),
+                (val[4], "cross", z_src, z_tar, ys, yt)):
+            i1, i2 = pairs[rel]
+            p = (sim.similarity(z1, i1, i2) if z2 is None
+                 else sim.similarity_cross_domain(z1, z2, i1, i2))
+            i1, i2 = i1.cpu().numpy(), i2.cpu().numpy()
+            assert score == eval_metric(
+                (y1[i1] == y2[i2]).astype(int),
+                (p > 0.5).cpu().numpy().astype(int), "f1", "binary"), rel
+
+
+@pytest.mark.cuda
+def test_cuda_stage1_scan_resume_matches_straight(tmp_path):
+    """A device-sampled scan run on the card checkpointed at its first
+    segment's end and resumed (its own warm-up and capture) continues
+    the straight run: the same losses, bit for bit, since the generator
+    states come back and every kernel is deterministic."""
+    dev = _need_cuda()
+    import dataclasses
+
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    src, tar, _, _ = _stage1_domains()
+    cfg = _stage1_cfg(num_epoch=8, start_eval_epoch=8, eval_per_epoch=4,
+                      scan_epochs=4, device_sampling=True)
+    straight = ts1.train_adversarial(src, tar, cfg, device=dev)
+    ts1.train_adversarial(src, tar, dataclasses.replace(
+        cfg, num_epoch=4, ckpt_dir=str(tmp_path)), device=dev)
+    resumed = ts1.train_adversarial(src, tar, dataclasses.replace(
+        cfg, ckpt_dir=str(tmp_path), resume=True), device=dev)
+    assert resumed["history"] == straight["history"][4:]
+    assert resumed["best"] == straight["best"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone,sim_mode", [("gnn", "cosine"),
+                                               ("mlp", "mlp")])
+def test_cuda_similarity_scorer_matches_cpu(backbone, sim_mode):
+    """The scorer on the card answers as on the CPU: equal indices but
+    where a score lies within 1e-5 of another in its row, values within
+    1e-5."""
+    _need_cuda()
+    from bridged_gnn_tpu_torch.graph import graph_from_dict
+    from bridged_gnn_tpu_torch.serve import SimilarityScorer
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    src, tar, _, _ = _stage1_domains()
+    cfg = _stage1_cfg(backbone=backbone, sim_mode=sim_mode)
+    model = ts1.build_model(cfg, src, tar, "cpu")
+    q = np.random.default_rng(0).normal(size=(37, 24)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sc = SimilarityScorer(ts1.build_model(cfg, src, tar, "cpu"),
+                              model.state_dict(), graph_from_dict(src),
+                              sim_mode=sim_mode, row_block=16, device=dev)
+        out[dev] = sc.topk_sources(q, 6)
+    (gv, gi), (wv, wi) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-5)
+    for r, j in zip(*np.nonzero(gi != wi)):
+        assert np.abs(np.delete(wv[r], j) - wv[r, j]).min() <= 1e-5, (r, j)

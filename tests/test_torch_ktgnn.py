@@ -1,7 +1,8 @@
 """PyTorch port, model and serving: KT-GNN with weights carried over from
 flax matches the JAX model's three heads and embeddings (JAX side on its
 fused-kernel forward in interpret mode), and the predictor and the HTTP
-serving app answer as the JAX ones do, on single and tiered layouts."""
+serving app answer as the JAX ones do, on single and tiered layouts; the
+serving CLI serves ``--mode similarity`` too."""
 
 import json
 import pickle
@@ -391,11 +392,50 @@ def test_cli_load_and_http(tmp_path, sync_case):
     assert not th.is_alive()
 
 
-def test_cli_similarity_mode_is_not_ported():
-    args = tcli.build_argparser().parse_args(
-        ["--mode", "similarity", "--ckpt", "x.pkl"])
-    with pytest.raises(NotImplementedError, match="not ported.*item 7"):
-        tcli.main(args)
+def test_cli_similarity_mode_serves(tmp_path, monkeypatch, capsys):
+    """``--mode similarity`` loads a stage-1 pickle and a corpus npz and
+    serves /v1/topk (``tests/test_torch_similarity.py`` holds its answers
+    against JAX's)."""
+    from bridged_gnn_tpu_torch.data.datasets import dataset_conversion
+    from bridged_gnn_tpu_torch.io.flax_weights import (
+        flax_variables_from_state_dict,
+    )
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    data = sync_data(dim=DIM, num_classes=CLASSES)
+    npz, ckpt = str(tmp_path / "g.npz"), str(tmp_path / "s1.pkl")
+    save_graph_npz(npz, data)
+    src, tar, _, _ = dataset_conversion(dict(data), seed=0)
+    model = ts1.build_model(ts1.Stage1Config(hidden_dim=HIDDEN), src, tar,
+                            "cpu")
+    with open(ckpt, "wb") as f:
+        pickle.dump(flax_variables_from_state_dict(model,
+                                                   model.state_dict()), f)
+    served = []
+
+    class _Server:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            served.append(True)
+
+        def server_close(self):
+            pass
+
+    def make_server(app, host, port):
+        served.append(app)
+        return _Server()
+
+    monkeypatch.setattr(tcli, "make_server", make_server)
+    tcli.main(tcli.build_argparser().parse_args(
+        ["--mode", "similarity", "--ckpt", ckpt, "--corpus", npz,
+         "--hidden_dim", str(HIDDEN), "--device", "cpu"]))
+    app = served[0]
+    assert served[1] is True
+    assert "serving similarity" in capsys.readouterr().out
+    assert app.meta["mode"] == "similarity"
+    out = app.topk({"x": np.ones((2, DIM)).tolist(), "k": 3})
+    assert np.asarray(out["indices"]).shape == (2, 3)
 
 
 def test_predictor_rejects_repeated_ids(predictors):
