@@ -6,8 +6,12 @@ plus ``--device`` (default ``cuda``). ``--path_data`` takes the npz graph
 format or the reference's ``.dat`` pickle (``io/pyg_compat.py``).
 ``--model_name`` picks KT-GNN or a zoo model; ``--no_dtc`` is the
 reference's recipe, GraphSAGE without the scheduler, whatever
-``--model_name`` says (JAX CLI :111-124). Flags of options the port does
-not run yet raise when set to anything other than their default.
+``--model_name`` says (JAX CLI :111-124).
+
+``--n_shards N`` trains over N ranks (``--shard_layout``, ``--halo_overlap``;
+``parallel/stage2_runtime.py``). Under ``torchrun --nproc_per_node N`` every
+rank runs this CLI and joins the group from torchrun's environment;
+otherwise the CLI starts the N local ranks itself. Rank 0 prints.
 
 ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of the run.
 
@@ -15,6 +19,8 @@ Example:
   python -m bridged_gnn_tpu_torch.cli.main_graph_knowledge_transfer \
       --num_layer 2 --hidden_dim 64 --path_data g.npz --to_undirected \
       --scan_epochs 10
+  python -m bridged_gnn_tpu_torch.cli.main_graph_knowledge_transfer \
+      --path_data g.npz --to_undirected --n_shards 2 --halo_overlap
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import os
 
 from bridged_gnn_tpu_torch.io.pyg_compat import load_pyg_data_dict
 from bridged_gnn_tpu_torch.io.serialize import load_graph_npz
+from bridged_gnn_tpu_torch.parallel.multihost import is_primary
 from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, train_ktgnn
 from bridged_gnn_tpu_torch.utils.diagnostics import eval_bridged_graph
 from bridged_gnn_tpu_torch.utils.profiling import trace
@@ -70,14 +77,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-# flags with no Stage2Config field: their default, and the ROADMAP.md item
-# that brings the rest
-_CLI_NOT_PORTED = dict(
-    shard_layout=("halo", "Queue 1 item 9 (multi-device)"),
-    halo_overlap=(False, "Queue 1 item 9 (multi-device)"),
-)
-
-
 def load_bridged_graph(path: str):
     if path.endswith(".npz"):
         return load_graph_npz(path)
@@ -85,12 +84,9 @@ def load_bridged_graph(path: str):
 
 
 def main(args):
-    for flag, (default, item) in _CLI_NOT_PORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag} is not ported; see ROADMAP.md {item}")
     data = load_bridged_graph(args.path_data)
-    print("local homophily of test nodes:", eval_bridged_graph(data))
+    if is_primary():
+        print("local homophily of test nodes:", eval_bridged_graph(data))
 
     save_best_path = None
     if args.save:
@@ -115,18 +111,21 @@ def main(args):
     else:
         cfg = Stage2Config(model_name=args.model_name,
                            memory_policy=args.memory_policy,
-                           n_shards=args.n_shards, **common)
+                           n_shards=args.n_shards,
+                           shard_layout=args.shard_layout,
+                           halo_overlap=args.halo_overlap, **common)
     if args.profile_dir:
         with trace(args.profile_dir, args.device):
             res = train_ktgnn(data, cfg, device=args.device)
         print(f"profiler trace written to {args.profile_dir}")
     else:
         res = train_ktgnn(data, cfg, device=args.device)
-    print("[stage-2 best]", {k: v for k, v in res["best"].items()
-                             if k != "per_head"})
-    if "per_head" in res["best"]:
-        print("[per-head test]", res["best"]["per_head"])
-    print(f"mean s/epoch: {res['mean_epoch_time']:.4f}")
+    if is_primary():
+        print("[stage-2 best]", {k: v for k, v in res["best"].items()
+                                 if k != "per_head"})
+        if "per_head" in res["best"]:
+            print("[per-head test]", res["best"]["per_head"])
+        print(f"mean s/epoch: {res['mean_epoch_time']:.4f}")
     return res
 
 

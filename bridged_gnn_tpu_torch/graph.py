@@ -8,8 +8,11 @@ JAX package, and give the same arrays; the container holds torch tensors:
   * edges are kept sorted by destination (receiver), ties broken by
     sender, so every destination owns a contiguous run of edges.
 
-The native C++ sort/coalesce the JAX package dispatches to above a
-million edges is not ported yet; numpy runs at every size.
+From :data:`NATIVE_EDGE_THRESHOLD` edges up, :func:`coalesce_np` and
+:func:`sort_edges_by_dst` run the native library (``io/native.py``, the
+port's ``csrc/graphcore.cpp``), as the JAX package dispatches
+(graph.py:104-127); it gives the same arrays as the numpy versions
+below, and raises where it cannot be built.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 
 NODE_BLOCK = 8
 EDGE_BLOCK = 128
+# edges from which the host sort and coalesce run natively (JAX graph.py:34)
+NATIVE_EDGE_THRESHOLD = 1_000_000
 
 
 def round_up(x: int, m: int) -> int:
@@ -91,9 +96,19 @@ class Graph:
 
 
 def coalesce_np(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
-    """Sort edges lexicographically by (dst, src) and drop duplicates."""
+    """Sort edges lexicographically by (dst, src) and drop duplicates;
+    natively from :data:`NATIVE_EDGE_THRESHOLD` edges."""
     if edge_index.size == 0:
         return edge_index.reshape(2, 0)
+    if edge_index.shape[1] >= NATIVE_EDGE_THRESHOLD:
+        from bridged_gnn_tpu_torch.io import native
+
+        return native.coalesce(edge_index)
+    return coalesce_numpy(edge_index, num_nodes)
+
+
+def coalesce_numpy(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    """:func:`coalesce_np` in numpy, at any size."""
     src, dst = edge_index[0].astype(np.int64), edge_index[1].astype(np.int64)
     key = dst * num_nodes + src
     order = np.argsort(key, kind="stable")
@@ -112,6 +127,17 @@ def dst_order(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
 
 
 def sort_edges_by_dst(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Edges in :func:`dst_order`, duplicates kept; natively from
+    :data:`NATIVE_EDGE_THRESHOLD` edges."""
+    if edge_index.shape[1] >= NATIVE_EDGE_THRESHOLD:
+        from bridged_gnn_tpu_torch.io import native
+
+        return native.sort_by_dst(edge_index)
+    return sort_edges_numpy(edge_index, num_nodes)
+
+
+def sort_edges_numpy(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    """:func:`sort_edges_by_dst` in numpy, at any size."""
     order = dst_order(edge_index, num_nodes)
     return np.stack([edge_index[0].astype(np.int64)[order],
                      edge_index[1].astype(np.int64)[order]])

@@ -14,18 +14,33 @@ backbone, the autoencoder's decoder and the domain discriminator.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 0,
-                keepdim: bool = False) -> torch.Tensor:
-    """Mean over rows where mask is True."""
+def _masked_sum_count(x: torch.Tensor, mask: torch.Tensor, dim: int,
+                      keepdim: bool, group):
+    """The masked sum of ``x`` over ``dim`` and the count of masked rows;
+    with ``group``, both summed over its ranks in one all-reduce (JAX
+    ``psum`` over ``axis_name``), the sum differentiably."""
     m = mask.to(x.dtype).reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
     s = (x * m).sum(dim=dim, keepdim=keepdim)
     n = m.sum(dim=dim, keepdim=keepdim)
+    if group is not None:
+        from bridged_gnn_tpu_torch.parallel.collectives import sum_over
+
+        s, n = sum_over(group, s, n)
+    return s, n
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 0,
+                keepdim: bool = False, group=None) -> torch.Tensor:
+    """Mean over rows where mask is True. With ``group`` (rows split over
+    its ranks, ``parallel/halopart.py``) the global mean: sums and counts
+    all-reduced, [D]-sized (JAX ``nn/common.py:25-38``)."""
+    s, n = _masked_sum_count(x, mask, dim, keepdim, group)
     return s / n.clamp(min=1.0)
 
 
@@ -76,16 +91,24 @@ def glorot_(t: torch.Tensor, fan_in: int, fan_out: int,
 
 
 def dropout(x: torch.Tensor, p: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            draw_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout`` in train mode) with the mask
-    drawn from ``generator``; the identity at ``p == 0``."""
+    drawn from ``generator``; the identity at ``p == 0``. ``draw_rows=
+    (first, total)`` draws the mask for ``total`` rows and keeps rows
+    ``first ..`` (a row partition's rank, ``parallel/halopart.py``)."""
     if p == 0.0:
         return x
     if generator is None:
         raise ValueError(
             f"train-mode dropout ({p}) needs a torch.Generator on "
             f"{x.device}")
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    if draw_rows is None:
+        keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    else:
+        first, total = draw_rows
+        keep = x.new_empty((total,) + tuple(x.shape[1:])).bernoulli_(
+            1.0 - p, generator=generator)[first:first + x.shape[0]]
     return x * keep * (1.0 / (1.0 - p))
 
 
@@ -94,7 +117,11 @@ class MaskedBatchNorm(nn.Module):
 
     eps=1e-5, momentum=0.1 (new = (1-m)·old + m·batch), biased variance
     for normalization, unbiased variance for the running estimate. In eval
-    mode it normalizes with the running statistics."""
+    mode it normalizes with the running statistics. With ``group`` (rows
+    split over its ranks) the batch statistics are the global ones, in two
+    passes as JAX ``nn/common.py:84-112``: the all-reduced sums and count
+    give the mean, then the all-reduced sums of ``(x − mean)²`` the
+    variance; every rank updates its running statistics alike."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -109,16 +136,19 @@ class MaskedBatchNorm(nn.Module):
             "running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
             if mask is None:
                 mask = torch.ones(x.shape[0], dtype=torch.bool,
                                   device=x.device)
-            n = mask.to(x.dtype).sum().clamp(min=1.0)
-            mean = masked_mean(x, mask, dim=0)
-            var = masked_mean((x - mean) ** 2, mask, dim=0)
+            s, n = _masked_sum_count(x, mask, 0, False, group)
+            n = n.clamp(min=1.0)
+            mean = s / n
+            var = _masked_sum_count((x - mean) ** 2, mask, 0, False,
+                                    group)[0] / n
             with torch.no_grad():
                 unbiased = var * n / (n - 1.0).clamp(min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(

@@ -50,6 +50,9 @@ from bridged_gnn_tpu_torch.nn.common import (
     uniform_fan_in_,
 )
 from bridged_gnn_tpu_torch.ops.fused_attention import (
+    AttentionCat,
+    AttentionSel,
+    adapted_attention_overlap,
     adapted_attention_tiered,
     attention_sel,
 )
@@ -93,28 +96,44 @@ class AdaptedConv(nn.Module):
         self.lin_r = (TorchLinear(in_channels, out_channels, bias=False,
                                   generator=g) if root_weight else None)
 
-    def forward(self, x: torch.Tensor, adj: Adjacency,
-                central_mask: torch.Tensor,
-                node_mask: torch.Tensor) -> torch.Tensor:
-        central = central_mask & node_mask
-        target = (~central_mask) & node_mask
-
-        # --- g: domain difference and gated shifts (KTGNN.py:275-281)
-        mean_c = masked_mean(x, central, dim=0, keepdim=True)    # [1, D]
-        mean_t = masked_mean(x, target, dim=0, keepdim=True)
-        dd = (mean_c - mean_t).expand_as(x)
+    def _branch(self, x: torch.Tensor, dd_row: torch.Tensor,
+                central: torch.Tensor, target: torch.Tensor):
+        """The gated domain shifts and the two linear paths of rows ``x``
+        (KTGNN.py:275-284): ``(u_t2s, u_s2t)``, in the message dtype."""
+        dd = dd_row.expand_as(x)
         gcat = torch.cat([x, dd], dim=-1)
         shift_s2t = torch.tanh(self.a_g_s2t(gcat)) * dd
         shift_t2s = torch.tanh(self.a_g_t2s(gcat)) * dd
         x_s2t = x - shift_s2t * central[:, None].to(x.dtype)
         x_t2s = x + shift_t2s * target[:, None].to(x.dtype)
-
-        # --- f: two linear paths (KTGNN.py:283-284)
         u_s2t = self.lin_t(x_s2t)
         u_t2s = self.lin_s(x_t2s)
         if self.msg_dtype is not None:
             u_s2t = u_s2t.to(self.msg_dtype)
             u_t2s = u_t2s.to(self.msg_dtype)
+        return u_t2s, u_s2t
+
+    def forward(self, x: torch.Tensor, adj: Optional[Adjacency],
+                central_mask: torch.Tensor,
+                node_mask: torch.Tensor, halo=None) -> torch.Tensor:
+        """``halo``: a ``parallel.halopart.HaloView`` for the row
+        partition, which takes the place of ``adj``."""
+        if halo is not None:
+            out = self._halo_forward(x, central_mask, node_mask, halo)
+        else:
+            out = self._forward(x, adj, central_mask, node_mask)
+        out = out.to(x.dtype)
+        if self.lin_r is not None:
+            out = out + self.lin_r(x)
+        return out
+
+    def _forward(self, x, adj, central_mask, node_mask):
+        central = central_mask & node_mask
+        target = (~central_mask) & node_mask
+        # --- g and f: domain difference, shifts, two linear paths
+        mean_c = masked_mean(x, central, dim=0, keepdim=True)    # [1, D]
+        mean_t = masked_mean(x, target, dim=0, keepdim=True)
+        u_t2s, u_s2t = self._branch(x, mean_c - mean_t, central, target)
 
         # --- fused attention + segment softmax + aggregation
         if adj.fast_fn is not None:
@@ -130,10 +149,48 @@ class AdaptedConv(nn.Module):
         else:
             out = self._edge_attention(adj, u_t2s, u_s2t, central_mask,
                                        x.dtype)
-        out = out.to(x.dtype)
-        if self.lin_r is not None:
-            out = out + self.lin_r(x)
         return out
+
+    def _halo_forward(self, x, central_mask, node_mask, halo):
+        """Row-partitioned forward (JAX ``nn/ktgnn.py:383-541``): this rank
+        owns node rows ``[0, R)``. The domain means are global, their sums
+        and counts all-reduced ([D]-sized); the only node-array collective
+        is the boundary exchange (``parallel/halopart.py``). Every edge into
+        an owned row is on this rank, so the attention runs on the shard's
+        slot layout with the kernels of one device: senders in ``x_ext =
+        [own ‖ halo]``, destinations the owned rows. With the overlap
+        layouts the exchange starts first and the local partials run while
+        it is in flight (``adapted_attention_overlap``)."""
+        central_l = central_mask & node_mask
+        target_l = (~central_mask) & node_mask
+        mean_c = masked_mean(x, central_l, dim=0, keepdim=True,
+                             group=halo.group)
+        mean_t = masked_mean(x, target_l, dim=0, keepdim=True,
+                             group=halo.group)
+        dd_row = mean_c - mean_t
+        rows = halo.rows
+        central_e = halo.central_ext & halo.node_mask_ext
+        target_e = (~halo.central_ext) & halo.node_mask_ext
+        if halo.overlap:
+            recv, wait = halo.exchange_recv_async(x)
+
+            def halo_rows():
+                wait()
+                return torch.cat(self._branch(recv, dd_row, central_e[rows:],
+                                              target_e[rows:]), dim=-1)
+
+            u_cat_l = torch.cat(self._branch(x, dd_row, central_l, target_l),
+                                dim=-1)
+            return adapted_attention_overlap(
+                halo.lay_local, halo.lay_halo, u_cat_l, halo_rows,
+                central_mask, self.a_f_t2s, self.a_f_s2t,
+                self.negative_slope)
+        x_ext = halo.exchange(x)
+        u_t2s, u_s2t = self._branch(x_ext, dd_row, central_e, target_e)
+        ud = torch.where(central_mask[:, None], u_t2s[:rows], u_s2t[:rows])
+        fn = AttentionSel if halo.selective else AttentionCat
+        return fn.apply(halo.lay, u_t2s, u_s2t, ud, central_mask,
+                        self.a_f_t2s, self.a_f_s2t, self.negative_slope)
 
     def _edge_attention(self, adj: Adjacency, u_t2s: torch.Tensor,
                         u_s2t: torch.Tensor, central_mask: torch.Tensor,
@@ -146,7 +203,10 @@ class AdaptedConv(nn.Module):
         the domain-selected messages by receiver (gather). Plain PyTorch,
         as the JAX package's XLA. The matrices are built in ``dtype`` (the
         conv's input) and take the message tables in it; the gather sums
-        in the messages' dtype, as JAX does."""
+        in the messages' dtype, as JAX does. On the edge-shard layout
+        (``adj.group`` set, ``parallel/edgeshard.py``) the edges are this
+        rank's span and the softmax's maximum and denominator and the sum
+        are all-reduced over the group's ranks (JAX ``axis_name``)."""
         s, r, em = adj.senders.long(), adj.receivers.long(), adj.edge_mask
         dst_central = central_mask[r]
         slope = self.negative_slope
@@ -155,7 +215,8 @@ class AdaptedConv(nn.Module):
         logits = torch.where(dst_central,
                              e_t2s.to(self.a_f_t2s.dtype) @ self.a_f_t2s,
                              e_s2t.to(self.a_f_s2t.dtype) @ self.a_f_s2t)
-        alpha = segment_softmax(logits, r, adj.num_nodes_padded, mask=em)
+        alpha = segment_softmax(logits, r, adj.num_nodes_padded, mask=em,
+                                group=adj.group)
         if adj.dense is not None:
             w1 = torch.where(em & dst_central, alpha, 0.0).to(dtype)
             w2 = torch.where(em & ~dst_central, alpha, 0.0).to(dtype)
@@ -163,7 +224,7 @@ class AdaptedConv(nn.Module):
                     + dense_matrix(adj, w2) @ u_s2t.to(dtype))
         msg = torch.where(dst_central[:, None], u_t2s[s], u_s2t[s])
         return segment_sum(msg * alpha[:, None].to(msg.dtype), r,
-                           adj.num_nodes_padded, mask=em)
+                           adj.num_nodes_padded, mask=em, group=adj.group)
 
 
 class ClfTransformer(nn.Module):
@@ -176,9 +237,10 @@ class ClfTransformer(nn.Module):
         self.bn_1 = MaskedBatchNorm(hidden)
         self.lin_3 = TorchLinear(hidden, hidden, generator=generator)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                group=None) -> torch.Tensor:
         x = self.lin_0(x)
-        x = torch.relu(self.bn_1(x, mask))
+        x = torch.relu(self.bn_1(x, mask, group))
         return self.lin_3(x)
 
 
@@ -206,7 +268,13 @@ class KTGNN(nn.Module):
     stays outside the conv, so the recompute draws no random numbers.
 
     ``msg_dtype`` and ``root_weight`` go to every conv, the heads'
-    included (JAX ``nn/ktgnn.py:587``, :631-661)."""
+    included (JAX ``nn/ktgnn.py:587``, :631-661).
+
+    ``halo`` (a ``parallel.halopart.HaloView``; ``adj`` is then None):
+    ``g`` holds this rank's rows of the row partition, every conv runs
+    its halo forward, the batch norms take their statistics over the
+    view's group and dropout draws the masks of all ranks' rows
+    (``HaloView.dropout``). The parameters are the single-device ones."""
 
     def __init__(self, num_classes: int, in_channels: int,
                  layer_num: int = 2, hidden: int = 64, dropout: float = 0.5,
@@ -240,15 +308,21 @@ class KTGNN(nn.Module):
         self.clf_transformer = ClfTransformer(hidden, generator=g)
 
     def _dropout(self, x: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator],
+                 halo=None) -> torch.Tensor:
         """Inverted dropout with the mask drawn from ``generator``."""
-        return dropout(x, self.dropout, generator) if self.training else x
+        if not self.training:
+            return x
+        if halo is not None:
+            return halo.dropout(x, self.dropout, generator)
+        return dropout(x, self.dropout, generator)
 
-    def _embed(self, g: Graph, adj: Adjacency,
+    def _embed(self, g: Graph, adj: Optional[Adjacency],
                generator: Optional[torch.Generator],
-               frontiers: Optional[Sequence[Frontier]]):
+               frontiers: Optional[Sequence[Frontier]], halo=None):
         """The final node embeddings and ``loss_dist``."""
         cm, nm = g.central_mask, g.node_mask
+        group = None if halo is None else halo.group
         x, loss_dist = g.x, None
         if self.complementor is not None:
             if frontiers is None:
@@ -259,14 +333,14 @@ class KTGNN(nn.Module):
         for i, conv in enumerate(self.convs):
             if self.remat and torch.is_grad_enabled():
                 # no RNG state to keep: the conv draws no random numbers
-                x = checkpoint(conv, x, adj, cm, nm, use_reentrant=False,
-                               preserve_rng_state=False)
+                x = checkpoint(conv, x, adj, cm, nm, halo,
+                               use_reentrant=False, preserve_rng_state=False)
             else:
-                x = conv(x, adj, cm, nm)
+                x = conv(x, adj, cm, nm, halo)
             if self.bns is not None:
-                x = self.bns[i](x, nm)
+                x = self.bns[i](x, nm, group)
             x = torch.relu(x)
-            x = self._dropout(x, generator)
+            x = self._dropout(x, generator, halo)
         return x, loss_dist
 
     def embed(self, g: Graph, adj: Adjacency,
@@ -276,17 +350,18 @@ class KTGNN(nn.Module):
         """Final node embeddings (reference get_emb, KTGNN.py:436-465)."""
         return self._embed(g, adj, generator, frontiers)[0]
 
-    def forward(self, g: Graph, adj: Adjacency,
+    def forward(self, g: Graph, adj: Optional[Adjacency],
                 generator: Optional[torch.Generator] = None,
-                frontiers: Optional[Sequence[Frontier]] = None
+                frontiers: Optional[Sequence[Frontier]] = None, halo=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
         cm, nm = g.central_mask, g.node_mask
-        x, loss_dist = self._embed(g, adj, generator, frontiers)
-        logits_base = self.clf_base(x, adj, cm, nm)
-        x_trans = self.clf_transformer(x, nm)
-        logits_target_hat = self.clf_target(x_trans, adj, cm, nm)
-        logits_target = self.clf_target(x, adj, cm, nm)
+        x, loss_dist = self._embed(g, adj, generator, frontiers, halo)
+        logits_base = self.clf_base(x, adj, cm, nm, halo)
+        x_trans = self.clf_transformer(
+            x, nm, None if halo is None else halo.group)
+        logits_target_hat = self.clf_target(x_trans, adj, cm, nm, halo)
+        logits_target = self.clf_target(x, adj, cm, nm, halo)
         return (
             torch.log_softmax(logits_base, dim=1),
             torch.log_softmax(logits_target, dim=1),
@@ -300,7 +375,8 @@ class KTGNNNoDTC(nn.Module):
     ``nn/ktgnn.py:684-726``): ``layer_num − 1`` AdaptedConvs, the last to
     the classes, with batch norm, ReLU and dropout between them, and one
     log-softmax output ``[N, C]``. ``msg_dtype`` and ``root_weight`` go to
-    every conv; dropout draws from ``generator`` in train mode."""
+    every conv; dropout draws from ``generator`` in train mode. ``halo``
+    runs the row partition as in :class:`KTGNN`."""
 
     def __init__(self, num_classes: int, in_channels: int,
                  layer_num: int = 2, hidden: int = 64,
@@ -319,17 +395,19 @@ class KTGNNNoDTC(nn.Module):
             MaskedBatchNorm(hidden) for _ in range(n - 1)
         ) if use_bn else None
 
-    def forward(self, g: Graph, adj: Adjacency,
-                generator: Optional[torch.Generator] = None
+    def forward(self, g: Graph, adj: Optional[Adjacency],
+                generator: Optional[torch.Generator] = None, halo=None
                 ) -> torch.Tensor:
         cm, nm = g.central_mask, g.node_mask
+        group = None if halo is None else halo.group
         x = g.x
         for i, conv in enumerate(self.convs):
-            x = conv(x, adj, cm, nm)
+            x = conv(x, adj, cm, nm, halo)
             if i < len(self.convs) - 1:
                 if self.bns is not None:
-                    x = self.bns[i](x, nm)
+                    x = self.bns[i](x, nm, group)
                 x = torch.relu(x)
                 if self.training:
-                    x = dropout(x, self.dropout, generator)
+                    x = (dropout(x, self.dropout, generator) if halo is None
+                         else halo.dropout(x, self.dropout, generator))
         return torch.log_softmax(x, dim=1)

@@ -78,10 +78,12 @@ def _padded_layout_np(
     num_nodes_padded: int,
     node_block: int,
     edge_ids=None,
+    min_tile_e: int = 0,
 ):
     """Host slot assignment (the JAX package's): block ``b``'s edges fill
     the first slots of row ``b`` of a ``[num_blocks, tile_e]`` grid, in
-    order. Returns ``slot_src`` [B*Et], ``dst_ranges`` [B*nb, 2], tile_e,
+    order; ``min_tile_e`` forces a wider grid (the halo partition's
+    tile, uniform across shards). Returns ``slot_src`` [B*Et], ``dst_ranges`` [B*nb, 2], tile_e,
     num_blocks, ``slot_edge`` [B*Et] (``edge_ids`` of each slot's edge,
     by default its position in the input; 0 on pad slots) and
     ``slot_row`` [B*Et] (each slot's destination row, 0 on pad slots).
@@ -100,7 +102,7 @@ def _padded_layout_np(
     bounds = np.searchsorted(key, np.arange(num_blocks + 1) * nb,
                              side="left")
     per_block = np.diff(bounds)
-    tile_e = ((max(int(per_block.max()), 1) + 127) // 128) * 128
+    tile_e = ((max(int(per_block.max()), min_tile_e, 1) + 127) // 128) * 128
     if num_blocks * tile_e >= 2 ** 31:
         raise ValueError(f"{num_blocks * tile_e} slots exceed the int32 "
                          "slot index range")

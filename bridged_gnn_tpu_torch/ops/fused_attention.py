@@ -34,10 +34,19 @@ and ``ud``, f32 for ``a1`` and ``a2``.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from bridged_gnn_tpu_torch.ops import fused_kernels
-from bridged_gnn_tpu_torch.ops.blocked_segment import PaddedLayout, TieredOps
+from bridged_gnn_tpu_torch.ops.blocked_segment import (
+    PaddedLayout,
+    TieredOps,
+    slot_rows,
+)
+from bridged_gnn_tpu_torch.ops.padded_spmm import PaddedSpmm
+
+_NEG = -1e30
 
 
 class AttentionSel(torch.autograd.Function):
@@ -155,3 +164,89 @@ def adapted_attention_tiered(
             negative_slope))
     cat = torch.cat(outs, dim=0)                  # tier-concat order
     return cat[tops.inv_order][: central.shape[0]]
+
+
+def attention_partials(
+    lay: PaddedLayout,
+    u_cat: torch.Tensor,       # [N_src, 2D] rows the slots gather, [u1‖u2]
+    u_dst_cat: torch.Tensor,   # [N_out, 2D] destination-side rows
+    central: torch.Tensor,     # [N_out] bool
+    a1: torch.Tensor,
+    a2: torch.Tensor,
+    negative_slope: float,
+):
+    """Streaming-softmax partials over one slot layout that holds a
+    subset of the edges into the same destination rows (JAX
+    ``_attention_partials``, fused_attention.py:276-332): per destination
+    the subset's logit maximum ``mx`` (−1e30 without an edge), exp-sum
+    ``den`` and exp-weighted aggregate ``part`` [N_out, D] of its branch.
+    The logits are plain PyTorch, as JAX's XLA; the aggregate is the
+    destination-keyed padded SpMM (``gather_reduce``) of ``u_cat`` with
+    each slot's ``exp`` as its weight, whose backward is the kernel's
+    transpose and the weights' plain gradient.
+
+    Cost: the logits, maxima and exp-sums over ``[S, 2D]`` gathered rows
+    are not fused as in the attention kernels. On an H100 (``chip_smoke.py``
+    phase 27, bench graph, two ranks) an overlap epoch's device time is
+    about five times the plain halo form's, 179 ms against 36, so the
+    overlap form is expected to lose to it unless the exchange it hides
+    takes longer than that difference."""
+    n_out, dch = central.shape[0], u_cat.shape[1] // 2
+    row, valid = slot_rows(lay)
+    # index_select: its backward is an index_add_, not the sorting
+    # accumulate of an indexing backward
+    m = u_cat.index_select(0, lay.slot_src.clamp(min=0))    # [S, 2D]
+    d = u_dst_cat.index_select(0, row)
+    h1 = torch.nn.functional.leaky_relu(m[:, :dch] + d[:, :dch],
+                                        negative_slope)
+    h2 = torch.nn.functional.leaky_relu(m[:, dch:] + d[:, dch:],
+                                        negative_slope)
+    is_c = central[row]
+    lm = torch.where(valid, torch.where(is_c, h1 @ a1, h2 @ a2), _NEG)
+    mx = lm.new_full((n_out,), _NEG).scatter_reduce(
+        0, row, lm.detach(), reduce="amax")
+    ex = torch.where(valid, torch.exp(lm - mx[row]), 0.0)
+    den = ex.new_zeros(n_out).index_add(0, row, ex)
+    part2 = PaddedSpmm.apply(lay, u_cat.contiguous(), ex)  # [N_out, 2D]
+    part = torch.where(central[:, None], part2[:, :dch], part2[:, dch:])
+    return part, mx, den
+
+
+def adapted_attention_overlap(
+    lay_local: PaddedLayout,
+    lay_halo: PaddedLayout,
+    u_cat_local: torch.Tensor,  # [R, 2D] own-row branch values [u1 ‖ u2]
+    halo_rows: Callable[[], torch.Tensor],  # → [H, 2D] halo-row values
+    central: torch.Tensor,      # [R] bool destination-domain flag
+    a1: torch.Tensor,
+    a2: torch.Tensor,
+    negative_slope: float = 0.1,
+) -> torch.Tensor:
+    """The comm/compute-overlap form of the attention for the halo row
+    partition (JAX ``adapted_attention_overlap``, fused_attention.py:
+    335-389). ``lay_local`` holds the shard's edges whose sender is one
+    of its own rows, ``lay_halo`` those whose sender is in the halo
+    receive buffer, both keyed by the shard's destination rows. The local
+    partials need nothing from the exchange, so they run first; then
+    ``halo_rows()``, which completes the exchange and gives the halo
+    rows' ``[u1 ‖ u2]``, and the halo partials. The
+    two combine by the flash-attention rule
+    ``out = (p_l·s_l + p_h·s_h) / (den_l·s_l + den_h·s_h)`` with
+    ``s_k = exp(mx_k − max(mx_l, mx_h))``: the softmax of the whole edge
+    set, summed in another order. Tables in bf16 are widened to f32 for
+    the partials (JAX sums them in f32 too); the output is in
+    ``u_cat_local``'s dtype."""
+    dtype = u_cat_local.dtype
+    u_dst = u_cat_local.float()
+    p_l, mx_l, den_l = attention_partials(lay_local, u_dst, u_dst, central,
+                                          a1, a2, negative_slope)
+    p_h, mx_h, den_h = attention_partials(lay_halo, halo_rows().float(),
+                                          u_dst, central, a1, a2,
+                                          negative_slope)
+    mx = torch.maximum(mx_l, mx_h)
+    s_l = torch.exp(mx_l - mx)
+    s_h = torch.exp(mx_h - mx)
+    den = den_l * s_l + den_h * s_h
+    den = torch.where(den == 0, 1.0, den)
+    out = (p_l * s_l[:, None] + p_h * s_h[:, None]) / den[:, None]
+    return out.to(dtype)

@@ -74,7 +74,10 @@ class Adjacency:
     for every conv to reuse: ``fast_fn`` (the single padded layout),
     ``tiered_fn`` (degree-tiered layouts) or ``dense`` (``[N_pad,
     N_pad]`` f32, ``dense[dst, src]`` the count of real edges), at most
-    one of them; none for ``"gather"``."""
+    one of them; none for ``"gather"``. ``group``: on the edge-shard
+    layout (``parallel/edgeshard.py``) the process group whose ranks hold
+    the other spans of the edge array; KT-GNN's per-edge attention
+    all-reduces its destination reductions over it."""
 
     num_nodes: int
     num_nodes_padded: int
@@ -85,6 +88,7 @@ class Adjacency:
     fast_fn: Optional[BlockedOps] = None
     tiered_fn: Optional[TieredOps] = None
     dense: Optional[torch.Tensor] = None
+    group: Optional[object] = None
 
 
 def _host(a) -> np.ndarray:

@@ -39,9 +39,17 @@ and scan mode is the JAX package's production recipe
 padded node count (``ops/spmm.py::resolve_adjacency_method``; the slot
 layouts at every size since the H100 measurement), ``"dense"`` and
 ``"gather"`` run KT-GNN's attention and the SpMMs in plain PyTorch.
-``n_shards > 1`` (or another multi-device field off its default)
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
-:func:`run_scan` is the segment loop that stage 1's scan mode shares.
+``n_shards > 1`` trains KT-GNN or KTGNN_noDTC over that many ranks of a
+process group, one per shard (JAX ``stage2.py:457-495``): the same loop
+on every rank, with the halo row partition (``shard_layout="halo"``,
+``halo_overlap`` for its overlap form, ``halo_node_block`` for its slot
+layouts' block) or the edge-shard layout as the backend of its train
+step and eval heads (``parallel/stage2_runtime.py``). Outside a process
+group :func:`train_ktgnn` starts the ranks itself
+(``parallel.multihost.spawn``) and returns rank 0's result. Sharded scan
+mode is not ported yet and raises ``NotImplementedError`` (ROADMAP Queue
+1 item 9). :func:`run_scan` is the segment loop that stage 1's scan mode
+shares.
 """
 
 from __future__ import annotations
@@ -139,22 +147,20 @@ class Stage2Config:
     # the port's layouts are always tensors the kernels take, so every
     # value it accepts ("auto", True, False) runs alike
     pass_layouts: "str | bool" = "auto"
-    # options of the JAX runtime's multi-device training the port does
-    # not run yet; any other value than the default raises (see
-    # _NOT_PORTED)
+    # multi-device training: >1 runs the same loop over that many ranks
+    # (parallel/stage2_runtime.py); KTGNN and KTGNN_noDTC only
     n_shards: int = 1
+    # "halo" (row partition + boundary all_to_all, wire bytes ∝ edge cut)
+    # or "edgeshard" (edge spans, node arrays replicated)
     shard_layout: str = "halo"
+    # halo only: start the exchange, then the local attention partials.
+    # Its partials run in plain PyTorch around gather_reduce: on an H100
+    # an epoch's device time is ~5x the plain halo form's (179 ms against
+    # 36 on chip_smoke.py's bench graph), so it loses unless the exchange
+    # takes longer than that difference
     halo_overlap: bool = False
+    # halo only: the shards' slot-layout block (None: 128)
     halo_node_block: Optional[int] = None
-
-
-# field, the values the port runs, the ROADMAP.md item that brings the rest
-_NOT_PORTED = (
-    ("n_shards", (1,), "Queue 1 item 9 (multi-device)"),
-    ("shard_layout", ("halo",), "Queue 1 item 9 (multi-device)"),
-    ("halo_overlap", (False,), "Queue 1 item 9 (multi-device)"),
-    ("halo_node_block", (None,), "Queue 1 item 9 (multi-device)"),
-)
 
 
 def check_ported(cfg: Stage2Config) -> None:
@@ -162,12 +168,23 @@ def check_ported(cfg: Stage2Config) -> None:
     yet, ``ValueError`` for one that no runtime takes, and ``TypeError``
     for the complementor on a model without it, where the JAX runtime's
     model refuses the frontiers with one."""
-    for field, ported, item in _NOT_PORTED:
-        value = getattr(cfg, field)
-        if value not in ported:
+    if cfg.n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {cfg.n_shards}")
+    if cfg.shard_layout not in ("halo", "edgeshard"):
+        raise ValueError(f"shard_layout: {cfg.shard_layout!r}")
+    if cfg.n_shards > 1:
+        if cfg.model_name not in ("KTGNN", "KTGNN_noDTC") \
+                or cfg.need_complement:
+            raise ValueError(
+                "n_shards > 1 supports the KTGNN and KTGNN_noDTC models "
+                f"(need_complement=False); got model_name="
+                f"{cfg.model_name!r}, need_complement={cfg.need_complement}")
+        if cfg.scan_epochs > 0:
             raise NotImplementedError(
-                f"Stage2Config.{field}={value!r} is not ported (the port "
-                f"runs {list(ported)}); see ROADMAP.md {item}")
+                f"Stage2Config.scan_epochs={cfg.scan_epochs} with n_shards="
+                f"{cfg.n_shards} (sharded scan mode) is not ported; the port "
+                "trains sharded in the per-epoch loop (scan_epochs=0); see "
+                "ROADMAP.md Queue 1 item 9 (multi-device)")
     if cfg.memory_policy == "xla_plain":
         raise NotImplementedError(
             "Stage2Config.memory_policy='xla_plain' (the JAX package's "
@@ -245,13 +262,15 @@ def built_model_name(cfg: Stage2Config) -> str:
 
 def prepare_stage2_graph(
     data: Dict[str, np.ndarray], cfg: Stage2Config, device="cuda",
-) -> Tuple[Graph, Adjacency]:
+    build_adj: bool = True,
+) -> Tuple[Graph, Optional[Adjacency]]:
     """The training graph on ``device`` (self loops added for
     :data:`SELF_LOOP_MODELS`) and its adjacency by
     ``cfg.adjacency_method`` (``"auto"`` resolved by the padded node
     count): for the slot layouts, KT-GNN's ``node_block=128`` one the
     predictor serves with and the zoo's ``node_block=256`` one, or degree
-    tiers."""
+    tiers. ``build_adj=False`` gives None in its place (the sharded
+    backends build their own layouts)."""
     dev = resolve_device(device)
     data = dict(data)
     # reference quirk kept: unlabeled nodes can never be train
@@ -264,6 +283,8 @@ def prepare_stage2_graph(
     if cfg.model_name in SELF_LOOP_MODELS:
         g = with_self_loops(g)
     g = g.to(dev)
+    if not build_adj:
+        return g, None
     adj = adjacency_from_graph(
         g, method=cfg.adjacency_method,
         node_block=128 if _ktgnn_family(cfg) else 256, device=dev)
@@ -354,7 +375,9 @@ def resolve_memory_policy(cfg: Stage2Config) -> str:
     (the per-slot cotangent ``[slots, hidden]`` sets it), and a bf16
     step's at 1,641,013,760, which lean lowers by 15% (PERF.md §7): both
     far below the card's 80 GB. An explicit ``"lean"`` for another model
-    runs plain, as in JAX, with a warning."""
+    runs plain, as in JAX, with a warning. A sharded run resolves alike
+    (JAX ``stage2.py:471-495``: its per-shard footprint is below the
+    single device's; KTGNN_noDTC always plain)."""
     if not _multi_head(cfg):
         if cfg.memory_policy == "lean":
             warnings.warn(
@@ -445,6 +468,38 @@ WARMUP_EPOCHS = 2
 # 0 source, 1 target, 2 target-hat and splits 0 train, 1 val, 2 test. The
 # first three score the splits, the last three the heads on test.
 _TABLES = ((0, 0), (2, 1), (2, 2), (0, 2), (1, 2))
+
+
+def _table_scores(counts: np.ndarray, cfg: Stage2Config):
+    """``(scores, per_head)`` from one epoch's five tables [5, 3, bins]:
+    train, val and test by their heads, and every head on test."""
+    sc = [score_from_counts(*counts[t], metric=cfg.metric,
+                            f1_average=cfg.f1_average)
+          for t in range(len(_TABLES))]
+    return (dict(train=sc[0], val=sc[1], test=sc[2]),
+            dict(source=sc[3], target=sc[4], target_hat=sc[2]))
+
+
+def score_arrays(preds: np.ndarray, probs: Optional[np.ndarray],
+                 y: np.ndarray, masks: Dict[str, np.ndarray],
+                 cfg: Stage2Config):
+    """``(scores, per_head)`` of the three heads' predictions [3, N] (and
+    positive-class probabilities for auc) on the host: the source head on
+    train, the distilled target-hat head on val and test, each head on
+    test."""
+
+    def score(head, mask):
+        # probs: positive-class probability for auc (reference
+        # main_graph_knowledge_transfer.py:88,102 uses column 1)
+        return eval_metric(
+            y[mask], preds[head][mask], cfg.metric, cfg.f1_average,
+            probs_pos=None if probs is None else probs[head][mask])
+
+    scores = {split: score(0 if split == "train" else 2, mask)
+              for split, mask in masks.items()}
+    per_head = {name: score(h, masks["test"]) for h, name in
+                enumerate(("source", "target", "target_hat"))}
+    return scores, per_head
 
 
 def _confusion_counts(preds: torch.Tensor, masks: torch.Tensor,
@@ -592,22 +647,53 @@ def train_ktgnn(
     there), runs under ``matmul_precision(cfg.matmul_precision)``."""
     cfg = cfg or Stage2Config()
     check_ported(cfg)
+    if cfg.n_shards > 1:
+        from bridged_gnn_tpu_torch.parallel import multihost
+
+        if not multihost.init_distributed(torch.device(device).type):
+            # not in a process group: start one rank per shard here
+            return multihost.spawn(train_ktgnn, cfg.n_shards,
+                                   (data, cfg, device),
+                                   torch.device(device).type)[0]
     with matmul_precision(cfg.matmul_precision):
         return _train_ktgnn(data, cfg, device)
 
 
 def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
                  device) -> Dict[str, Any]:
-    dev = resolve_device(device)
-    g, adj = prepare_stage2_graph(data, cfg, dev)
+    sharded = cfg.n_shards > 1
+    if sharded:
+        from bridged_gnn_tpu_torch.parallel.mesh import make_group
+        from bridged_gnn_tpu_torch.parallel.multihost import (
+            describe,
+            is_primary,
+        )
+        from bridged_gnn_tpu_torch.parallel.stage2_runtime import (
+            make_stage2_backend,
+        )
+
+        group, dev = make_group(cfg.n_shards, device)
+        primary = is_primary()
+        g, adj = prepare_stage2_graph(data, cfg, "cpu", build_adj=False)
+    else:
+        dev, primary = resolve_device(device), True
+        g, adj = prepare_stage2_graph(data, cfg, dev)
+    log_every = cfg.log_every if primary else 0
     inputs = model_inputs(data, cfg, g)
     num_classes = g.num_classes
     mem_mode = resolve_memory_policy(cfg)
-    if mem_mode != "plain" and cfg.log_every:
+    if mem_mode != "plain" and log_every:
         print(f"[memory_policy] {mem_mode} engaged (the embedding convs "
               "recompute in the backward)")
     model = build_model(cfg, num_classes, g.num_features, dev,
                         remat=mem_mode == "lean")
+    backend = None
+    if sharded:
+        backend = make_stage2_backend(group, dev, model, g, cfg,
+                                      num_classes)
+        if log_every:
+            print(describe(group, dev))
+            print(f"[parallel] {backend.info()}")
     use_scan = _use_scan(cfg)
     # the loop's rate is a float that StepLR steps; scan mode's a tensor
     # that the epoch body sets on the device (capturable Adam on a card)
@@ -627,21 +713,15 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
     need_probs = cfg.metric == "auc"
 
     def evaluate():
+        if backend is not None:
+            return backend.evaluate()
         preds, probs = _eval_arrays(model, g, adj, need_probs, inputs)
+        return score_arrays(preds, probs, y_np, masks_np, cfg)
 
-        def score(head, mask):
-            # probs: positive-class probability for auc (reference
-            # main_graph_knowledge_transfer.py:88,102 uses column 1)
-            return eval_metric(
-                y_np[mask], preds[head][mask], cfg.metric, cfg.f1_average,
-                probs_pos=None if probs is None else probs[head][mask])
-
-        # source head for train, distilled target-hat head for val/test
-        scores = {split: score(0 if split == "train" else 2, mask)
-                  for split, mask in masks_np.items()}
-        per_head = {name: score(h, masks_np["test"]) for h, name in
-                    enumerate(("source", "target", "target_hat"))}
-        return scores, per_head
+    def step():
+        if backend is not None:
+            return backend.train_step(opt, gen)
+        return train_step(model, g, adj, opt, cfg.Lambda, gen, inputs)
 
     def check_numerics(losses, epoch):
         if cfg.check_numerics:
@@ -659,7 +739,7 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
         nonlocal best_state
         history.append(dict(epoch=epoch, loss=loss, loss_t2=loss_t2,
                             **scores))
-        if cfg.log_every and epoch % cfg.log_every == 0:
+        if log_every and epoch % log_every == 0:
             print(
                 f"Epoch {epoch:03d} loss {loss:.4f} "
                 f"train {scores['train']:.4f} val {scores['val']:.4f} "
@@ -671,7 +751,7 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
                 test=scores["test"], loss=loss_t2, epoch=epoch,
                 per_head=per_head,
             )
-            if cfg.save_best_path:
+            if cfg.save_best_path and primary:
                 best_state = {k: v.detach().cpu().clone()
                               for k, v in model.state_dict().items()}
 
@@ -693,7 +773,11 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
 
     def save(epoch):
         # loop and scan checkpoints are alike: StepLR's state is the
-        # rate in the optimizer's and the epoch
+        # rate in the optimizer's and the epoch. A sharded run's state is
+        # the same on every rank (the generator too: every rank draws
+        # every row's dropout mask), and rank 0 writes it
+        if not primary:
+            return
         ckptr.save(epoch, dict(
             model=model.state_dict(), optimizer=opt.state_dict(),
             generator=gen.get_state(), best=best, epoch=epoch,
@@ -710,8 +794,7 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
     else:
         for epoch in range(start_epoch, cfg.num_epoch + 1):
             with timer:
-                loss, aux = train_step(model, g, adj, opt, cfg.Lambda, gen,
-                                       inputs)
+                loss, aux = step()
                 if sched is not None:
                     sched.step()
                 loss, loss_t2 = float(loss), float(aux["loss_t2"])
@@ -751,6 +834,7 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
         state_dict={k: v.detach().cpu().clone()
                     for k, v in model.state_dict().items()},
         num_edges=g.num_edges,
+        parallel=None if backend is None else backend.info(),
     )
 
 
@@ -830,12 +914,8 @@ def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
         k = last - first + 1
         counts = rec[:, 2:].reshape(k, len(_TABLES), 3, run.bins)
         for j in range(k):
-            sc = [score_from_counts(*counts[j, t], metric=cfg.metric,
-                                    f1_average=cfg.f1_average)
-                  for t in range(len(_TABLES))]
             record(first + j, float(rec[j, 0]), float(rec[j, 1]),
-                   dict(train=sc[0], val=sc[1], test=sc[2]),
-                   dict(source=sc[3], target=sc[4], target_hat=sc[2]))
+                   *_table_scores(counts[j], cfg))
         if save is not None:
             save(last)
 

@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's KT-GNN serving and training paths, its
 stage-2 model zoo, the rest of stage 2, stage 1 (loop and scan mode),
-the one-call pipeline and similarity serving on one GPU.
+the one-call pipeline, similarity serving and multi-device stage 2 on
+one GPU.
 
     python3 chip_smoke.py
 
@@ -228,7 +229,20 @@ Phases, in order; any failure exits non-zero:
    bridge's cross proposals, 256 rows against the same scorer on the CPU
    (equal but for named near-ties within 1e-5), and ``/healthz``,
    ``/meta`` and ``/v1/topk`` over HTTP (medians of 10 requests of 1 and
-   256 rows).
+   256 rows);
+27. multi-device stage 2: (a) the native library's coalesce and dst-sort
+   of 5M seeded edges against numpy (equal; seconds of each); (b) two
+   ranks sharing the card under gloo (``parallel.multihost.spawn``), on
+   the bench graph at dropout 0, for the halo partition, its overlap
+   form, the edge shards and KTGNN_noDTC on the halo: one sharded step's
+   kernel calls replayed against their plain versions on each rank in
+   turn, then 5 loop epochs with the counts at 0 just before, the
+   launches per rank per epoch asserted, every epoch's losses within
+   rtol 1e-4 of the single-device run's; per rank the epoch ms, the
+   exchange ms with its pinned-memory staging apart and the wire bytes
+   per layer; rank 0 traced for 2 epochs of the first two cases; (c) a
+   1-rank NCCL group in this process drives ``HaloStage2Backend`` on a
+   1-shard partition for 2 epochs, against the single-device run.
 
 Phase 7 also runs one ``memory_policy="lean"`` step per graph (the
 embedding conv recomputed in the backward) against the plain step: loss
@@ -262,7 +276,10 @@ ConvNet epoch; phase 21's training run adds its launches to the count
 calls in ``stage1_replay``), and so do phase 24's scan runs
 (``launches_stage1_scan_by_d``; ``ms_stage1_scan_per_replayed_epoch``
 from the traced segment); phase 25's bf16 launches join the bf16 rows'
-counts (``launches_pipeline``). The last line is ``{"ok": true, "device":
+counts (``launches_pipeline``); phase 27's launches (both ranks of every
+case and the NCCL rank) join the f32 rows' counts
+(``launches_sharded_by_d``), beside their replayed calls
+(``sharded_replay``). The last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -3926,6 +3943,368 @@ def topk_near_ties(what, got, want) -> list:
 
 
 
+# ------------------------------------- phase 27: multi-device stage 2
+
+NATIVE_EDGES = 5_000_000   # (a): the seeded graph's edges
+NATIVE_NODES = 1_000_000
+NATIVE_ROUNDS = 3
+SHARDED_RANKS = 2          # (b): ranks, all on cuda:0 (gloo)
+SHARDED_EPOCHS = 5         # (b): loop epochs per case
+NCCL_EPOCHS = 2            # (c): epochs of the 1-rank NCCL group
+SHARDED_TRACE = ("sharded_halo", "sharded_overlap")   # (b): a traced run
+SHARDED_TRACE_EPOCHS = 2   # each, rank 0 under torch.profiler
+SHARDED_CASES = (
+    ("sharded_halo", dict()),
+    ("sharded_overlap", dict(halo_overlap=True)),
+    ("sharded_edgeshard", dict(shard_layout="edgeshard")),
+    ("sharded_nodtc", dict(model_name="KTGNN_noDTC")),
+)
+
+
+def sharded_cfg(n_shards=SHARDED_RANKS, epochs=SHARDED_EPOCHS, **kw):
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config
+
+    return Stage2Config(num_epoch=epochs, dropout=0.0, to_undirected=True,
+                        adjacency_method=KERNEL_METHOD, n_shards=n_shards,
+                        **kw)
+
+
+def native_phase(card: str) -> dict:
+    """Phase 27 (a): coalesce and dst-sort of a seeded NATIVE_EDGES-edge
+    graph through the native library against numpy: equal arrays, and
+    the median seconds of NATIVE_ROUNDS rounds of each, native and numpy
+    in turns (the library's build apart)."""
+    from bridged_gnn_tpu_torch import graph
+    from bridged_gnn_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(BENCH["seed"])
+    ei = rng.integers(0, NATIVE_NODES, size=(2, NATIVE_EDGES))
+    out = dict(phase="native", edges=NATIVE_EDGES, nodes=NATIVE_NODES,
+               rounds=NATIVE_ROUNDS, build_s=build_s)
+    for name, fast, slow in (
+            ("coalesce", lambda: native.coalesce(ei),
+             lambda: graph.coalesce_numpy(ei, NATIVE_NODES)),
+            ("sort_by_dst", lambda: native.sort_by_dst(ei),
+             lambda: graph.sort_edges_numpy(ei, NATIVE_NODES))):
+        times = dict(native=[], numpy=[])
+        for _ in range(NATIVE_ROUNDS):
+            for kind, fn in (("native", fast), ("numpy", slow)):
+                t0 = time.perf_counter()
+                res = fn()
+                times[kind].append(time.perf_counter() - t0)
+                if kind == "native":
+                    got = res
+                elif not np.array_equal(got, res):
+                    raise RuntimeError(f"native {name} differs from numpy")
+        for kind, ts in times.items():
+            out[f"{name}_{kind}_s"] = float(np.median(ts))
+        out[f"{name}_edges_out"] = int(got.shape[1])
+    log(json.dumps(dict(card=card, **out)))
+    return out
+
+
+def sharded_want(cfg, c: int) -> dict:
+    """Kernel launches per rank per epoch (train step and eval forward)
+    of a sharded case, by wrapper and width: KT-GNN's conv at HIDDEN and
+    three heads at the classes; halo: the concatenated pair, or the
+    selective pair for KTGNN_noDTC (one conv, at the classes); overlap:
+    two destination-keyed SpMMs per conv forward (local and halo sets,
+    2·D wide) and their transposes in the backward; edge shard: none."""
+    if cfg.shard_layout == "edgeshard":
+        return {}
+    if cfg.model_name == "KTGNN_noDTC":
+        return {"attention_sel_fwd": {c: 2}, "attention_sel_bwd": {c: 1},
+                "slot_reduce": {c: 1}}
+    if cfg.halo_overlap:
+        return {"gather_reduce": {2 * HIDDEN: 6, 2 * c: 18}}
+    return {"attention_fwd": {HIDDEN: 2, c: 6},
+            "attention_bwd": {HIDDEN: 1, c: 3},
+            "slot_reduce": {HIDDEN: 1, c: 3}}
+
+
+def sharded_replay(recs, halo) -> dict:
+    """Every kernel call of one recorded sharded step replayed against
+    its plain version, as phases 3, 7 and 16 replay theirs (forwards
+    rtol and atol 1e-4; backwards, reduce and SpMM scaled)."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    layouts = [lay for lay in (halo.lay, halo.lay_local, halo.lay_halo)
+               if lay is not None]
+    by = {}
+    for r in recs:
+        by.setdefault(r["name"], []).append(r)
+    out = {}
+    with torch.no_grad():
+        for name, calls in by.items():
+            if name == "gather_reduce":
+                out[name] = check_gather_calls(calls, layouts)
+                continue
+            wrapper = getattr(fk, name)
+            plain = getattr(fk, f"{name}_plain")
+            if name.endswith("_fwd"):
+                out[name] = check_kernel(name, wrapper, plain, calls,
+                                         layouts)
+            elif name.endswith("_bwd"):
+                out[name] = check_kernel(
+                    name, wrapper, plain, calls, layouts,
+                    bound=lambda i, c=name == "attention_bwd":
+                    bwd_bound(i, concat=c), scaled=True, plain_reps=2)
+            else:
+                out[name] = check_kernel(name, wrapper, plain, calls,
+                                         layouts, bound=reduce_bound,
+                                         scaled=True, plain_reps=2,
+                                         library=reduce_library)
+    return out
+
+
+def sharded_rank(data, cases, c: int) -> dict:
+    """Phase 27 (b) on one rank of the gloo group: per case, one recorded
+    train step on a backend of its own, its calls replayed rank after
+    rank, then ``train_ktgnn`` for SHARDED_EPOCHS epochs with the counts
+    set to 0 just before and read just after, CUDA events around every
+    launch; for SHARDED_TRACE, a SHARDED_TRACE_EPOCHS run more, rank 0's
+    under the profiler (phase 10's reading of its last epoch)."""
+    import torch
+    import torch.distributed as dist
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.parallel.multihost import describe
+    from bridged_gnn_tpu_torch.parallel.stage2_runtime import (
+        make_stage2_backend,
+    )
+    from bridged_gnn_tpu_torch.train.optim import make_optimizer
+    from bridged_gnn_tpu_torch.train.stage2 import (
+        build_model,
+        prepare_stage2_graph,
+        train_ktgnn,
+    )
+
+    rank, dev = dist.get_rank(), torch.device("cuda", 0)
+    out = dict(rank=rank, rule=describe(dist.group.WORLD, dev))
+    for name, kw in cases:
+        cfg = sharded_cfg(**kw)
+        t0 = time.perf_counter()
+        g, _ = prepare_stage2_graph(data, cfg, "cpu", build_adj=False)
+        model = build_model(cfg, c, g.num_features, dev)
+        backend = make_stage2_backend(dist.group.WORLD, dev, model, g, cfg,
+                                      c)
+        setup_s = time.perf_counter() - t0
+        opt, _ = make_optimizer(model.parameters(), cfg.lr,
+                                cfg.weight_decay, False, cfg.step_size,
+                                cfg.gamma)
+        with fk.record_launches(keep_inputs=True) as recs:
+            backend.train_step(opt, None)
+        replay = {}
+        for turn in range(dist.get_world_size()):
+            dist.barrier()
+            if turn == rank and backend.halo is not None:
+                replay = sharded_replay(recs, backend.halo)
+        del recs, backend, model, opt
+        torch.cuda.empty_cache()
+        dist.barrier()
+        fk.reset_launch_counts()
+        with fk.record_launches() as ev:
+            res = train_ktgnn(data, cfg, device="cuda")
+        torch.cuda.synchronize()
+        counts = fk.launch_counts()
+        e = cfg.num_epoch
+        want = {k: {d: n * e for d, n in v.items()}
+                for k, v in sharded_want(cfg, c).items()}
+        got = {k: v for k, v in counts.items() if v}
+        if got != want:
+            raise RuntimeError(f"{name} rank {rank}: launched {got} in {e} "
+                               f"epochs, expected {want}")
+        info = res["parallel"]
+        ex = info.get("exchange", {})
+        out[name] = dict(
+            losses=[h["loss"] for h in res["history"]],
+            losses_t2=[h["loss_t2"] for h in res["history"]],
+            best={k: v for k, v in res["best"].items() if k != "per_head"},
+            epoch_ms_median=1e3 * res["throughput"]["p50_s"],
+            epoch_ms_mean=1e3 * res["mean_epoch_time"],
+            launches_by_d=got,
+            launches_per_epoch_by_d={k: {d: n // e for d, n in v.items()}
+                                     for k, v in got.items()},
+            kernel_ms_per_epoch={k: sum(r["start"].elapsed_time(r["stop"])
+                                        for r in ev if r["name"] == k) / e
+                                 for k in got},
+            exchange_ms_per_epoch=1e3 * ex.get("s", 0.0) / e,
+            exchange_stage_ms_per_epoch=1e3 * ex.get("stage_s", 0.0) / e,
+            exchange_calls_per_epoch=ex.get("calls", 0) / e,
+            exchange_mb_per_epoch=ex.get("bytes", 0) / e / 1e6,
+            setup_s=setup_s, parallel=info,
+            replay={k: [{f: r[f] for f in (
+                "d", "layout", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs_err")} for r in v]
+                for k, v in replay.items()})
+        del res, ev
+        if name in SHARDED_TRACE:
+            tcfg = dataclasses.replace(cfg, num_epoch=SHARDED_TRACE_EPOCHS)
+            if rank == 0:
+                out[name]["trace"] = trace_phase(f"{name}_trace", data,
+                                                 tcfg)
+            else:
+                train_ktgnn(data, tcfg, device="cuda")
+        torch.cuda.empty_cache()
+    return out
+
+
+def single_losses(data, c: int) -> dict:
+    """The port's single-device runs the sharded cases are held to:
+    KT-GNN and KTGNN_noDTC, SHARDED_EPOCHS loop epochs at dropout 0."""
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    out = {}
+    for model in ("KTGNN", "KTGNN_noDTC"):
+        res = train_ktgnn(data, sharded_cfg(n_shards=1, model_name=model),
+                          device="cuda")
+        out[model] = dict(losses=[h["loss"] for h in res["history"]],
+                          losses_t2=[h["loss_t2"] for h in res["history"]],
+                          epoch_ms_median=1e3 * res["throughput"]["p50_s"])
+    return out
+
+
+def nccl_phase(data, single, c: int, card: str) -> dict:
+    """Phase 27 (c): a 1-rank NCCL group in this process, a 1-shard halo
+    partition and ``HaloStage2Backend`` driven directly for NCCL_EPOCHS
+    epochs, so that the exchange's and the all-reduces' NCCL branches run
+    on the card; losses against the single-device run's first epochs
+    (rtol 1e-4), scores finite."""
+    import torch
+    import torch.distributed as dist
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.parallel.multihost import init_distributed
+    from bridged_gnn_tpu_torch.parallel.stage2_runtime import (
+        HaloStage2Backend,
+    )
+    from bridged_gnn_tpu_torch.train.optim import make_optimizer
+    from bridged_gnn_tpu_torch.train.stage2 import (
+        build_model,
+        prepare_stage2_graph,
+    )
+
+    cfg = sharded_cfg(n_shards=1, epochs=NCCL_EPOCHS)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("cuda", f"file://{tmp}/store", 1, 0)
+        try:
+            backend_name = dist.get_backend()
+            if backend_name != "nccl":
+                raise RuntimeError(f"1-rank group on {backend_name}")
+            g, _ = prepare_stage2_graph(data, cfg, "cpu", build_adj=False)
+            model = build_model(cfg, c, g.num_features, "cuda")
+            backend = HaloStage2Backend(dist.group.WORLD, "cuda", model, g,
+                                        cfg, c)
+            opt, _ = make_optimizer(model.parameters(), cfg.lr,
+                                    cfg.weight_decay, False, cfg.step_size,
+                                    cfg.gamma)
+            fk.reset_launch_counts()
+            losses, scores = [], []
+            for _ in range(NCCL_EPOCHS):
+                loss, _aux = backend.train_step(opt, None)
+                losses.append(float(loss))
+                scores.append(backend.evaluate()[0])
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in fk.launch_counts().items() if v}
+            info = backend.info()
+        finally:
+            dist.destroy_process_group()
+    want = single["KTGNN"]["losses"][:NCCL_EPOCHS]
+    if not np.allclose(losses, want, rtol=LOSS_RTOL, atol=0):
+        raise RuntimeError(f"nccl 1-rank: losses {losses}, single device "
+                           f"{want}")
+    if not all(np.isfinite(list(s.values())).all() for s in scores):
+        raise RuntimeError(f"nccl 1-rank: scores {scores}")
+    if info["exchange"]["calls"] == 0 or info["exchange"]["staged"]:
+        raise RuntimeError(f"nccl 1-rank exchange {info['exchange']}")
+    out = dict(phase="sharded_nccl", backend=backend_name, losses=losses,
+               single_device_losses=want, scores=scores, launches=launched,
+               parallel=info)
+    log(json.dumps(dict(card=card, **out)))
+    return out
+
+
+def sharded_phase(bench, c: int, card: str) -> dict:
+    """Phase 27: (a) the native library; (b) SHARDED_CASES on
+    SHARDED_RANKS gloo ranks sharing cuda:0, each against the port's
+    single-device run at dropout 0 (losses rtol 1e-4), every kernel call
+    of one sharded step replayed, launches per rank per epoch asserted;
+    (c) the 1-rank NCCL group."""
+    import torch
+
+    from bridged_gnn_tpu_torch.parallel.multihost import spawn
+
+    t_phase = time.perf_counter()
+    native = native_phase(card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    single = single_losses(bench, c)
+    single_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_rank, SHARDED_RANKS, (bench, SHARDED_CASES, c),
+                  device_type="cuda", timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    cases = {}
+    for name, kw in SHARDED_CASES:
+        model = kw.get("model_name", "KTGNN")
+        want = single[model]
+        per_rank = [r[name] for r in ranks]
+        for r, got in zip(ranks, per_rank):
+            for key in ("losses", "losses_t2"):
+                if not np.allclose(got[key], want[key], rtol=LOSS_RTOL,
+                                   atol=0):
+                    raise RuntimeError(
+                        f"{name} rank {r['rank']}: {key} {got[key]} against"
+                        f" single device {want[key]}")
+        if any(got["losses"] != per_rank[0]["losses"] for got in per_rank):
+            raise RuntimeError(f"{name}: the ranks' losses differ")
+        if name in SHARDED_TRACE:
+            log(json.dumps(dict(card=card, rank=0,
+                                **per_rank[0].pop("trace"))))
+        row = dict(phase=name, ranks=SHARDED_RANKS, epochs=SHARDED_EPOCHS,
+                   rule=ranks[0]["rule"],
+                   single_device_losses=want["losses"],
+                   single_device_epoch_ms_median=want["epoch_ms_median"],
+                   **{f"rank{r['rank']}": got
+                      for r, got in zip(ranks, per_rank)})
+        log(json.dumps(dict(card=card, **row)))
+        cases[name] = row
+    nccl = nccl_phase(bench, single, c, card)
+    total = time.perf_counter() - t_phase
+    log(f"phase 27 (multi-device stage 2): {total:.1f} s, the ranks' "
+        f"spawn {spawn_s:.1f} s, single-device runs {single_s:.1f} s "
+        f"[{card}]")
+    return dict(native=native, cases=cases, nccl=nccl, s=total)
+
+
+def sharded_rows(kernels, sharded) -> None:
+    """Phase 27's launches join the kernel rows' counts (both ranks of
+    every case, and the NCCL rank), with the replayed sharded calls."""
+    for row in kernels:
+        if row.get("dtype") == "bfloat16":
+            continue
+        name = row["name"]
+        by_d, replay = {}, []
+        for case, r in sharded["cases"].items():
+            for rank in (f"rank{i}" for i in range(SHARDED_RANKS)):
+                for d, n in r[rank]["launches_by_d"].get(name, {}).items():
+                    by_d[d] = by_d.get(d, 0) + n
+                replay += [dict(case=case, rank=rank, **x)
+                           for x in r[rank]["replay"].get(name, [])]
+        for d, n in sharded["nccl"]["launches"].get(name, {}).items():
+            by_d[d] = by_d.get(d, 0) + n
+        if by_d:
+            row["launches_sharded_by_d"] = by_d
+            row["launches"] += sum(by_d.values())
+            row["sharded_replay"] = replay
+
+
 def main() -> int:
     import torch
 
@@ -4158,6 +4537,9 @@ def main() -> int:
     pipe = pipeline_phase(card)
     # 26. similarity serving from phase 22's v2 model
     serve_similarity_phase(s1, bridge, card)
+    # 27. multi-device stage 2: the native library, two gloo ranks on the
+    # card for each sharded layout, a 1-rank NCCL group
+    sharded = sharded_phase(bench, c, card)
 
     # summary, per kernel: its launches in its main-path phase and its
     # time inside that run (per predict for the forwards, per epoch for
@@ -4279,6 +4661,7 @@ def main() -> int:
             if n and row["name"] == f"{name}_bf16":
                 row["launches_pipeline"] = n
                 row["launches"] += n
+    sharded_rows(kernels, sharded)
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -285,16 +285,17 @@ def test_dropout_draws_from_the_generator():
     dict(adjacency_method="dense"),
 ], ids=lambda o: "-".join(f"{k}-{v}" for k, v in o.items()))
 def test_unported_options_raise(overrides):
-    """``n_shards > 1`` and ``memory_policy="xla_plain"`` raise
-    NotImplementedError naming their ROADMAP.md item. The other options
-    of this list were refused until the port ran them: ``need_complement``
-    and the dense and gather adjacencies train (finite losses), and the
-    rest refuse as the JAX runtime does, ConvNet without pseudo-coordinates
-    with its ValueError and the complementor on GCN with a TypeError."""
+    """``memory_policy="xla_plain"`` raises NotImplementedError naming its
+    ROADMAP.md item. The other options of this list were refused until
+    the port ran them: ``need_complement``, the dense and gather
+    adjacencies and ``n_shards=4`` (four ranks the trainer starts itself)
+    train (finite losses), and the rest refuse as the JAX runtime does,
+    ConvNet without pseudo-coordinates with its ValueError and the
+    complementor on GCN with a TypeError."""
     cfg = _train_cfg(**overrides)
     key = "-".join(f"{k}-{v}" for k, v in overrides.items())
     runs = ("need_complement-True", "adjacency_method-gather",
-            "adjacency_method-dense")
+            "adjacency_method-dense", "n_shards-4")
     refused = {"model_name-ConvNet": (ValueError, "pseudo"),
                "model_name-GCN-need_complement-True": (TypeError,
                                                        "frontiers")}
@@ -346,10 +347,11 @@ def test_cli_trains_on_npz(cli_run, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(cli_run, tmp_path):
+    """``--memory_policy xla_plain`` and sharded scan mode raise; the
+    sharding flags themselves train (tests/test_torch_sharded.py)."""
     _, npz, _, argv = cli_run
     ap = tcli2.build_argparser()
-    for extra in (["--n_shards", "2"], ["--halo_overlap"],
-                  ["--shard_layout", "edgeshard"],
+    for extra in (["--n_shards", "2", "--scan_epochs", "2"],
                   ["--memory_policy", "xla_plain"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tcli2.main(ap.parse_args(argv[:-2] + ["--device", "cpu"]
