@@ -18,8 +18,13 @@ misaligned filter-1 quantile cut (proposals sorted into PyG coalesce
 order before the filters, the similarities left in row-major order),
 for cross and within edges alike.
 
-The JAX package's ``mesh`` (``sharded_pair_topk``) waits for ROADMAP.md
-Queue 1 item 9.
+``mesh``: a process group (``parallel/mesh.py::make_group``, the port's
+``make_mesh``) whose ranks all call :func:`gen_bridged_graph` with the
+same model and graphs. The cross and both within top-ks then split their
+columns over the ranks (``parallel/topk.py::sharded_pair_topk``; JAX
+``bridge/build.py:313-351, 475-522``); the embeddings and classifier
+probabilities are rank 0's on every rank, and the host filters and the
+merge run alike on every rank, so each returns the same graph.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bridged_gnn_tpu_torch.graph import (
     Graph,
@@ -113,9 +119,21 @@ def _embed_cosine_side(model, z: Tensor) -> Tensor:
         return sim.biasatt(zz)
 
 
+def _rank0(group, *tensors: Tensor) -> Tuple[Tensor, ...]:
+    """``tensors`` as rank 0 of ``group`` holds them, on every rank (the
+    ranks' own copies may part in their last bits)."""
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        out.append(t)
+    return tuple(out)
+
+
 def _topk_grid(model, z_rows: Tensor, z_cols: Tensor, k: int,
                sim_mode: str, row_block: int, approx_recall=None,
-               rerank_candidates=None) -> Tuple[np.ndarray, np.ndarray]:
+               rerank_candidates=None, mesh=None
+               ) -> Tuple[np.ndarray, np.ndarray]:
     """Row-wise top-k of the pair-similarity matrix of target-side rows
     ``z_rows`` [R, H] against source-side columns ``z_cols`` [C, H]:
     (values [R, k], columns [R, k]) on the host.
@@ -123,10 +141,16 @@ def _topk_grid(model, z_rows: Tensor, z_cols: Tensor, k: int,
     ``rerank_candidates`` (mlp mode): screen the columns with the bf16
     cosine of the raw stage-1 embeddings, as the JAX package does (so the
     candidate sets are its), then score the exact head at the top
-    ``rerank_candidates`` columns of each row."""
+    ``rerank_candidates`` columns of each row. ``mesh``: a process group
+    whose ranks split the columns (:func:`~bridged_gnn_tpu_torch.parallel.
+    topk.sharded_pair_topk`)."""
     n_rows, n_cols = z_rows.shape[0], z_cols.shape[0]
     dev = z_rows.device
     with torch.no_grad():
+        if mesh is not None:
+            from bridged_gnn_tpu_torch.parallel.topk import (
+                sharded_pair_topk,
+            )
         if sim_mode == "mlp":
             d = decompose_pair_mlp_head(model)
 
@@ -136,7 +160,14 @@ def _topk_grid(model, z_rows: Tensor, z_cols: Tensor, k: int,
             a_rows = z_rows @ t(d["w_tar"])
             b_cols = z_cols @ t(d["w_src"])
             head = (a_rows, b_cols, t(d["bias"]), t(d["w2"]), d["b2"])
-            if rerank_candidates is not None:
+            if mesh is not None:
+                vals, idxs = sharded_pair_topk(
+                    mesh, a_rows, b_cols, n_rows, n_cols, k, mode="mlp",
+                    mlp_bias1=head[2], mlp_w2=head[3], mlp_b2=head[4],
+                    row_block=row_block, approx_recall=approx_recall,
+                    rerank_candidates=rerank_candidates, z_rows=z_rows,
+                    z_cols=z_cols)
+            elif rerank_candidates is not None:
                 proxy = cosine_score_block(z_rows.bfloat16(),
                                            z_cols.bfloat16())
                 vals, idxs = blockwise_rerank_topk(
@@ -148,6 +179,12 @@ def _topk_grid(model, z_rows: Tensor, z_cols: Tensor, k: int,
                     pair_mlp_score_block(*head), n_rows, n_cols, k,
                     row_block=row_block, approx_recall=approx_recall,
                     device=dev)
+        elif sim_mode == "cosine" and mesh is not None:
+            vals, idxs = sharded_pair_topk(
+                mesh, _embed_cosine_side(model, z_rows),
+                _embed_cosine_side(model, z_cols), n_rows, n_cols, k,
+                mode="cosine", row_block=row_block,
+                approx_recall=approx_recall)
         elif sim_mode == "cosine":
             fn = cosine_score_block(_embed_cosine_side(model, z_rows),
                                     _embed_cosine_side(model, z_cols))
@@ -179,12 +216,6 @@ def _encode_within(model, g: Graph, adj, domain: str) -> Tensor:
     return z[: g.num_nodes].float()
 
 
-def _classify(model, z: Tensor) -> np.ndarray:
-    model.eval()
-    with torch.no_grad():
-        return _np(torch.exp(model.source_learner.sim_net.classify(z)))
-
-
 def labeled_homophily(y_from, y_to, edge_index) -> float:
     labeled = (y_from[edge_index[0]] != -1) & (y_to[edge_index[1]] != -1)
     return float(
@@ -197,40 +228,51 @@ def propose_cross_edges(
     model, g_src: Graph, adj_src, g_tar: Graph, adj_tar, k: int,
     row_block: int = 512, sim_mode: str = "mlp",
     epsilon: float = 0.5,  # accepted and unused, as the reference's (:33)
-    approx_recall=None, rerank_candidates=None, timings=None,
+    approx_recall=None, rerank_candidates=None, timings=None, mesh=None,
 ):
     """Top-k source neighbours of every target node (reference
     ``add_topk_sim_cross_domain_edges``, main_bridged_graph.py:33-75).
     Returns (flat edge_index [2, N_tar·k] in row-major (tar, k) order,
     aligned with ``sims.reshape(-1)``; sims [N_tar, k]; the classifier's
     probabilities on source and target; the labeled proposals'
-    homophily). ``timings``: see :func:`gen_bridged_graph`."""
+    homophily). ``timings`` and ``mesh``: see :func:`gen_bridged_graph`."""
     dev = g_src.x.device
     with _timed(timings, "encode", dev):
         z_src, z_tar = _encode(model, g_src, adj_src, g_tar, adj_tar)
+        with torch.no_grad():   # eval mode, as _encode left the model
+            p_src, p_tar = (
+                torch.exp(model.source_learner.sim_net.classify(z))
+                for z in (z_src, z_tar))
+        if mesh is not None:
+            z_src, z_tar, p_src, p_tar = _rank0(mesh, z_src, z_tar, p_src,
+                                                p_tar)
     with _timed(timings, "cross_topk", dev):
         vals, idxs = _topk_grid(model, z_tar, z_src, k, sim_mode,
-                                row_block, approx_recall, rerank_candidates)
+                                row_block, approx_recall, rerank_candidates,
+                                mesh)
     n_tar = g_tar.num_nodes
     edge_index = np.stack([idxs.reshape(-1),
                            np.repeat(np.arange(n_tar), k)]).astype(np.int64)
     y_src = _np(g_src.y)[: g_src.num_nodes]
     y_tar = _np(g_tar.y)[:n_tar]
     homo = labeled_homophily(y_src, y_tar, edge_index)
-    return (edge_index, vals, _classify(model, z_src),
-            _classify(model, z_tar), homo)
+    return edge_index, vals, _np(p_src), _np(p_tar), homo
 
 
 def propose_within_edges(
     model, g: Graph, adj, domain: str, k: int, row_block: int = 512,
     sim_mode: str = "mlp", approx_recall=None, rerank_candidates=None,
+    mesh=None,
 ):
     """Top-k within-domain neighbours of every node, self-pairs kept as
     the reference keeps them (main_bridged_graph.py:97). Returns the flat
-    sim-aligned edges and the sim grid."""
+    sim-aligned edges and the sim grid. ``mesh``: see
+    :func:`gen_bridged_graph`."""
     z = _encode_within(model, g, adj, domain)
+    if mesh is not None:
+        (z,) = _rank0(mesh, z)
     vals, idxs = _topk_grid(model, z, z, k, sim_mode, row_block,
-                            approx_recall, rerank_candidates)
+                            approx_recall, rerank_candidates, mesh)
     edge_index = np.stack([idxs.reshape(-1),
                            np.repeat(np.arange(g.num_nodes), k)]
                           ).astype(np.int64)
@@ -326,6 +368,7 @@ def gen_bridged_graph(
     sim_mode: str = "mlp", epsilon: float = 0.5, row_block: int = 512,
     verbose: bool = False, approx_recall=None, rerank_candidates=None,
     reference_compat: bool = False, timings: Optional[dict] = None,
+    mesh=None,
 ) -> Dict[str, np.ndarray]:
     """The bridge build end to end (reference main_bridged_graph.py:
     267-321) from ``model``'s weights, on the device its graphs and
@@ -335,13 +378,17 @@ def gen_bridged_graph(
     ``timings``, where given, gets the seconds of each part on the host
     clock, the device synchronized around each: ``encode`` (both
     domains), ``cross_topk``, ``within_source`` and ``within_target``
-    (each with its domain's encode) and ``filters_merge``."""
+    (each with its domain's encode) and ``filters_merge``.
+
+    ``mesh``: a process group whose every rank makes this call with the
+    same model and graphs; the top-ks split their columns over its ranks
+    and each rank returns the same graph."""
     dev = g_src.x.device
     ei_cross, sims, p_src, p_tar, homo = propose_cross_edges(
         model, g_src, adj_src, g_tar, adj_tar, k_cross,
         row_block=row_block, sim_mode=sim_mode, epsilon=epsilon,
         approx_recall=approx_recall, rerank_candidates=rerank_candidates,
-        timings=timings)
+        timings=timings, mesh=mesh)
     if verbose:
         print(f"cross proposals: {ei_cross.shape[1]} (homophily "
               f"{homo:.4f})")
@@ -353,7 +400,7 @@ def gen_bridged_graph(
                 within[domain] = propose_within_edges(
                     model, g, adj, domain, k_within, row_block=row_block,
                     sim_mode=sim_mode, approx_recall=approx_recall,
-                    rerank_candidates=rerank_candidates)
+                    rerank_candidates=rerank_candidates, mesh=mesh)
     with _timed(timings, "filters_merge", dev):
         src_d = _graph_to_dict(g_src)
         tar_d = _graph_to_dict(g_tar)

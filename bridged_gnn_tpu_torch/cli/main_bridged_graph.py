@@ -13,9 +13,10 @@ does on every backend but the TPU. ``--scan_epochs K`` trains in scan
 mode (segments of up to K epochs, on the card one epoch captured in a
 CUDA graph and replayed); ``--device_sampling`` draws the training pairs
 on the device and evaluates with the device evaluator (it needs
-``--scan_epochs``, as in the JAX package). ``--n_shards`` other than 1
-raises ``NotImplementedError`` naming the ROADMAP.md item that brings
-it.
+``--scan_epochs``, as in the JAX package). ``--n_shards N`` trains
+stage 1 with both domain graphs row-sharded over N ranks, which the
+trainer starts itself outside ``torchrun`` (``train/stage1.py``); the
+bridge is then built in this process from rank 0's best weights.
 
 Example (``run.sh`` recipe 0, then stage 2 on its output):
   python -m bridged_gnn_tpu_torch.cli.main_bridged_graph \

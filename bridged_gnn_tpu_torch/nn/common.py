@@ -45,19 +45,23 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 0,
 
 
 def pair_norm(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-              mode: str = "PN", scale: float = 1.0) -> torch.Tensor:
+              mode: str = "PN", scale: float = 1.0,
+              group=None) -> torch.Tensor:
     """PairNorm (reference models/models.py:29-64; JAX
     ``nn/common.py::pair_norm``). Modes ``"None"``, ``"PN"``, ``"PN-SI"``,
     ``"PN-SCS"``; the column mean and PN's mean row norm are over the
-    rows where ``mask`` is True, so padded rows move neither."""
+    rows where ``mask`` is True, so padded rows move neither. With
+    ``group`` (rows split over its ranks, ``parallel/gspmd.py``) both are
+    the global ones: the mean first, then the centred squares' mean."""
     if mode == "None":
         return x
     if mask is None:
         mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-    col_mean = masked_mean(x, mask, dim=0, keepdim=True)
+    col_mean = masked_mean(x, mask, dim=0, keepdim=True, group=group)
     if mode == "PN":
         xc = x - col_mean
-        rown = torch.sqrt(1e-6 + masked_mean((xc * xc).sum(1), mask))
+        rown = torch.sqrt(1e-6 + masked_mean((xc * xc).sum(1), mask,
+                                             group=group))
         return scale * xc / rown
     if mode == "PN-SI":
         xc = x - col_mean
@@ -227,16 +231,25 @@ class MLPBackbone(nn.Module):
         self.norm_scale = norm_scale
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, shard=None
                 ) -> torch.Tensor:
+        """``shard``: a ``parallel.gspmd.RowShard`` when ``x`` holds a
+        rank's rows; its mask and group then give PairNorm's statistics
+        and its dropout draws the masks of all ranks' rows."""
+        group = None
+        if shard is not None:
+            mask, group = shard.node_mask, shard.group
         for i, lin in enumerate(self.layers):
             x = lin(x)
             if i < len(self.layers) - 1:
                 if self.use_norm:
-                    x = pair_norm(x, mask, self.norm_mode, self.norm_scale)
+                    x = pair_norm(x, mask, self.norm_mode, self.norm_scale,
+                                  group)
                 x = torch.relu(x)
                 if self.training:
-                    x = dropout(x, self.dropout_p, generator)
+                    x = (dropout(x, self.dropout_p, generator)
+                         if shard is None
+                         else shard.dropout(x, self.dropout_p, generator))
         return x
 
 

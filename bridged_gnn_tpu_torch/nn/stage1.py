@@ -73,8 +73,13 @@ class SAGEConv(nn.Module):
                                   generator=generator)
                       if root_weight else None)
 
-    def forward(self, x: Tensor, adj: Adjacency) -> Tensor:
-        out = self.lin_l(spmm(adj, x, reduce="mean"))
+    def forward(self, x: Tensor, adj: Adjacency, shard=None) -> Tensor:
+        """``shard``: a ``parallel.gspmd.RowShard`` when ``x`` holds a
+        rank's rows and ``adj`` the edges into them: the senders' rows are
+        all-gathered first, and the SpMM's transposed pass writes every
+        sender row, which the gather's backward sums over the ranks."""
+        x_all = x if shard is None else shard.gather_all(x)
+        out = self.lin_l(spmm(adj, x_all, reduce="mean"))
         if self.lin_r is not None:
             out = out + self.lin_r(x)
         return out
@@ -100,14 +105,23 @@ class GraphEncoder(nn.Module):
 
     def forward(self, x: Tensor, adj: Adjacency,
                 mask: Optional[Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> Tensor:
+        """``shard``: as :meth:`MLPBackbone.forward`'s, and the convs
+        gather their senders' rows."""
+        group = None
+        if shard is not None:
+            mask, group = shard.node_mask, shard.group
         for i, conv in enumerate(self.convs):
-            x = conv(x, adj)
+            x = conv(x, adj, shard)
             if i < len(self.convs) - 1:
-                x = pair_norm(x, mask, self.norm_mode, self.norm_scale)
+                x = pair_norm(x, mask, self.norm_mode, self.norm_scale,
+                              group)
                 x = torch.relu(x)
                 if self.training:
-                    x = dropout(x, self.dropout_p, generator)
+                    x = (dropout(x, self.dropout_p, generator)
+                         if shard is None
+                         else shard.dropout(x, self.dropout_p, generator))
         return x
 
 
@@ -295,13 +309,19 @@ class SourceLearnerV2(nn.Module):
 
     def encode(self, x: Tensor, adj: Optional[Adjacency],
                mask: Optional[Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> Tensor:
+               generator: Optional[torch.Generator] = None,
+               shard=None) -> Tensor:
+        """The embeddings of ``x``'s rows; with ``shard`` (a rank's rows,
+        ``parallel/gspmd.py``) all-gathered into the whole table."""
         if self.backbone == "mlp":
-            return self.backbone_net(x, mask, generator)
-        return self.backbone_net(x, adj, mask, generator)
+            h = self.backbone_net(x, mask, generator, shard)
+        else:
+            h = self.backbone_net(x, adj, mask, generator, shard)
+        return h if shard is None else shard.gather(h)
 
-    def forward(self, x, adj, idx1, idx2, mask=None, generator=None):
-        h = self.encode(x, adj, mask, generator)
+    def forward(self, x, adj, idx1, idx2, mask=None, generator=None,
+                shard=None):
+        h = self.encode(x, adj, mask, generator, shard)
         probs_pair, log_probs_clf = self.sim_net(h, idx1, idx2, generator)
         return probs_pair, log_probs_clf, h
 
@@ -332,22 +352,29 @@ class TargetLearnerAEV2(nn.Module):
 
     def encode(self, x: Tensor, adj: Optional[Adjacency] = None,
                mask: Optional[Tensor] = None,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None, shard=None
                ) -> Tuple[Tensor, Tensor]:
+        """``(z, h0)`` of ``x``'s rows; with ``shard`` (a rank's rows,
+        ``parallel/gspmd.py``) both all-gathered into whole tables."""
+        group = None
+        if shard is not None:
+            mask, group = shard.node_mask, shard.group
         h0 = pair_norm(self.equavilent_trans_layer_0(x), mask,
-                       self.norm_mode, self.norm_scale)
+                       self.norm_mode, self.norm_scale, group)
         h0 = torch.tanh(h0)
         if self.backbone == "mlp":
-            z = self.encoder(h0, mask, generator)
+            z = self.encoder(h0, mask, generator, shard)
         else:
-            z = self.encoder(h0, adj, mask, generator)
+            z = self.encoder(h0, adj, mask, generator, shard)
+        if shard is not None:
+            z, h0 = shard.gather(z), shard.gather(h0)
         return z, h0
 
     def decode(self, z: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         return torch.tanh(self.decoder(z, mask))
 
-    def forward(self, x, adj=None, mask=None, generator=None):
-        z, h0 = self.encode(x, adj, mask, generator)
+    def forward(self, x, adj=None, mask=None, generator=None, shard=None):
+        z, h0 = self.encode(x, adj, mask, generator, shard)
         return h0, z, self.decode(z, mask)
 
 
@@ -411,12 +438,15 @@ class AdversarialLearnerV2(nn.Module):
         return probs_pair, probs_clf_src, probs_clf_tar, z_src, z_tar
 
     def encode_domains(self, x_src, adj_src, x_tar, adj_tar, mask_src=None,
-                       mask_tar=None, generator=None):
-        """Embeddings of both domains (the bridge build's front end)."""
+                       mask_tar=None, generator=None, shard_src=None,
+                       shard_tar=None):
+        """Embeddings of both domains (the bridge build's front end);
+        with shards, of every rank's rows from this rank's
+        (``parallel/gspmd.py``)."""
         z_src = self.source_learner.encode(x_src, adj_src, mask_src,
-                                           generator)
+                                           generator, shard_src)
         z_tar, _ = self.target_learner.encode(x_tar, adj_tar, mask_tar,
-                                              generator)
+                                              generator, shard_tar)
         return z_src, z_tar
 
     def discriminate(self, z: Tensor) -> Tensor:
@@ -424,16 +454,22 @@ class AdversarialLearnerV2(nn.Module):
 
     def train_forward(self, x_src, adj_src, x_tar, adj_tar, idx1_src,
                       idx2_src, idx1_tar, idx2_tar, idx1_cross, idx2_cross,
-                      mask_src=None, mask_tar=None, generator=None) -> dict:
+                      mask_src=None, mask_tar=None, generator=None,
+                      shard_src=None, shard_tar=None) -> dict:
         """One stage-1 forward in the reference's call order (scripts.py:
         34-54; JAX ``train_forward``): source pairs, the target
         autoencoder, target pairs scored by the source head, cross pairs,
         the discriminator on the target, so the batch norms' running
-        statistics see the same sequence of updates."""
+        statistics see the same sequence of updates. With shards
+        (``parallel/gspmd.py``) ``x_*`` and ``adj_*`` are this rank's rows
+        and the edges into them, ``mask_*`` the whole graphs' masks: the
+        encoders run on the rank's rows and everything after them on the
+        gathered tables, alike on every rank."""
         probs_pair_src, log_clf_src, h_src = self.source_learner(
-            x_src, adj_src, idx1_src, idx2_src, mask_src, generator)
-        h0_tar, h_tar, recons = self.target_learner(x_tar, adj_tar,
-                                                    mask_tar, generator)
+            x_src, adj_src, idx1_src, idx2_src, mask_src, generator,
+            shard_src)
+        h0_tar, h_tar, recons = self.target_learner(
+            x_tar, adj_tar, mask_tar, generator, shard_tar)
         sim = self.source_learner.sim_net
         probs_pair_tar, log_clf_tar = sim(h_tar, idx1_tar, idx2_tar,
                                           generator)

@@ -39,7 +39,7 @@ every other row a warp or part of one (``csrc/attention_fwd.cu``,
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -196,7 +196,11 @@ def make_blocked_ops(
     num_nodes_padded: int,
     node_block: int = 256,
     device="cpu",
+    num_senders: Optional[int] = None,
 ) -> BlockedOps:
+    """The single slot layout. ``num_senders`` (default
+    ``num_nodes_padded``): the rows of the sender table, where it differs
+    from the destinations' (a row shard's, ``parallel/gspmd.py``)."""
     s = np.asarray(senders).astype(np.int64)
     r = np.asarray(receivers).astype(np.int64)
     em = np.asarray(edge_mask)
@@ -206,7 +210,7 @@ def make_blocked_ops(
     )
     return BlockedOps(
         lay_dst=_layout_from_np(dst_np, num_nodes_padded, node_block,
-                                device, num_nodes_padded))
+                                device, num_senders or num_nodes_padded))
 
 
 class TieredOps(NamedTuple):
@@ -238,6 +242,7 @@ def make_tiered_blocked_ops(
     node_block: int = 128,
     max_tiers: int = 4,
     device="cpu",
+    num_senders: Optional[int] = None,
 ) -> TieredOps:
     s = np.asarray(senders).astype(np.int64)
     r = np.asarray(receivers).astype(np.int64)
@@ -285,7 +290,8 @@ def make_tiered_blocked_ops(
             r_t, s[idx].astype(np.int32), em[idx], n_out_t, nb,
             edge_ids=idx,
         )
-        lay_dst = _layout_from_np(d_np, n_out_t, nb, device, n_pad)
+        lay_dst = _layout_from_np(d_np, n_out_t, nb, device,
+                                  num_senders or n_pad)
         tiers.append(BlockedOps(lay_dst=lay_dst))
         slots_tiered += lay_dst.num_blocks * lay_dst.tile_e
 

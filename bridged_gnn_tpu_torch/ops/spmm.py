@@ -118,13 +118,21 @@ def build_adjacency(
     method: str = "blocked",
     node_block: int = 256,
     device="cuda",
+    num_senders: Optional[int] = None,
 ) -> Adjacency:
     """``method``: one of :data:`METHODS` (``"blocked"`` takes tiers when
     the skew rule fires; ``"auto"`` is :func:`resolve_adjacency_method`).
-    Edges must be dst-sorted, as the Graph keeps them."""
+    Edges must be dst-sorted, as the Graph keeps them. ``num_senders``:
+    the sender table's rows where they are not the destinations' (a row
+    shard's, ``parallel/gspmd.py``); only the slot layouts take it, so
+    ``"gather"`` and ``"dense"`` refuse it."""
     dev = resolve_device(device)
     n_pad = num_nodes_padded or num_nodes
     method = resolve_adjacency_method(method, n_pad)
+    if num_senders is not None and method in ("gather", "dense"):
+        raise ValueError(f"num_senders: the {method!r} adjacency keys its "
+                         "senders by the destinations' rows; only the "
+                         "slot layouts (blocked, tiered) take it")
     s_np, r_np, em_np = _host(senders), _host(receivers), _host(edge_mask)
     edges = dict(
         num_nodes=num_nodes, num_nodes_padded=n_pad,
@@ -146,13 +154,14 @@ def build_adjacency(
             **edges,
             tiered_fn=make_tiered_blocked_ops(
                 s_np, r_np, em_np, n_pad, node_block=min(node_block, 128),
-                device=dev,
+                device=dev, num_senders=num_senders,
             ),
         )
     return Adjacency(
         **edges,
         fast_fn=make_blocked_ops(
             s_np, r_np, em_np, n_pad, node_block=node_block, device=dev,
+            num_senders=num_senders,
         ),
     )
 

@@ -58,6 +58,7 @@ from bridged_gnn_tpu_torch.ops.blocked_segment import (
     _layout_from_np,
     _padded_layout_np,
 )
+from bridged_gnn_tpu_torch.utils.profiling import collective_span
 
 
 class HaloPartition(NamedTuple):
@@ -412,14 +413,22 @@ def shard_node_array(a: np.ndarray, part: HaloPartition, q: int,
 # ------------------------------------------------------------ the exchange
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is being captured in a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 @dataclasses.dataclass
 class ExchangeStats:
-    """What a view's exchanges cost, on the host clock: calls, bytes
-    sent per rank (the all_to_all's buffer, backward included), the
-    seconds inside the exchange (for a gloo group on CUDA after the
-    stream has drained, so that queued compute is not counted) and, of
-    them, the seconds spent copying the buffers between the card and
-    pinned host memory."""
+    """What a view's eagerly run exchanges cost, on the host clock:
+    calls, bytes sent per rank (the all_to_all's buffer, backward
+    included), the seconds inside the exchange (for a gloo group on CUDA
+    after the stream has drained, so that queued compute is not counted)
+    and, of them, the seconds spent copying the buffers between the card
+    and pinned host memory. An exchange recorded into a CUDA graph (scan
+    mode under NCCL) adds nothing: a host clock there would time the
+    capture, not the replays, which are timed as whole epochs."""
 
     calls: int = 0
     bytes: int = 0
@@ -441,6 +450,8 @@ class _Pending:
             return
         self.work.wait()
         self.work = None
+        if _capturing():
+            return
         stats = self.view.stats
         if self.host_recv is not None:
             t = time.perf_counter()
@@ -504,9 +515,12 @@ class HaloView:
     def all_to_all(self, send: torch.Tensor, async_op: bool):
         """``recv``, block ``p`` from rank ``p``, of an equal-split
         all_to_all of ``send`` [n·h_pair, D]; and the pending exchange
-        (already waited on unless ``async_op``)."""
-        self.stats.calls += 1
-        self.stats.bytes += send.numel() * send.element_size()
+        (already waited on unless ``async_op``). The gloo staging through
+        pinned host memory is host work and never captured: a CUDA graph
+        records exchanges under NCCL alone."""
+        if not _capturing():
+            self.stats.calls += 1
+            self.stats.bytes += send.numel() * send.element_size()
         t0 = time.perf_counter()
         host_recv = None
         if self.stage_on_host:
@@ -518,12 +532,15 @@ class HaloView:
             host_recv = torch.empty_like(host_send, pin_memory=True)
             self.stats.stage_seconds += time.perf_counter() - t0
             recv = torch.empty_like(send)
-            work = dist.all_to_all_single(host_recv, host_send,
-                                          group=self.group, async_op=True)
+            with collective_span("all_to_all"):
+                work = dist.all_to_all_single(host_recv, host_send,
+                                              group=self.group,
+                                              async_op=True)
         else:
             recv = torch.empty_like(send)
-            work = dist.all_to_all_single(recv, send, group=self.group,
-                                          async_op=True)
+            with collective_span("all_to_all"):
+                work = dist.all_to_all_single(recv, send, group=self.group,
+                                              async_op=True)
         pending = _Pending(self, work, host_recv, recv, t0)
         if not async_op:
             pending.wait()

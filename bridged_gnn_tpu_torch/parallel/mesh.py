@@ -18,16 +18,25 @@ from bridged_gnn_tpu_torch.parallel.multihost import (
 )
 
 
-def make_group(n_shards: int, device="cuda") -> Tuple[object, torch.device]:
+def make_group(n_shards: int, device="cuda",
+               group=None) -> Tuple[object, torch.device]:
     """The process group of ``n_shards`` ranks, one per shard, and this
     rank's device. Joins the group from torchrun's environment when the
     process is not in one yet; raises ``RuntimeError`` when there is no
-    group to join and ``ValueError`` when its size is not ``n_shards``."""
+    group to join and ``ValueError`` when its size is not ``n_shards``.
+    ``group``: a group the caller formed, used in place of the default
+    one (its size checked alike)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} was requested but "
             "torch.cuda.is_available() is false")
+    if group is not None:
+        if dist.get_world_size(group) != n_shards:
+            raise ValueError(f"n_shards={n_shards} but the group has "
+                             f"{dist.get_world_size(group)} ranks")
+        return group, (torch.device("cuda", torch.cuda.current_device())
+                       if dev.type == "cuda" else torch.device("cpu"))
     if not init_distributed(dev.type):
         raise RuntimeError(
             f"n_shards={n_shards} needs a process group of {n_shards} "

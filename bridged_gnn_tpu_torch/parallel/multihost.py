@@ -15,6 +15,10 @@ collectives.
   spawn context) on a ``file://`` store in a temporary directory, runs a
   function on every rank and returns each rank's result.
 
+* :func:`make_pod_mesh` and :func:`flat_edge_mesh` lay the group's
+  ranks out as the JAX package lays a pod's devices: hosts × local ranks
+  in torchrun's node-major order, and the same ranks as one edge axis.
+
 **Backend rule** (:func:`backend_for`), stated once here and printed by
 :func:`describe` in the trainer's run header: ``nccl`` when every rank
 of the host has a card of its own; ``gloo`` when ranks share one card
@@ -30,8 +34,10 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import (Any, Callable, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -100,6 +106,26 @@ def init_distributed(device_type: str = "cuda",
     return True
 
 
+def capture_rule(group, device) -> Tuple[bool, str]:
+    """Scan mode's capture rule for a sharded run, fixed from the group's
+    backend before the run: whether the epoch is captured in a CUDA graph
+    (under NCCL on a card) and the rule's name, ``"nccl"`` or ``"none
+    (<backend>)"`` (gloo's collectives on CUDA tensors go through the
+    host, so a gloo epoch runs eagerly)."""
+    backend = dist.get_backend(group)
+    capture = torch.device(device).type == "cuda" and backend == "nccl"
+    return capture, "nccl" if capture else f"none ({backend})"
+
+
+def describe_capture(group, device) -> str:
+    """The run header's line for scan mode's capture rule."""
+    capture, name = capture_rule(group, device)
+    return ("[parallel] scan capture: " + name
+            + (": one CUDA graph of an epoch, replayed" if capture
+               else ": every epoch runs eagerly, one copy to the host a "
+               "chunk"))
+
+
 def is_primary() -> bool:
     """True on rank 0, and in a process that is no rank (outside a group
     and without torchrun's ``RANK``): the process that prints and writes
@@ -122,6 +148,37 @@ def describe(group, device: torch.device) -> str:
     return (f"[parallel] backend {backend}: {where} (nccl when every rank "
             "has a card of its own, gloo when ranks share a card or run on "
             "the CPU)")
+
+
+class RankMesh(NamedTuple):
+    """Global ranks laid out on named axes (the port's counterpart of a
+    JAX ``Mesh``): ``ranks`` holds rank ids, one axis per name."""
+
+    ranks: np.ndarray
+    axis_names: tuple
+
+
+def make_pod_mesh(axis_names: Sequence[str] = ("host", "edges")
+                  ) -> RankMesh:
+    """The group's ranks as hosts × local ranks (JAX ``make_pod_mesh``):
+    torchrun numbers ranks node-major, rank = node · local world size +
+    local rank, so row ``h`` holds host ``h``'s ranks. Edge shards then
+    lie on the inner axis, within a host; only small per-node partials
+    cross hosts. A process outside a group is one host of one rank."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    local = _local(world, rank)[1]
+    if world % local:
+        raise ValueError(f"{world} ranks do not split into hosts of "
+                         f"{local}")
+    return RankMesh(np.arange(world).reshape(world // local, local),
+                    tuple(axis_names))
+
+
+def flat_edge_mesh(mesh: RankMesh, axis_name: str = "edges") -> RankMesh:
+    """``mesh``'s ranks as one edge axis, host-major (JAX
+    ``flat_edge_mesh``): contiguous edge spans stay on one host."""
+    return RankMesh(mesh.ranks.reshape(-1), (axis_name,))
 
 
 # ------------------------------------------------------------------ spawn

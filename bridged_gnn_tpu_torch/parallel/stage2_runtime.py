@@ -9,7 +9,10 @@ backend that gives it two calls:
 * ``train_step(opt, generator)`` → ``(loss, aux)``: one optimizer step;
   the loss and its terms of the whole graph (0-dim tensors);
 * ``evaluate()`` → ``(scores, per_head)``: the eval heads' scores on
-  the whole graph.
+  the whole graph;
+* ``eval_counts()`` → the five confusion tables of scan mode, summed over
+  the ranks and left on the device: the eval half of a sharded scan
+  epoch (``train/stage2.py::_epoch_body``), which a CUDA graph captures.
 
 Layouts: ``halo`` (:class:`HaloStage2Backend`, row partition + boundary
 exchange, ``halo_overlap`` for the overlap form) and ``edgeshard``
@@ -35,9 +38,17 @@ same counts, as ``score_from_counts`` does. Any other metric gathers the
 predictions (and probabilities) of all rows to every rank and scores
 them as the single-device trainer does.
 
+Scan mode (JAX ``scan_chunk`` of both backends) runs the trainer's
+epoch body over the backend's ``train_step`` and ``eval_counts``. Under
+NCCL the epoch is captured in a CUDA graph after the eager warm-up
+epochs and replayed; under gloo every epoch runs eagerly (the trainer
+fixes the rule from the group's backend before the run). Nothing in a
+step re-binds storage between replays: the gradients are all-reduced in
+one flat buffer allocated with the backend, and ``p.grad`` are views of
+it.
+
 JAX's ``estimate_plain_hbm_per_shard`` is not ported: the port's
 ``memory_policy="auto"`` reads no estimate (``resolve_memory_policy``).
-Sharded scan mode is not ported yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -49,10 +60,8 @@ import torch
 import torch.distributed as dist
 
 from bridged_gnn_tpu_torch.graph import Graph
-from bridged_gnn_tpu_torch.parallel.edgeshard import (
-    pad_graph_edges_for_sharding,
-    shard_adjacency,
-)
+from bridged_gnn_tpu_torch.parallel.collectives import GradAllReduce
+from bridged_gnn_tpu_torch.parallel.gspmd import gspmd_setup
 from bridged_gnn_tpu_torch.parallel.halopart import (
     HaloPartition,
     build_halo_partition,
@@ -61,6 +70,7 @@ from bridged_gnn_tpu_torch.parallel.halopart import (
     shard_node_array,
     wire_bytes_per_layer,
 )
+from bridged_gnn_tpu_torch.utils.profiling import collective_span
 
 
 def _counts_score(cfg) -> bool:
@@ -77,20 +87,6 @@ def _nll_sum(lp, y, mask):
 def _kl_sum(log_q, log_p, mask):
     kl = torch.exp(log_p) * (log_p - log_q)
     return (kl * mask.to(log_q.dtype)[:, None]).sum()
-
-
-def _all_reduce_grads(model: torch.nn.Module, group) -> None:
-    """Sum every parameter's gradient over the group's ranks, in one
-    all-reduce (a parameter without a gradient adds zeros)."""
-    params = [p for p in model.parameters() if p.requires_grad]
-    flat = torch.cat([(p.grad if p.grad is not None
-                       else torch.zeros_like(p)).reshape(-1)
-                      for p in params])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    k = 0
-    for p in params:
-        p.grad = flat[k:k + p.numel()].view_as(p)
-        k += p.numel()
 
 
 class _Backend:
@@ -113,6 +109,18 @@ class _Backend:
         self.n = dist.get_world_size(group)
         self.multi_head = isinstance(model, KTGNN)
         self.num_classes = num_classes
+        self.all_reduce_grads = GradAllReduce(model.parameters(), group)
+
+    def _setup(self) -> None:
+        """What subclasses call once ``g`` is set: the global counts of
+        the loss and the five tables' masks and label bins."""
+        from bridged_gnn_tpu_torch.train.stage2 import _TABLES
+
+        g, c = self.g, self.num_classes
+        self.counts = self._global_counts()
+        splits = torch.stack([g.train_mask, g.val_mask, g.test_mask]).int()
+        self.table_masks = splits[[m for _, m in _TABLES]]
+        self.y_bin = torch.where(g.y < 0, c, g.y).long()
 
     def _heads(self, generator=None):
         out = self.model(self.g, self.adj, generator, halo=self.halo)
@@ -124,7 +132,8 @@ class _Backend:
                                               & ~g.central_mask).sum(),
                          g.node_mask.sum()]).double()
         if not self.replicated:
-            dist.all_reduce(c, op=dist.ReduceOp.SUM, group=self.group)
+            with collective_span("all_reduce"):
+                dist.all_reduce(c, op=dist.ReduceOp.SUM, group=self.group)
         return c.clamp(min=1.0).float()
 
     def _terms(self, generator):
@@ -154,40 +163,55 @@ class _Backend:
         opt.zero_grad(set_to_none=True)
         loss, aux = self._terms(generator)
         (loss / self.n if self.replicated else loss).backward()
-        _all_reduce_grads(self.model, self.group)
+        self.all_reduce_grads()
         opt.step()
         keys = ("loss_s", "loss_t1", "loss_t2", "loss_kl")
         vals = torch.stack([loss.detach()] + [aux[k].detach() for k in keys])
         if not self.replicated:
-            dist.all_reduce(vals, op=dist.ReduceOp.SUM, group=self.group)
+            with collective_span("all_reduce"):
+                dist.all_reduce(vals, op=dist.ReduceOp.SUM,
+                                group=self.group)
         return vals[0], dict(zip(keys, vals[1:]))
+
+    def eval_counts(self) -> torch.Tensor:
+        """The five confusion tables of the eval heads
+        (``train/stage2.py::_TABLES``) [5, 3, C+1] int64, summed over the
+        ranks, on the device: nothing waits for it, so a CUDA graph
+        captures it under NCCL."""
+        from bridged_gnn_tpu_torch.train.stage2 import (
+            _TABLES,
+            _confusion_counts,
+        )
+
+        self.model.eval()
+        with torch.no_grad():
+            heads = self._heads()
+            preds = torch.stack([heads[h].argmax(1) for h, _ in _TABLES])
+            counts = _confusion_counts(preds, self.table_masks, self.y_bin,
+                                       self.num_classes + 1)
+            if not self.replicated:
+                with collective_span("all_reduce"):
+                    dist.all_reduce(counts, op=dist.ReduceOp.SUM,
+                                    group=self.group)
+        return counts
 
     def evaluate(self):
         """``(scores, per_head)`` of the eval heads (source head on train,
         target-hat on val and test; each head on test), as the
         single-device trainer's."""
         from bridged_gnn_tpu_torch.train.stage2 import (
-            _TABLES,
-            _confusion_counts,
             _table_scores,
             score_arrays,
         )
 
+        if _counts_score(self.cfg):
+            return _table_scores(self.eval_counts().cpu().numpy(), self.cfg)
         self.model.eval()
-        g, c = self.g, self.num_classes
+        g = self.g
         with torch.no_grad():
             heads = self._heads()
             preds = torch.stack([lp.argmax(1) for lp in heads])
             splits = [g.train_mask, g.val_mask, g.test_mask]
-            if _counts_score(self.cfg):
-                masks = torch.stack([splits[m] for _, m in _TABLES]).int()
-                y_bin = torch.where(g.y < 0, c, g.y).long()
-                counts = _confusion_counts(preds[[h for h, _ in _TABLES]],
-                                           masks, y_bin, c + 1)
-                if not self.replicated:
-                    dist.all_reduce(counts, op=dist.ReduceOp.SUM,
-                                    group=self.group)
-                return _table_scores(counts.cpu().numpy(), self.cfg)
             probs = torch.stack([lp[:, 1].exp() for lp in heads])
             local = [t.cpu().numpy() for t in (preds, probs, g.y, *splits)]
         if not self.replicated:
@@ -242,7 +266,7 @@ class HaloStage2Backend(_Backend):
             test_mask=rows(g.test_mask, False),
             central_mask=rows(g.central_mask, False),
             num_nodes=part.rows, num_edges=int(m.sum()))
-        self.counts = self._global_counts()
+        self._setup()
 
     def info(self) -> Dict[str, Any]:
         p = self.part
@@ -268,10 +292,8 @@ class EdgeShardStage2Backend(_Backend):
     def __init__(self, group, device, model, g: Graph, cfg,
                  num_classes: int):
         super().__init__(group, device, model, cfg, num_classes)
-        self.g = pad_graph_edges_for_sharding(g, self.n).to(self.device)
-        self.adj = shard_adjacency(self.g, self.n, dist.get_rank(group),
-                                   group)
-        self.counts = self._global_counts()
+        self.g, self.adj = gspmd_setup(group, g, self.device)
+        self._setup()
 
 
 def make_stage2_backend(group, device, model, g: Graph, cfg,

@@ -10,15 +10,24 @@ back to back, as ``run.sh`` does, from one ``PipelineConfig``.
     python -m bridged_gnn_tpu_torch.pipeline --config cfg.json \
         [--data_root DIR] [--out_dir DIR] [--device cuda]
 
-prints ``[stage-1 best]``, ``[stage-2 best]`` and ``[diagnostics]``. A
-mesh and elastic retries wait for ROADMAP.md Queue 1 item 9.
+prints ``[stage-1 best]``, ``[stage-2 best]`` and ``[diagnostics]``.
+``--elastic`` (``elastic=True``) wraps both training stages in
+``train/elastic.py::run_elastic``: a transient failure runs the stage
+again (on each rank by itself; see :func:`run_pipeline`). ``mesh``,
+a process group (``parallel/mesh.py::make_group``),
+reaches the bridge's top-ks, which split their columns over its ranks;
+the call is then made on every rank of the group and returns the same
+result on each.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from functools import partial
 from typing import Any, Dict, Optional
+
+import torch.distributed as dist
 
 from bridged_gnn_tpu_torch.bridge.build import gen_bridged_graph
 from bridged_gnn_tpu_torch.config import RECIPES, PipelineConfig
@@ -35,7 +44,13 @@ from bridged_gnn_tpu_torch.utils.diagnostics import (
 )
 from bridged_gnn_tpu_torch.utils.platform import resolve_device
 
-_ITEM_9 = "see ROADMAP.md Queue 1 item 9 (multi-device)"
+
+def _rank0_object(obj, group):
+    """``obj`` as rank 0 of ``group`` holds it, on every rank."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
 
 
 def run_pipeline(cfg: PipelineConfig, out_dir: Optional[str] = None,
@@ -44,19 +59,40 @@ def run_pipeline(cfg: PipelineConfig, out_dir: Optional[str] = None,
     """Stage 1, the bridge and stage 2 of ``cfg`` on ``device``. Returns
     both stages' best scores, the bridged graph, its homophily
     diagnostics and each part's seconds on the host clock; ``out_dir``
-    gets the graph as ``<dataset>_bridged_graph.npz``."""
-    if mesh is not None:
-        raise NotImplementedError(f"run_pipeline(mesh=...) is not ported; "
-                                  f"{_ITEM_9}")
-    if elastic:
-        raise NotImplementedError(f"run_pipeline(elastic=True) is not "
-                                  f"ported; {_ITEM_9}")
+    gets the graph as ``<dataset>_bridged_graph.npz``.
+
+    ``elastic``: each training stage runs under ``run_elastic``.
+    ``mesh``: a process group; call this on every rank of it. A stage
+    whose ``n_shards`` is the group's size trains sharded over it, one
+    with ``n_shards=1`` on every rank; either way rank 0's stage-1
+    weights and stage-2 best are every rank's, the bridge's top-ks split
+    their columns over the ranks, and every rank returns the same
+    result.
+
+    With both, each rank retries on its own, as the JAX package's
+    processes do: nothing agrees on a retry across the group. A stage
+    that shards over the group survives only a failure that meets every
+    rank at the same point before its next collective; one rank failing
+    alone leaves its peers waiting in a collective while it starts the
+    stage again, and the group falls out of step. A stage with
+    ``n_shards=1`` retries on each rank independently."""
     dev = resolve_device(device)
+    stage1_fn, stage2_fn = train_adversarial, train_ktgnn
+    if elastic:
+        from bridged_gnn_tpu_torch.train.elastic import run_elastic
+
+        stage1_fn = partial(run_elastic, train_adversarial)
+        stage2_fn = partial(run_elastic, train_ktgnn)
     src_d, tar_d, _, m_src, m_tar = prepare_datasets(cfg.dataset_name,
                                                      cfg.data_root)
     seconds = {}
     t0 = time.perf_counter()
-    res1 = train_adversarial(src_d, tar_d, cfg.stage1, device=dev)
+    res1 = stage1_fn(src_d, tar_d, cfg.stage1, device=dev)
+    if mesh is not None:
+        best, state = _rank0_object((res1["best"], res1["state_dict"]),
+                                    mesh)
+        res1["model"].load_state_dict(state)
+        res1.update(best=best, state_dict=state)
     seconds["stage1"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -70,10 +106,10 @@ def run_pipeline(cfg: PipelineConfig, out_dir: Optional[str] = None,
         thres_feat_sim=b.thres_feat_sim, sim_mode=cfg.stage1.sim_mode,
         epsilon=b.epsilon, row_block=b.row_block,
         approx_recall=b.approx_recall,
-        rerank_candidates=b.rerank_candidates)
+        rerank_candidates=b.rerank_candidates, mesh=mesh)
     diagnostics = dict(homophily=eval_homophily(merged),
                        local_homophily_test=eval_bridged_graph(merged))
-    if out_dir:
+    if out_dir and (mesh is None or dist.get_rank(mesh) == 0):
         os.makedirs(out_dir, exist_ok=True)
         save_graph_npz(
             os.path.join(out_dir, f"{cfg.dataset_name}_bridged_graph.npz"),
@@ -81,7 +117,9 @@ def run_pipeline(cfg: PipelineConfig, out_dir: Optional[str] = None,
     seconds["bridge"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    res2 = train_ktgnn(merged, cfg.stage2, device=dev)
+    res2 = stage2_fn(merged, cfg.stage2, device=dev)
+    if mesh is not None:
+        res2["best"] = _rank0_object(res2["best"], mesh)
     seconds["stage2"] = time.perf_counter() - t0
     return dict(stage1=res1["best"], stage2=res2["best"],
                 bridged_graph=merged, diagnostics=diagnostics,

@@ -41,8 +41,27 @@ kernel (``csrc/gather_reduce.cu``): per training step two forwards per
 domain and, in the backward, the transposed SpMM for every conv input
 that needs a gradient (not the source's raw features), so three.
 
-Row sharding (``n_shards``) raises ``NotImplementedError`` naming the
-ROADMAP.md item that brings it.
+Row sharding (``n_shards > 1``, JAX ``stage1.py:827-868``) trains over
+that many ranks of a process group, one per shard; outside a group
+:func:`train_adversarial` starts the ranks itself
+(``parallel.multihost.spawn``) and returns rank 0's result. Both domain
+graphs are repadded to a multiple of ``n·NODE_BLOCK`` rows and each rank
+encodes its block of rows (``parallel/gspmd.py``): a SAGE conv's input
+rows are all-gathered and its aggregation runs ``gather_reduce`` on the
+slot layout of the rank's destination rows over every sender, PairNorm
+takes global moments, and the final embeddings are all-gathered. Every
+rank then computes the whole loss (the pair BCEs, the autoencoder's
+terms, the classifiers' NLL) from the same host-sampled pairs and
+backpropagates ``1/n`` of it; the gathers' backward sums the cotangents
+over the ranks, and one all-reduce sums the parameters' gradients, so
+each gradient is counted once and every rank takes the single device's
+step. The discriminator's step runs alike on every rank from the
+gathered embeddings. Dropout masks are the single device's bit for bit;
+the host evaluator runs on every rank from sharded encodes; rank 0 prints
+and writes the checkpoints, which every rank reads on ``resume``. Device
+sampling with ``n_shards > 1`` raises JAX's ``ValueError``. Scan mode
+with host pairs captures its epoch under NCCL and runs every epoch
+eagerly under gloo, by stage 2's rule.
 """
 
 from __future__ import annotations
@@ -58,6 +77,7 @@ import torch
 from bridged_gnn_tpu_torch.graph import Graph, graph_from_dict
 from bridged_gnn_tpu_torch.nn.stage1 import AdversarialLearnerV2
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency, adjacency_from_graph
+from bridged_gnn_tpu_torch.parallel.collectives import GradAllReduce
 from bridged_gnn_tpu_torch.train.device_sampler import (
     DeviceBalancedSampler,
     build_device_samplers,
@@ -121,30 +141,26 @@ class Stage1Config:
     # the host sampler's distributions, not its streams; needs
     # scan_epochs > 0
     device_sampling: bool = False
-    # not ported yet; any other value than 1 raises (see _NOT_PORTED)
+    # >1: both domain graphs row-sharded over that many ranks
+    # (parallel/gspmd.py); host pair sampling
     n_shards: int = 1
 
 
-# field, the values the port runs, the ROADMAP.md item that brings the rest
-_NOT_PORTED = (
-    ("n_shards", (1,), "Queue 1 item 9 (multi-device)"),
-)
-
-
-def check_ported(cfg: Stage1Config) -> None:
-    """Raise ``NotImplementedError`` for a value the port does not run
-    yet, and JAX's ``ValueError`` for device sampling without scan mode
-    (the sampler lives inside the scanned epoch)."""
-    for field, ported, item in _NOT_PORTED:
-        value = getattr(cfg, field)
-        if value not in ported:
-            raise NotImplementedError(
-                f"Stage1Config.{field}={value!r} is not ported (the port "
-                f"runs {list(ported)}); see ROADMAP.md {item}")
+def check_ported(cfg: Stage1Config, sharded: bool = False) -> None:
+    """Raise JAX's ``ValueError`` for device sampling without scan mode
+    (the sampler lives inside the scanned epoch) or with row sharding
+    (``n_shards > 1``, or ``sharded``: a caller's group), and for
+    ``n_shards < 1``."""
+    if cfg.n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {cfg.n_shards}")
     if cfg.device_sampling and cfg.scan_epochs <= 0:
         raise ValueError(
             "device_sampling requires scan_epochs > 0 (the device sampler "
             "lives inside the scanned epoch body)")
+    if cfg.device_sampling and (cfg.n_shards > 1 or sharded):
+        raise ValueError(
+            "n_shards > 1 uses the host sampling path; device_sampling "
+            "has its own DP pair sharding (train/device_sampler.py)")
 
 
 def bce(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -196,12 +212,26 @@ def make_optimizers(model: AdversarialLearnerV2, capturable: bool = False
 class Stage1Graphs:
     """Both domains on one device: features, node masks, labels and
     train masks (padded rows), and the adjacencies (None for the ``mlp``
-    backbone)."""
+    backbone). A row-sharded run (``n_shards > 1``) has no adjacencies
+    here but this rank's shard of each domain (``parallel/gspmd.py``),
+    which its encoders run on, and ``grad_sync``, the sum of the
+    similarity step's gradients over the ranks."""
 
     g_src: Graph
     g_tar: Graph
     adj_src: Optional[Adjacency]
     adj_tar: Optional[Adjacency]
+    shard_src: Any = None
+    shard_tar: Any = None
+    grad_sync: Optional[GradAllReduce] = None
+
+    def encoder_inputs(self):
+        """``(x_src, adj_src, x_tar, adj_tar)`` the encoders take: the
+        whole graphs', or this rank's rows and the edges into them."""
+        if self.shard_src is None:
+            return self.g_src.x, self.adj_src, self.g_tar.x, self.adj_tar
+        return (self.shard_src.x, self.shard_src.adj, self.shard_tar.x,
+                self.shard_tar.adj)
 
 
 def prepare_stage1_graphs(src_d: Dict, tar_d: Dict, backbone: str,
@@ -221,6 +251,35 @@ def prepare_stage1_graphs(src_d: Dict, tar_d: Dict, backbone: str,
         if gnn else None)
 
 
+def prepare_sharded_stage1_graphs(src_d: Dict, tar_d: Dict, backbone: str,
+                                  group, device) -> Stage1Graphs:
+    """Both domains for one rank of a row-sharded run: the whole graphs
+    on ``device`` (their labels and masks enter the loss) and this rank's
+    :class:`~bridged_gnn_tpu_torch.parallel.gspmd.RowShard` of each."""
+    from bridged_gnn_tpu_torch.parallel.gspmd import shard_stage1_graph
+
+    dev = resolve_device(device)
+    g_src = graph_from_dict(src_d).to(dev)
+    g_tar = graph_from_dict(tar_d).to(dev)
+    _, shard_src = shard_stage1_graph(group, g_src, backbone, dev)
+    _, shard_tar = shard_stage1_graph(group, g_tar, backbone, dev)
+    return Stage1Graphs(g_src=g_src, g_tar=g_tar, adj_src=None,
+                        adj_tar=None, shard_src=shard_src,
+                        shard_tar=shard_tar)
+
+
+def encode_graphs(model: AdversarialLearnerV2, G: Stage1Graphs
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both domains' eval-mode embeddings (whole tables, sharded or
+    not)."""
+    x_src, adj_src, x_tar, adj_tar = G.encoder_inputs()
+    model.eval()
+    with torch.no_grad():
+        return model.encode_domains(
+            x_src, adj_src, x_tar, adj_tar, G.g_src.node_mask,
+            G.g_tar.node_mask, shard_src=G.shard_src, shard_tar=G.shard_tar)
+
+
 def sim_loss(model: AdversarialLearnerV2, G: Stage1Graphs,
              idxs: Dict[str, torch.Tensor], y_pairs: Dict[str, torch.Tensor],
              use_clf: bool, generator: Optional[torch.Generator]
@@ -229,11 +288,13 @@ def sim_loss(model: AdversarialLearnerV2, G: Stage1Graphs,
     ``sim_loss``; reference scripts.py:37-63) and its parts; ``h_src`` and
     ``h_tar`` detached for the discriminator step."""
     gs, gt = G.g_src, G.g_tar
+    x_src, adj_src, x_tar, adj_tar = G.encoder_inputs()
     model.train()
     out = model.train_forward(
-        gs.x, G.adj_src, gt.x, G.adj_tar, idxs["src1"], idxs["src2"],
+        x_src, adj_src, x_tar, adj_tar, idxs["src1"], idxs["src2"],
         idxs["tar1"], idxs["tar2"], idxs["cross1"], idxs["cross2"],
-        mask_src=gs.node_mask, mask_tar=gt.node_mask, generator=generator)
+        mask_src=gs.node_mask, mask_tar=gt.node_mask, generator=generator,
+        shard_src=G.shard_src, shard_tar=G.shard_tar)
     loss_src = bce(out["probs_pair_src"][:, 0], y_pairs["src"])
     loss_tar = bce(out["probs_pair_tar"][:, 0], y_pairs["tar"])
     loss_cross = bce(out["probs_pair_cross"][:, 0], y_pairs["cross"])
@@ -274,11 +335,17 @@ def sim_step(model, opts, G, idxs, y_pairs, use_clf, generator
     """One step of the source and target Adams on :func:`sim_loss`;
     returns the loss and its parts at the parameters before the step. The
     discriminator is not stepped; its gradients from ``loss_g`` stay
-    until :func:`d_step` clears them."""
+    until :func:`d_step` clears them. A row-sharded rank backpropagates
+    ``1/n`` of the whole loss, and ``G.grad_sync`` sums the learners'
+    gradients over the ranks."""
     for opt in opts.values():
         opt.zero_grad(set_to_none=True)
     loss, aux = sim_loss(model, G, idxs, y_pairs, use_clf, generator)
-    loss.backward()
+    if G.grad_sync is None:
+        loss.backward()
+    else:
+        (loss / G.grad_sync.n).backward()
+        G.grad_sync()
     _step((opts["source"], opts["target"]),
           list(model.source_learner.parameters())
           + list(model.target_learner.parameters()))
@@ -418,12 +485,7 @@ class Stage1Evaluator:
 
     def encode(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both domains' eval-mode embeddings."""
-        G = self.G
-        self.model.eval()
-        with torch.no_grad():
-            return self.model.encode_domains(
-                G.g_src.x, G.adj_src, G.g_tar.x, G.adj_tar,
-                G.g_src.node_mask, G.g_tar.node_mask)
+        return encode_graphs(self.model, self.G)
 
     def __call__(self, split: str, epoch: int = 0):
         """(src pair score, src clf score, tar pair score, tar clf score,
@@ -519,12 +581,7 @@ class DeviceStage1Evaluator:
                 for rel, s in zip(RELATIONS, self.samplers[split])}
 
     def encode(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        G = self.G
-        self.model.eval()
-        with torch.no_grad():
-            return self.model.encode_domains(
-                G.g_src.x, G.adj_src, G.g_tar.x, G.adj_tar,
-                G.g_src.node_mask, G.g_tar.node_mask)
+        return encode_graphs(self.model, self.G)
 
     def _counts(self, z_src, z_tar, split: str, epoch: int) -> torch.Tensor:
         """Every count of ``split`` at ``epoch``, flat: the three pair
@@ -693,6 +750,7 @@ def train_adversarial(
     cfg: Optional[Stage1Config] = None,
     ckpt_path: Optional[str] = None,
     device="cuda",
+    group=None,
 ) -> Dict[str, Any]:
     """A full stage-1 run on ``device`` (reference main_adv_v2,
     scripts.py:430-555). Returns the best scores (``best``), the model
@@ -702,15 +760,59 @@ def train_adversarial(
     per-epoch losses (``history``), the epoch timer's summary, the
     evaluations' seconds (``eval_s``) and, in scan mode, ``scan``: the
     last repeat's eager epochs, captures, replays, each replay's kernel
-    launches and segments."""
+    launches and segments (a row-sharded run's also its ``capture``
+    rule, ``"nccl"`` or ``"none (gloo)"``).
+
+    ``n_shards > 1``: called on every rank of a process group of that
+    many ranks, or outside one, when it starts the ranks itself and
+    returns rank 0's result. ``group``: a process group this rank is in,
+    of ``cfg.n_shards`` ranks, to shard the rows over in place of the
+    default group; with it a group of one rank (``n_shards=1``) runs the
+    sharded path too."""
+    cfg = cfg or Stage1Config()
+    check_ported(cfg, sharded=group is not None)
+    if cfg.n_shards > 1 and group is None:
+        from bridged_gnn_tpu_torch.parallel import multihost
+
+        if not multihost.init_distributed(torch.device(device).type):
+            # not in a process group: start one rank per shard here
+            return multihost.spawn(
+                train_adversarial, cfg.n_shards,
+                (src_d, tar_d, cfg, ckpt_path, device),
+                torch.device(device).type)[0]
+    return _train_adversarial(src_d, tar_d, cfg, ckpt_path, device, group)
+
+
+def _train_adversarial(src_d, tar_d, cfg: Stage1Config, ckpt_path,
+                       device, group=None) -> Dict[str, Any]:
     from bridged_gnn_tpu_torch.io.flax_weights import (
         flax_variables_from_state_dict,
     )
 
-    cfg = cfg or Stage1Config()
-    check_ported(cfg)
-    dev = resolve_device(device)
-    G = prepare_stage1_graphs(src_d, tar_d, cfg.backbone, dev)
+    sharded = cfg.n_shards > 1 or group is not None
+    primary, capture, rule = True, None, None
+    if sharded:
+        from bridged_gnn_tpu_torch.parallel.mesh import make_group
+        from bridged_gnn_tpu_torch.parallel.multihost import (
+            capture_rule,
+            describe,
+            describe_capture,
+            is_primary,
+        )
+
+        group, dev = make_group(cfg.n_shards, device, group)
+        primary = is_primary()
+        G = prepare_sharded_stage1_graphs(src_d, tar_d, cfg.backbone, group,
+                                          dev)
+        capture, rule = capture_rule(group, dev)
+        if cfg.verbose and primary:
+            print(describe(group, dev))
+            if cfg.scan_epochs > 0:
+                print(describe_capture(group, dev))
+    else:
+        dev = resolve_device(device)
+        G = prepare_stage1_graphs(src_d, tar_d, cfg.backbone, dev)
+    verbose = cfg.verbose and primary
     y_src, y_tar = np.asarray(src_d["y"]), np.asarray(tar_d["y"])
     # each relation's labels on its two sides
     pair_labels = (("src", y_src, y_src), ("tar", y_tar, y_tar),
@@ -726,6 +828,10 @@ def train_adversarial(
         host_rng = np.random.default_rng(seed)
         model = build_model(cfg, src_d, tar_d, dev, seed)
         opts = make_optimizers(model, capturable=scan and dev.type == "cuda")
+        if sharded:
+            G = dataclasses.replace(G, grad_sync=GradAllReduce(
+                list(model.source_learner.parameters())
+                + list(model.target_learner.parameters()), group))
         gen = torch.Generator(device=dev).manual_seed(seed)
         # device sampling draws from a generator of its own, so that its
         # runs take the host-sampled runs' dropout masks
@@ -816,13 +922,17 @@ def train_adversarial(
                     dtype=torch.uint8))
             if sampler_gen is not None:
                 state["sampler_generator"] = sampler_gen.get_state()
-            ckptr.save(epoch, state)
+            if primary:
+                ckptr.save(epoch, state)
 
         if scan:
             scan_info = _train_scan(
                 cfg, rep, model, opts, G, gen, sampler_gen, src_d, tar_d,
                 sample_epoch, timer, start_epoch, history, train_f1s,
-                check_numerics, maybe_eval, save if ckptr else None)
+                check_numerics, maybe_eval, save if ckptr else None,
+                verbose, capture)
+            if rule is not None:
+                scan_info["capture"] = rule
         else:
             for epoch in range(start_epoch, cfg.num_epoch + 1):
                 t0 = time.time()
@@ -843,7 +953,7 @@ def train_adversarial(
                 train_scores = train_f1s(
                     y_np, {k: (aux[f"probs_{k}"] > 0.5).cpu().numpy()
                            for k in RELATIONS})
-                if cfg.verbose:
+                if verbose:
                     print(f"[rep {rep}] epoch {epoch:03d} loss "
                           f"{losses['loss']:.4f} d {losses['loss_d']:.4f} "
                           f"ae {losses['loss_ae']:.4f} pair {train_scores} "
@@ -865,7 +975,7 @@ def train_adversarial(
     model.load_state_dict(best_state)
     model.eval()
     variables = flax_variables_from_state_dict(model, best_state)
-    if ckpt_path:
+    if ckpt_path and primary:
         with open(ckpt_path, "wb") as f:
             pickle.dump(variables, f)
     # per-repeat aggregation (reference scripts.py:545-555): mean, std and
@@ -885,12 +995,14 @@ def train_adversarial(
 
 def _train_scan(cfg, rep, model, opts, G, gen, sampler_gen, src_d, tar_d,
                 sample_epoch, timer, start_epoch, history, train_f1s,
-                check_numerics, maybe_eval, save) -> dict:
+                check_numerics, maybe_eval, save, verbose,
+                capture=None) -> dict:
     """One repeat's epochs in scan mode (JAX ``stage1.py:1038-1129``): the
     run's buffers and pair source (host-sampled stacks or the device
     samplers), then stage 2's ``run_scan`` over :func:`segment_bounds`,
     with the host's work at every segment's end: history, train F1,
-    numerics, evaluation and checkpoint."""
+    numerics, evaluation and checkpoint. ``capture``: run_scan's rule
+    (None: on a card)."""
     dev = G.g_src.x.device
     samplers, labels = build_device_samplers(
         src_d, tar_d, cfg.max_class_num, cfg.sample_size, device=dev)
@@ -925,7 +1037,7 @@ def _train_scan(cfg, rep, model, opts, G, gen, sampler_gen, src_d, tar_d,
                                 loss_d=float(record[j, 1]),
                                 loss_ae=float(record[j, 2])))
         train_scores = train_f1s(ys, preds)
-        if cfg.verbose:
+        if verbose:
             print(f"[rep {rep}] epochs {first}-{last} loss "
                   f"{float(record[-1, 0]):.4f} pair {train_scores}")
         check_numerics(record[:, 0], last)
@@ -936,7 +1048,7 @@ def _train_scan(cfg, rep, model, opts, G, gen, sampler_gen, src_d, tar_d,
     segments = segment_bounds(start_epoch, cfg)
     info = run_scan(segments, lambda: _scan_epoch(run), generators, i, timer,
                     lambda first, last: out.cpu().numpy(), after_segment,
-                    load)
+                    load, capture=capture)
     return dict(info, segments=segments)
 
 

@@ -47,9 +47,13 @@ layouts' block) or the edge-shard layout as the backend of its train
 step and eval heads (``parallel/stage2_runtime.py``). Outside a process
 group :func:`train_ktgnn` starts the ranks itself
 (``parallel.multihost.spawn``) and returns rank 0's result. Sharded scan
-mode is not ported yet and raises ``NotImplementedError`` (ROADMAP Queue
-1 item 9). :func:`run_scan` is the segment loop that stage 1's scan mode
-shares.
+mode runs the same epoch body over the backend's step and its
+device-side confusion counts: under NCCL one CUDA graph of an epoch,
+replayed; under gloo (CPU ranks, or ranks sharing one card) every epoch
+eagerly, the record on the device and one copy per chunk. The rule is
+fixed from the group's backend before the run, printed in the
+``[parallel]`` header and returned in ``scan["capture"]``.
+:func:`run_scan` is the segment loop that stage 1's scan mode shares.
 """
 
 from __future__ import annotations
@@ -173,18 +177,7 @@ def check_ported(cfg: Stage2Config) -> None:
     if cfg.shard_layout not in ("halo", "edgeshard"):
         raise ValueError(f"shard_layout: {cfg.shard_layout!r}")
     if cfg.n_shards > 1:
-        if cfg.model_name not in ("KTGNN", "KTGNN_noDTC") \
-                or cfg.need_complement:
-            raise ValueError(
-                "n_shards > 1 supports the KTGNN and KTGNN_noDTC models "
-                f"(need_complement=False); got model_name="
-                f"{cfg.model_name!r}, need_complement={cfg.need_complement}")
-        if cfg.scan_epochs > 0:
-            raise NotImplementedError(
-                f"Stage2Config.scan_epochs={cfg.scan_epochs} with n_shards="
-                f"{cfg.n_shards} (sharded scan mode) is not ported; the port "
-                "trains sharded in the per-epoch loop (scan_epochs=0); see "
-                "ROADMAP.md Queue 1 item 9 (multi-device)")
+        _check_sharded_model(cfg)
     if cfg.memory_policy == "xla_plain":
         raise NotImplementedError(
             "Stage2Config.memory_policy='xla_plain' (the JAX package's "
@@ -205,6 +198,15 @@ def check_ported(cfg: Stage2Config) -> None:
         raise ValueError(f"message_dtype must be one of {list(MSG_DTYPES)}, "
                          f"got {cfg.message_dtype!r}")
     check_matmul_precision(cfg.matmul_precision)
+
+
+def _check_sharded_model(cfg: Stage2Config) -> None:
+    if cfg.model_name not in ("KTGNN", "KTGNN_noDTC") \
+            or cfg.need_complement:
+        raise ValueError(
+            "n_shards > 1 supports the KTGNN and KTGNN_noDTC models "
+            f"(need_complement=False); got model_name="
+            f"{cfg.model_name!r}, need_complement={cfg.need_complement}")
 
 
 def masked_nll(log_probs: torch.Tensor, y: torch.Tensor,
@@ -521,11 +523,13 @@ def _confusion_counts(preds: torch.Tensor, masks: torch.Tensor,
 @dataclasses.dataclass
 class _ScanRun:
     """What :func:`_epoch_body` reads and writes. Every tensor keeps its
-    storage for the whole run, as a CUDA graph's replays need."""
+    storage for the whole run, as a CUDA graph's replays need. A sharded
+    run steps and counts through ``backend`` (``parallel/stage2_runtime``)
+    and has no ``masks`` and ``y_bin`` of its own."""
 
     model: torch.nn.Module
-    g: Graph
-    adj: Adjacency
+    g: Optional[Graph]
+    adj: Optional[Adjacency]
     inputs: Dict[str, Any]  # model_inputs: frontiers or pseudo
     opt: torch.optim.Optimizer
     gen: torch.Generator
@@ -535,49 +539,63 @@ class _ScanRun:
     step_size: int
     gamma: float
     step: torch.Tensor     # int64 [], epochs done
-    masks: torch.Tensor    # int32 [5, N]: each table's split mask
-    y_bin: torch.Tensor    # int64 [N]: class, y == -1 in bin C
+    masks: Optional[torch.Tensor]   # int32 [5, N]: each table's split mask
+    y_bin: Optional[torch.Tensor]   # int64 [N]: class, y == -1 in bin C
     bins: int              # C + 1
     i: torch.Tensor        # int64 [1]: the record row this epoch writes
     record: torch.Tensor   # f64 [rows, 2 + 15·bins]: loss, loss_t2, counts
+    backend: Any = None    # a sharded run's backend, else None
 
 
 def _scan_run(model, g, adj, inputs, opt, gen, cfg: Stage2Config,
-              lr: torch.Tensor, epochs_done: int) -> _ScanRun:
-    dev = g.x.device
-    c = g.num_classes
-    splits = torch.stack([g.train_mask, g.val_mask, g.test_mask]).int()
+              lr: torch.Tensor, epochs_done: int, num_classes: int,
+              backend=None) -> _ScanRun:
+    dev = lr.device
+    c = num_classes
+    masks = y_bin = None
+    if backend is None:
+        splits = torch.stack([g.train_mask, g.val_mask, g.test_mask]).int()
+        masks = splits[[m for _, m in _TABLES]]
+        y_bin = torch.where(g.y < 0, c, g.y).long()
     return _ScanRun(
         model=model, g=g, adj=adj, inputs=inputs, opt=opt, gen=gen,
         lam=cfg.Lambda,
         lr=lr, schedule=cfg.use_scheduler, step_size=cfg.step_size,
         gamma=cfg.gamma,
         step=torch.tensor(epochs_done, dtype=torch.int64, device=dev),
-        masks=splits[[m for _, m in _TABLES]],
-        y_bin=torch.where(g.y < 0, c, g.y).long(), bins=c + 1,
+        masks=masks, y_bin=y_bin, bins=c + 1,
         i=torch.zeros(1, dtype=torch.int64, device=dev),
         record=torch.zeros(cfg.scan_epochs, 2 + len(_TABLES) * 3 * (c + 1),
-                           dtype=torch.float64, device=dev))
+                           dtype=torch.float64, device=dev),
+        backend=backend)
 
 
 def _epoch_body(run: _ScanRun) -> None:
-    """One epoch of scan mode, on tensors only (JAX ``stage2.py:682-716``):
-    the train step (dropout from the run's generator), Adam, StepLR's
-    step computed on the device, the eval forward, the three heads'
-    argmax and the five confusion tables; the losses and the tables go to
-    row ``i`` of the record, and ``i`` advances. Nothing in it waits for
-    the device, so a CUDA graph can capture it."""
-    loss, aux = train_step(run.model, run.g, run.adj, run.opt, run.lam,
-                           run.gen, run.inputs)
+    """One epoch of scan mode, on tensors only (JAX ``stage2.py:682-716``;
+    sharded, ``parallel/stage2_runtime.py``'s ``scan_chunk``): the train
+    step (dropout from the run's generator), Adam, StepLR's step computed
+    on the device, the eval forward, the three heads' argmax and the five
+    confusion tables (a sharded run's all-reduced on the device); the
+    losses and the tables go to row ``i`` of the record, and ``i``
+    advances. Nothing in it waits for the device, so a CUDA graph can
+    capture it."""
+    if run.backend is None:
+        loss, aux = train_step(run.model, run.g, run.adj, run.opt, run.lam,
+                               run.gen, run.inputs)
+    else:
+        loss, aux = run.backend.train_step(run.opt, run.gen)
     run.step += 1
     if run.schedule:
         # StepLR's own chained product, so the rate is the float the
         # per-epoch loop's scheduler holds, bit for bit
         run.lr.copy_(torch.where(run.step % run.step_size == 0,
                                  run.lr * run.gamma, run.lr))
-    heads = _heads(run.model, run.g, run.adj, run.inputs)
-    preds = torch.stack([heads[h].argmax(1) for h, _ in _TABLES])
-    counts = _confusion_counts(preds, run.masks, run.y_bin, run.bins)
+    if run.backend is None:
+        heads = _heads(run.model, run.g, run.adj, run.inputs)
+        preds = torch.stack([heads[h].argmax(1) for h, _ in _TABLES])
+        counts = _confusion_counts(preds, run.masks, run.y_bin, run.bins)
+    else:
+        counts = run.backend.eval_counts()
     row = torch.cat([torch.stack([loss, aux["loss_t2"]]).double(),
                      counts.reshape(-1).double()])
     run.record.index_copy_(0, run.i, row[None])
@@ -588,12 +606,16 @@ def capture_epoch(body, generators, stream: torch.cuda.Stream):
     """``body()``, one epoch, captured in a CUDA graph on ``stream``, the
     ``generators`` it draws from registered with it; and the kernel
     launches each replay makes, by wrapper and width. A failed capture
-    raises."""
+    raises. The capture is ``"thread_local"``: an unsafe call made by the
+    capturing thread still voids it, while one made by another thread
+    (NCCL's watchdog polls the events of finished collectives) does
+    not."""
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
     before = fused_kernels.launch_counts()
-    with torch.cuda.graph(graph, stream=stream):
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
         body()
     per_replay = {}
     for name, by_d in fused_kernels.launch_counts().items():
@@ -632,6 +654,7 @@ def train_ktgnn(
     data: Dict[str, np.ndarray],
     cfg: Optional[Stage2Config] = None,
     device="cuda",
+    group=None,
 ) -> Dict[str, Any]:
     """Full stage-2 run on ``device``. Returns best scores, the history,
     timing diagnostics, the final weights (``state_dict``, on the CPU),
@@ -644,10 +667,18 @@ def train_ktgnn(
     own maximum, so there is nothing for it to guard.
 
     The whole run, scan mode's capture included (cuBLAS picks its kernels
-    there), runs under ``matmul_precision(cfg.matmul_precision)``."""
+    there), runs under ``matmul_precision(cfg.matmul_precision)``. A
+    sharded scan run's ``scan["capture"]`` names its rule: ``"nccl"`` (the
+    epoch captured once, then replayed) or ``"none (gloo)"``.
+
+    ``group``: a process group this rank is in, of ``cfg.n_shards``
+    ranks, to train the sharded backends over in place of the default
+    group; with it a group of one rank (``n_shards=1``) runs them too."""
     cfg = cfg or Stage2Config()
     check_ported(cfg)
-    if cfg.n_shards > 1:
+    if group is not None:
+        _check_sharded_model(cfg)
+    elif cfg.n_shards > 1:
         from bridged_gnn_tpu_torch.parallel import multihost
 
         if not multihost.init_distributed(torch.device(device).type):
@@ -656,23 +687,25 @@ def train_ktgnn(
                                    (data, cfg, device),
                                    torch.device(device).type)[0]
     with matmul_precision(cfg.matmul_precision):
-        return _train_ktgnn(data, cfg, device)
+        return _train_ktgnn(data, cfg, device, group)
 
 
 def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
-                 device) -> Dict[str, Any]:
-    sharded = cfg.n_shards > 1
+                 device, group=None) -> Dict[str, Any]:
+    sharded = cfg.n_shards > 1 or group is not None
     if sharded:
         from bridged_gnn_tpu_torch.parallel.mesh import make_group
         from bridged_gnn_tpu_torch.parallel.multihost import (
+            capture_rule,
             describe,
+            describe_capture,
             is_primary,
         )
         from bridged_gnn_tpu_torch.parallel.stage2_runtime import (
             make_stage2_backend,
         )
 
-        group, dev = make_group(cfg.n_shards, device)
+        group, dev = make_group(cfg.n_shards, device, group)
         primary = is_primary()
         g, adj = prepare_stage2_graph(data, cfg, "cpu", build_adj=False)
     else:
@@ -688,13 +721,20 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
     model = build_model(cfg, num_classes, g.num_features, dev,
                         remat=mem_mode == "lean")
     backend = None
+    use_scan = _use_scan(cfg)
+    # scan mode's capture rule, fixed before the run: on a card one CUDA
+    # graph of an epoch; a sharded run's only under NCCL, since gloo's
+    # collectives on CUDA tensors go through the host
+    capture, rule = dev.type == "cuda", None
     if sharded:
         backend = make_stage2_backend(group, dev, model, g, cfg,
                                       num_classes)
+        capture, rule = capture_rule(group, dev)
         if log_every:
             print(describe(group, dev))
             print(f"[parallel] {backend.info()}")
-    use_scan = _use_scan(cfg)
+            if use_scan:
+                print(describe_capture(group, dev))
     # the loop's rate is a float that StepLR steps; scan mode's a tensor
     # that the epoch body sets on the device (capturable Adam on a card)
     lr = (torch.tensor(cfg.lr, dtype=torch.float64, device=dev)
@@ -788,9 +828,12 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
     scan_info = None
     if use_scan:
         run = _scan_run(model, g, adj, inputs, opt, gen, cfg, lr,
-                        start_epoch - 1)
+                        start_epoch - 1, num_classes, backend)
         scan_info = _scan_loop(run, cfg, timer, start_epoch, record,
-                               check_numerics, save if ckptr else None)
+                               check_numerics, save if ckptr else None,
+                               capture)
+        if rule is not None:
+            scan_info["capture"] = rule
     else:
         for epoch in range(start_epoch, cfg.num_epoch + 1):
             with timer:
@@ -839,7 +882,8 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
 
 
 def run_scan(segments, body, generators, i: torch.Tensor,
-             timer: EpochTimer, fetch, after, load=None) -> dict:
+             timer: EpochTimer, fetch, after, load=None,
+             capture: Optional[bool] = None) -> dict:
     """The segment loop of both trainers' scan modes. For each segment
     ``(first, last)`` of k epochs, timed as one ``timer.chunk(k)``: the
     segment's inputs (``load(k)``), the record row counter ``i`` zeroed,
@@ -847,13 +891,15 @@ def run_scan(segments, body, generators, i: torch.Tensor,
     synchronize and copy to the host; then, outside the timer,
     ``after(first, last, fetched)``.
 
-    On the card the first :data:`WARMUP_EPOCHS` epochs run eagerly on the
-    capture stream, the next is captured there once (``generators``
-    registered with it), and every later epoch is a replay of that graph.
-    On the CPU every epoch runs eagerly. Returns the eager epochs, the
-    captures, the replays and each replay's kernel launches."""
+    With ``capture`` (default: on a card) the first :data:`WARMUP_EPOCHS`
+    epochs run eagerly on the capture stream, the next is captured there
+    once (``generators`` registered with it), and every later epoch is a
+    replay of that graph. Without it (the CPU, or a sharded run over
+    gloo) every epoch runs eagerly. A failed capture raises. Returns the
+    eager epochs, the captures, the replays and each replay's kernel
+    launches."""
     dev = i.device
-    on_card = dev.type == "cuda"
+    on_card = dev.type == "cuda" if capture is None else capture
     stream = capture_stream(dev) if on_card else None
     graph, per_replay = None, {}
     eager = replays = 0
@@ -879,8 +925,10 @@ def run_scan(segments, body, generators, i: torch.Tensor,
                         eager += 1
                         continue
                     if graph is None:
-                        graph, per_replay = capture_epoch(body, generators,
-                                                          stream)
+                        # nothing in flight when the capture starts
+                        torch.cuda.synchronize(dev)
+                        graph, per_replay = capture_epoch(
+                            body, generators, stream)
                         captured = True
                     graph.replay()
                     replays += 1
@@ -898,7 +946,8 @@ def run_scan(segments, body, generators, i: torch.Tensor,
 
 
 def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
-               start_epoch: int, record, check_numerics, save) -> dict:
+               start_epoch: int, record, check_numerics, save,
+               capture: bool) -> dict:
     """Scan mode's chunk loop (JAX ``stage2.py:896-968``) on
     :func:`run_scan`: chunks of ``k = min(scan_epochs, remaining)``
     epochs of :func:`_epoch_body`, each copying its ``[k]`` rows of
@@ -923,4 +972,4 @@ def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
                 for e in range(start_epoch, cfg.num_epoch + 1,
                                cfg.scan_epochs)]
     return run_scan(segments, lambda: _epoch_body(run), (run.gen,), run.i,
-                    timer, fetch, after)
+                    timer, fetch, after, capture=capture)

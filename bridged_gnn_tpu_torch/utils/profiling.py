@@ -1,5 +1,6 @@
 """Tracing and epoch timing (the port's counterpart of
-``bridged_gnn_tpu/utils/profiling.py``: ``trace`` and ``StepTimer``).
+``bridged_gnn_tpu/utils/profiling.py``: ``trace``, ``annotate`` and
+``StepTimer``).
 
 Card work runs asynchronously, so the timer synchronizes the device
 before it reads the clock at both ends of a step: a step's time is the
@@ -31,6 +32,28 @@ def trace(log_dir: str, device="cpu") -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named range around the block in a ``torch.profiler`` trace
+    (``record_function``; JAX ``TraceAnnotation``): a row of its own in
+    ``key_averages()`` and a span in the Chrome trace. Outside a profiler
+    it costs one small host object."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+COLLECTIVE = "collective:"
+
+
+def collective_span(kind: str):
+    """:func:`annotate` around one collective call, named
+    ``collective:<kind>``. The runtime calls that launch the collective's
+    device work fall inside the range, so a trace can name that work (by
+    its correlation ids) apart from the rest of the step. Inside a CUDA
+    graph capture the range is the capture's; replays carry no ranges."""
+    return annotate(COLLECTIVE + kind)
 
 
 class EpochTimer:

@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's KT-GNN serving and training paths, its
 stage-2 model zoo, the rest of stage 2, stage 1 (loop and scan mode),
-the one-call pipeline, similarity serving and multi-device stage 2 on
-one GPU.
+the one-call pipeline, similarity serving and multi-device stages 1 and
+2, the sharded bridge and elastic retries on one GPU.
 
     python3 chip_smoke.py
 
@@ -242,7 +242,35 @@ Phases, in order; any failure exits non-zero:
    exchange ms with its pinned-memory staging apart and the wire bytes
    per layer; rank 0 traced for 2 epochs of the first two cases; (c) a
    1-rank NCCL group in this process drives ``HaloStage2Backend`` on a
-   1-shard partition for 2 epochs, against the single-device run.
+   1-shard partition for 2 epochs, against the single-device run;
+28. the rest of multi-device, on the bench graph (dropout 0) and phase
+   21's stage-1 graph: (a) two gloo ranks sharing the card (spawned once
+   for (a), (c) and (d)) train KT-GNN on the halo layout and on the edge
+   shards in scan mode, 10 epochs in chunks of 5, every epoch eager:
+   each epoch's losses within rtol 1e-4 of the single-device loop's, the
+   same best epoch, both ranks equal, the launches per rank per epoch
+   asserted; (b) a 1-rank NCCL group in this process trains the halo
+   layout in scan mode for 12 epochs through ``train_ktgnn(group=...)``:
+   the epoch, its collectives included, captured once after the 2
+   warm-up epochs and replayed 10 times, a replay's launches asserted,
+   losses within rtol 1e-4 of the single-device scan run and the same
+   best epoch, one chunk of replays traced (busy share, what the
+   collectives became on the device); (c) stage 1 v1 row-sharded over
+   the two ranks for 6 epochs, evaluating at 4 and 6: one step's
+   ``gather_reduce`` calls replayed against their plain versions on each
+   rank, the all-gather of a 128-wide layer input timed per domain, the
+   launches asserted, losses within rtol 1e-4 of the single device's
+   from the same pairs; then over the NCCL group in scan mode, captured,
+   against the single-device scan run; (d) phase 22's bridge (v1 cosine;
+   v2 mlp, exact and reranked) with ``mesh=`` the two ranks: the exact
+   builds equal to the single device's but for named near-ties within
+   1e-5, the rerank keeping only columns at least as good as the single
+   device's screen finds (its screen sees each shard's top candidates),
+   seconds per part; (e) ``run_pipeline(elastic=True)`` on phase 25's
+   settings cut to 10 epochs a stage, stage 2's first attempt meeting a
+   real CUDA out-of-memory error (a wrapper here asks for twice the
+   card's memory): one retry, the straight run's best, the memory
+   allocated at the retry's start what it was at the first attempt's.
 
 Phase 7 also runs one ``memory_policy="lean"`` step per graph (the
 embedding conv recomputed in the backward) against the plain step: loss
@@ -279,7 +307,11 @@ from the traced segment); phase 25's bf16 launches join the bf16 rows'
 counts (``launches_pipeline``); phase 27's launches (both ranks of every
 case and the NCCL rank) join the f32 rows' counts
 (``launches_sharded_by_d``), beside their replayed calls
-(``sharded_replay``). The last line is ``{"ok": true, "device":
+(``sharded_replay``); phase 28's sharded scan runs (both ranks of each
+case, the NCCL rank's eager epochs and capture) join them as
+``launches_sharded_scan_by_d``, and its row-sharded stage-1 runs join
+``gather_reduce``'s count as ``launches_stage1_sharded_by_d``. The last
+line is ``{"ok": true, "device":
 {...}}``. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -1183,6 +1215,51 @@ _HAND_KERNEL = re.compile(
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+def collective_work(events) -> dict:
+    """The collectives' own work in a Chrome trace, by kind: the port
+    puts a ``collective:<kind>`` range around each collective call
+    (``utils/profiling.py::collective_span``). For each kind, the ranges,
+    the CUDA API calls made inside them on their thread, and
+    the device operations those calls launched, matched by correlation
+    id. A call made inside a CUDA graph capture launches nothing then:
+    the graph's replays run its work, and replays carry no ranges, so
+    the operations counted here are those of the eager epochs."""
+    import bisect
+
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith("collective:")]
+    calls = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            calls.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+    for v in calls.values():
+        v.sort(key=lambda e: float(e["ts"]))
+    starts = {k: [float(e["ts"]) for e in v] for k, v in calls.items()}
+    launched = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in _DEVICE_CATS and corr is not None:
+            launched.setdefault(corr, []).append(e)
+    out = {}
+    for sp in spans:
+        rec = out.setdefault(sp["name"].split(":", 1)[1],
+                             dict(ranges=0, calls={}, device_ops={}))
+        rec["ranges"] += 1
+        key = (sp.get("pid"), sp.get("tid"))
+        a = float(sp["ts"])
+        b = a + float(sp["dur"])
+        ts = starts.get(key, [])
+        for c in calls.get(key, [])[bisect.bisect_left(ts, a):
+                                    bisect.bisect_right(ts, b)]:
+            rec["calls"][c["name"]] = rec["calls"].get(c["name"], 0) + 1
+            for d in launched.get((c.get("args") or {}).get("correlation"),
+                                  []):
+                n, ms = rec["device_ops"].get(d["name"], (0, 0.0))
+                rec["device_ops"][d["name"]] = (
+                    n + 1, ms + float(d["dur"]) / 1e3)
+    return out
+
+
 def trace_phase(name, data, cfg, window=-1, epochs=1, trainer=None) -> dict:
     """Phase 10 (and 14, 21): ``train_ktgnn`` (or ``trainer``, a (module,
     run) pair whose ``run()`` trains with the module's ``EpochTimer``)
@@ -1262,6 +1339,8 @@ def trace_phase(name, data, cfg, window=-1, epochs=1, trainer=None) -> dict:
     hand = {op: v for op, v in by_name.items() if _HAND_KERNEL.search(op)}
     hand_ms = sum(ms for ms, _ in hand.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP]
+    comm = {op: v for op, v in by_name.items()
+            if re.search("nccl|gloo|memcpy", op, re.IGNORECASE)}
     return dict(
         phase=name, epochs=cfg.num_epoch, epochs_in_window=epochs,
         epoch_ms_traced=wall_ms / epochs,
@@ -1274,6 +1353,12 @@ def trace_phase(name, data, cfg, window=-1, epochs=1, trainer=None) -> dict:
         hand_kernel_launches=sum(n for _, n in hand.values()) / epochs,
         top=[dict(name=op[:120], ms=ms / epochs, count=n / epochs)
              for op, (ms, n) in top],
+        # every copy and communication op of the window, whatever
+        # launched it; the collectives' own are in collective_work
+        copies_and_comm=[dict(name=op[:120], ms=ms / epochs,
+                              count=n / epochs)
+                         for op, (ms, n) in sorted(comm.items())],
+        collective_work=collective_work(events),
     )
 
 
@@ -3231,8 +3316,10 @@ def _inverse(mapper: dict, n: int) -> np.ndarray:
     return inv
 
 
-def recorded_bridge(model, G, data, device, timings=None):
-    """``gen_bridged_graph`` of BRIDGE on ``device``, with its proposals:
+def recorded_bridge(model, G, data, device, timings=None, sim_mode="cosine",
+                    rerank=None, mesh=None):
+    """``gen_bridged_graph`` of BRIDGE on ``device`` (``sim_mode``, the
+    rerank's candidates and the mesh as given), with its proposals:
     ``{kind: (edges in original ids [2, R·k], sims [R, k], top-k columns
     [R, k])}`` for kind cross, within_source, within_target, and the
     classifier's probabilities."""
@@ -3264,7 +3351,8 @@ def recorded_bridge(model, G, data, device, timings=None):
             mock.patch.object(build, "propose_within_edges", within):
         merged = build.gen_bridged_graph(
             model, G.g_src, G.adj_src, G.g_tar, G.adj_tar, m_src, m_tar,
-            sim_mode="cosine", timings=timings, **BRIDGE)
+            sim_mode=sim_mode, timings=timings, rerank_candidates=rerank,
+            mesh=mesh, **BRIDGE)
     return merged, props, probs
 
 
@@ -4305,6 +4393,543 @@ def sharded_rows(kernels, sharded) -> None:
             row["sharded_replay"] = replay
 
 
+# ----------------------------------- phase 28: the rest of multi-device
+
+SCAN28_EPOCHS = 10         # (a): sharded scan on two gloo ranks, chunks of 5
+SCAN28_CHUNK = 5
+SCAN28_CASES = (("scan_halo", dict()),
+                ("scan_edgeshard", dict(shard_layout="edgeshard")))
+NCCL28_EPOCHS = 12         # (b): the 1-rank NCCL group, chunks of 5
+# (c): phase 21's v1 model on two gloo ranks, evaluating at 4 and 6; the
+# 1-rank NCCL stage-1 scan in segments 1-3, 4, 5-6
+STAGE1_SHARDED = dict(num_epoch=6, start_eval_epoch=4, eval_per_epoch=2)
+STAGE1_NCCL_CHUNK = 3
+GATHER_REPS = 10           # (c): all-gathers timed per domain
+# (e): phase 25's settings, cut further
+ELASTIC_STAGE1 = dict(num_epoch=10, start_eval_epoch=10)
+ELASTIC_STAGE2 = dict(num_epoch=10)
+
+
+def _digest(*arrays) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def scan28_rank(data, c: int) -> dict:
+    """Phase 28 (a) on one rank: SCAN28_CASES in scan mode over the gloo
+    group, counts at 0 just before each run; every epoch runs eagerly, so
+    the wrappers count SCAN28_EPOCHS epochs of phase 27's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    out = {}
+    for name, kw in SCAN28_CASES:
+        cfg = sharded_cfg(epochs=SCAN28_EPOCHS, scan_epochs=SCAN28_CHUNK,
+                          **kw)
+        dist.barrier()
+        fk.reset_launch_counts()
+        res = train_ktgnn(data, cfg, device="cuda")
+        torch.cuda.synchronize()
+        got = {k: v for k, v in fk.launch_counts().items() if v}
+        want = {k: {d: n * cfg.num_epoch for d, n in v.items()}
+                for k, v in sharded_want(cfg, c).items()}
+        if got != want:
+            raise RuntimeError(f"{name} rank {dist.get_rank()}: launched "
+                               f"{got}, expected {want}")
+        out[name] = dict(
+            losses=[h["loss"] for h in res["history"]],
+            losses_t2=[h["loss_t2"] for h in res["history"]],
+            best_epoch=res["best"]["epoch"], scan=res["scan"],
+            epoch_ms_median=1e3 * res["throughput"]["p50_s"],
+            epoch_ms_mean=1e3 * res["mean_epoch_time"],
+            launches_by_d=got,
+            launches_per_epoch_by_d={k: {d: n // cfg.num_epoch
+                                         for d, n in v.items()}
+                                     for k, v in got.items()})
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def stage1_sharded_rank(s1_data) -> dict:
+    """Phase 28 (c) on one rank: one row-sharded v1 step's gather_reduce
+    calls (STAGE1_PER_STEP, on the rank's slot layouts) replayed rank
+    after rank; the all-gather of one 128-wide layer input per domain,
+    timed; then ``train_adversarial`` over the group, counts at 0 just
+    before: STAGE1_PER_STEP a step and STAGE1_EVAL_FORWARDS an
+    evaluation."""
+    import torch
+    import torch.distributed as dist
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.parallel.collectives import GradAllReduce
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    src, tar, _, _ = s1_data
+    group, rank, n = dist.group.WORLD, dist.get_rank(), dist.get_world_size()
+    cfg = stage1_cfg(n_shards=n, **STAGE1_SHARDED)
+    G = ts1.prepare_sharded_stage1_graphs(src, tar, "gnn", group, "cuda")
+    model = ts1.build_model(cfg, src, tar, "cuda")
+    G = dataclasses.replace(G, grad_sync=GradAllReduce(
+        list(model.source_learner.parameters())
+        + list(model.target_learner.parameters()), group))
+    opts = ts1.make_optimizers(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    idxs, y_pairs = stage1_pairs(src, tar, cfg)
+
+    def step():
+        _, aux = ts1.sim_step(model, opts, G, idxs, y_pairs, True, gen)
+        ts1.d_step(model, opts, G, aux["h_src"], aux["h_tar"])
+
+    fk.reset_launch_counts()
+    recs = record_run(step, ("gather_reduce",))
+    counted = {k: v for k, v in fk.launch_counts().items() if v}
+    if counted != {"gather_reduce": STAGE1_PER_STEP}:
+        raise RuntimeError(f"sharded stage-1 step rank {rank}: launched "
+                           f"{counted}, expected {STAGE1_PER_STEP}")
+    layouts = layouts_of(G.shard_src.adj) + layouts_of(G.shard_tar.adj)
+    replay = []
+    for turn in range(n):
+        dist.barrier()
+        if turn == rank:
+            replay = check_gather_calls(recs, layouts)
+    gathers = {}
+    for name, shard in (("source", G.shard_src), ("target", G.shard_tar)):
+        t = torch.randn(shard.rows, STAGE1_MODEL["hidden_dim"],
+                        device="cuda")
+        ms = []
+        for _ in range(GATHER_REPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shard.gather_all(t)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        gathers[name] = dict(rows=shard.rows, ms_median=statistics.median(ms),
+                             gathered_bytes=n * t.numel() * 4,
+                             received_bytes=(n - 1) * t.numel() * 4)
+    del recs, model, opts, G
+    torch.cuda.empty_cache()
+    dist.barrier()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ts1.train_adversarial(src, tar, cfg, device="cuda")
+    run_s = time.perf_counter() - t0
+    launched = {k: v for k, v in fk.launch_counts().items() if v}
+    evals = len(res["eval_s"])
+    want = {d: k * cfg.num_epoch for d, k in STAGE1_PER_STEP.items()}
+    want = {"gather_reduce": {d: v + STAGE1_EVAL_FORWARDS * evals
+                              for d, v in want.items()}}
+    if launched != want or evals != 2:
+        raise RuntimeError(f"sharded stage-1 run rank {rank}: launched "
+                           f"{launched} with {evals} evaluations, expected "
+                           f"{want}")
+    return dict(
+        losses=[h["loss"] for h in res["history"]],
+        losses_d=[h["loss_d"] for h in res["history"]],
+        best={k: v for k, v in res["best"].items()},
+        epoch_ms_median=1e3 * res["throughput"]["p50_s"],
+        eval_s=res["eval_s"], run_s=run_s, launches=launched,
+        gathers=gathers,
+        replay=[{k: r[k] for k in ("d", "transpose", "ms", "device_ms",
+                                   "plain_ms", "bound_ms", "library_ms",
+                                   "max_abs_err")} for r in replay])
+
+
+BRIDGE28 = (("bridge_v1", "v1", "gnn", "cosine", None),
+            ("bridge_v2", "v2", "mlp", "mlp", None),
+            ("bridge_v2_rerank", "v2", "mlp", "mlp", MLP_RERANK))
+
+
+def bridge_sharded_rank(s1_data, states) -> dict:
+    """Phase 28 (d) on one rank: BRIDGE28's builds with ``mesh=`` the
+    group (recorded_bridge), each part's seconds; rank 0 returns the
+    proposals, rank 1 their digest."""
+    import torch
+    import torch.distributed as dist
+
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    src, tar, _, _ = s1_data
+    out = {}
+    for name, model_name, backbone, sim_mode, rerank in BRIDGE28:
+        cfg = stage1_cfg(backbone=backbone, sim_mode=sim_mode)
+        model = ts1.build_model(cfg, src, tar, "cuda")
+        model.load_state_dict(states[model_name])
+        G = ts1.prepare_stage1_graphs(src, tar, backbone, "cuda")
+        timings = {}
+        dist.barrier()
+        t0 = time.perf_counter()
+        merged, props, probs = recorded_bridge(
+            model, G, s1_data, "cuda", timings, sim_mode, rerank,
+            mesh=dist.group.WORLD)
+        s = time.perf_counter() - t0
+        digest = _digest(merged["edge_index"],
+                         *[a for kind in sorted(props)
+                           for a in props[kind][1:]])
+        out[name] = dict(s=s, timings_s=timings, digest=digest)
+        if dist.get_rank() == 0:
+            out[name].update(edge_index=merged["edge_index"], props=props,
+                             probs=probs)
+        del model, G
+        torch.cuda.empty_cache()
+    return out
+
+
+def rest_rank(data, c: int, s1_data, states) -> dict:
+    """Phase 28 (a), (c) and (d) on one rank of the gloo group."""
+    import torch
+    import torch.distributed as dist
+
+    from bridged_gnn_tpu_torch.parallel.multihost import describe
+
+    return dict(rank=dist.get_rank(),
+                rule=describe(dist.group.WORLD, torch.device("cuda", 0)),
+                scan=scan28_rank(data, c),
+                stage1=stage1_sharded_rank(s1_data),
+                bridge=bridge_sharded_rank(s1_data, states))
+
+
+def _same_losses(where, got, want):
+    if not np.allclose(got, want, rtol=LOSS_RTOL, atol=0):
+        raise RuntimeError(f"{where}: losses {got} against {want}")
+
+
+def rerank_superset(single, sharded) -> dict:
+    """The sharded rerank screens each shard's columns, a superset of the
+    single device's candidates: every column it keeps and the single
+    device does not scores at least the single device's row k-th (less
+    NEAR_TIE), and every column it drops scores at most its own k-th
+    (plus NEAR_TIE). Returns the rows that differ, by kind."""
+    out = {}
+    for kind, (_, sims_1, cols_1) in single.items():
+        _, sims_n, cols_n = sharded[kind]
+        k, rows = cols_1.shape[1], 0
+        for r in np.flatnonzero((np.sort(cols_1, 1)
+                                 != np.sort(cols_n, 1)).any(1)):
+            rows += 1
+            gained = ~np.isin(cols_n[r], cols_1[r])
+            lost = ~np.isin(cols_1[r], cols_n[r])
+            if (sims_n[r][gained] < sims_1[r, k - 1] - NEAR_TIE).any() or (
+                    sims_1[r][lost] > sims_n[r, k - 1] + NEAR_TIE).any():
+                raise RuntimeError(f"sharded rerank {kind}: row {r} keeps "
+                                   f"{cols_n[r]} against {cols_1[r]}")
+        out[kind] = rows
+    return out
+
+
+def nccl28_phase(bench, c: int, s1_data, card: str) -> dict:
+    """Phase 28 (b) and the end of (c): a 1-rank NCCL group in this
+    process. KT-GNN on the halo layout in scan mode (NCCL28_EPOCHS
+    epochs in chunks of SCAN_CHUNK) through ``train_ktgnn(group=...)``,
+    counts at 0 just before: the epoch captured once after the warm-up
+    epochs and replayed, a replay's launches phase 27's per-epoch
+    launches, losses within LOSS_RTOL of the single-device scan run and
+    the same best epoch; one chunk of replays traced (busy share), and
+    what the collectives' ranges launched on the device in the traced
+    run's eager epochs (``collective_work``). Then the v1 stage-1 run of (c) in scan
+    mode over the same group (segments of STAGE1_NCCL_CHUNK), captured,
+    against the single-device scan run."""
+    import torch
+    import torch.distributed as dist
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.parallel.multihost import init_distributed
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+    from bridged_gnn_tpu_torch.train import stage2
+
+    cfg = sharded_cfg(n_shards=1, epochs=NCCL28_EPOCHS,
+                      scan_epochs=SCAN_CHUNK)
+    src, tar, _, _ = s1_data
+    s1cfg = stage1_cfg(n_shards=1, scan_epochs=STAGE1_NCCL_CHUNK,
+                       **STAGE1_SHARDED)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("cuda", f"file://{tmp}/store", 1, 0)
+        try:
+            group = dist.group.WORLD
+            if dist.get_backend(group) != "nccl":
+                raise RuntimeError(f"1-rank group on "
+                                   f"{dist.get_backend(group)}")
+            fk.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = stage2.train_ktgnn(bench, cfg, device="cuda", group=group)
+            run_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counted = {k: v for k, v in fk.launch_counts().items() if v}
+            single = stage2.train_ktgnn(bench, cfg, device="cuda")
+            traced = trace_phase(
+                "sharded_nccl_scan_trace", bench, cfg, window=1,
+                epochs=SCAN_CHUNK, trainer=(stage2, lambda: stage2.
+                                            train_ktgnn(bench, cfg, "cuda",
+                                                        group=group)))
+            torch.cuda.empty_cache()
+            fk.reset_launch_counts()
+            s1res = ts1.train_adversarial(src, tar, s1cfg, device="cuda",
+                                          group=group)
+            s1_counted = {k: v for k, v in fk.launch_counts().items() if v}
+            s1_single = ts1.train_adversarial(src, tar, s1cfg,
+                                              device="cuda")
+        finally:
+            dist.destroy_process_group()
+    info, want = res["scan"], sharded_want(cfg, c)
+    if (info["capture"], info["captures"], info["eager_epochs"],
+            info["replays"]) != ("nccl", 1, stage2.WARMUP_EPOCHS,
+                                 NCCL28_EPOCHS - stage2.WARMUP_EPOCHS):
+        raise RuntimeError(f"nccl scan: {info}")
+    if info["launches_per_replay"] != want:
+        raise RuntimeError(f"nccl scan: a replay launches "
+                           f"{info['launches_per_replay']}, not {want}")
+    counted_want = {k: {d: (info["eager_epochs"] + 1) * n
+                        for d, n in v.items()} for k, v in want.items()}
+    if counted != counted_want:
+        raise RuntimeError(f"nccl scan: the wrappers counted {counted}, "
+                           f"not {counted_want}")
+    for key in ("loss", "loss_t2"):
+        _same_losses(f"nccl scan {key}", [h[key] for h in res["history"]],
+                     [h[key] for h in single["history"]])
+    if res["best"]["epoch"] != single["best"]["epoch"]:
+        raise RuntimeError(f"nccl scan: best epoch {res['best']['epoch']} "
+                           f"against {single['best']['epoch']}")
+    if traced["hand_kernel_launches"] != sum(
+            sum(v.values()) for v in want.values()):
+        raise RuntimeError(f"nccl scan: the traced chunk shows "
+                           f"{traced['hand_kernel_launches']} launches an "
+                           "epoch")
+    if not traced["collective_work"]:
+        raise RuntimeError("nccl scan: the trace holds no collective range")
+    s1info = s1res["scan"]
+    if (s1info["capture"], s1info["captures"]) != ("nccl", 1):
+        raise RuntimeError(f"nccl stage-1 scan: {s1info}")
+    for key in ("loss", "loss_d", "loss_ae"):
+        _same_losses(f"nccl stage-1 scan {key}",
+                     [h[key] for h in s1res["history"]],
+                     [h[key] for h in s1_single["history"]])
+    out = dict(
+        phase="sharded_nccl_scan", backend="nccl", epochs=NCCL28_EPOCHS,
+        chunk=SCAN_CHUNK, **info, run_s=run_s,
+        epoch_ms_median=1e3 * res["throughput"]["p50_s"],
+        single_epoch_ms_median=1e3 * single["throughput"]["p50_s"],
+        losses=[h["loss"] for h in res["history"]],
+        single_device_losses=[h["loss"] for h in single["history"]],
+        best_epoch=res["best"]["epoch"], launches=counted, trace=traced,
+        stage1=dict(scan={k: v for k, v in s1info.items()},
+                    launches=s1_counted,
+                    losses=[h["loss"] for h in s1res["history"]],
+                    single_device_losses=[h["loss"]
+                                          for h in s1_single["history"]],
+                    epoch_ms_median=1e3 * s1res["throughput"]["p50_s"],
+                    single_epoch_ms_median=1e3
+                    * s1_single["throughput"]["p50_s"]))
+    log(json.dumps(dict(card=card, **out)))
+    return out
+
+
+def elastic_phase(card: str) -> dict:
+    """Phase 28 (e): ``run_pipeline(elastic=True)`` on phase 25's
+    settings cut to ELASTIC_STAGE1 and ELASTIC_STAGE2, beside the
+    straight run. A wrapper here makes stage 2's first attempt hold the
+    prepared graph on the card and then ask for twice the card's memory,
+    a real CUDA out-of-memory error: one retry, the straight run's best,
+    and the memory allocated at the retry's start the same as at the
+    first attempt's."""
+    import torch
+
+    from bridged_gnn_tpu_torch import pipeline
+    from bridged_gnn_tpu_torch.config import RECIPES
+    from bridged_gnn_tpu_torch.train import elastic
+    from bridged_gnn_tpu_torch.train import stage2
+
+    recipe = RECIPES["office_amazon2dslr_tpu"]
+    cfg = dataclasses.replace(
+        recipe, dataset_name="sync_unrelational",
+        stage1=dataclasses.replace(recipe.stage1, **ELASTIC_STAGE1),
+        stage2=dataclasses.replace(recipe.stage2, **ELASTIC_STAGE2))
+    t0 = time.perf_counter()
+    straight = pipeline.run_pipeline(cfg)
+    straight_s = time.perf_counter() - t0
+    real = pipeline.train_ktgnn
+    seen = dict(calls=0, allocated=[], error=None)
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def first_attempt_fails(data, cfg2, device="cuda"):
+        seen["calls"] += 1
+        torch.cuda.synchronize()
+        seen["allocated"].append(torch.cuda.memory_allocated())
+        if seen["calls"] == 1:
+            held = stage2.prepare_stage2_graph(data, cfg2, device)
+            try:
+                torch.empty(2 * total, dtype=torch.uint8, device=device)
+            except torch.OutOfMemoryError as exc:
+                seen["error"] = f"{type(exc).__name__}: {str(exc)[:120]}"
+                raise
+            del held
+        return real(data, cfg2, device=device)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(pipeline, "train_ktgnn", first_attempt_fails), \
+            mock.patch.dict(elastic.run_elastic.__kwdefaults__,
+                            retry_delay_s=0.0):
+        res = pipeline.run_pipeline(cfg, elastic=True)
+    elastic_s = time.perf_counter() - t0
+    a, b = straight["stage2"], res["stage2"]
+    same = (a["epoch"] == b["epoch"] and all(
+        np.isclose(a[k], b[k], rtol=1e-6, atol=0)
+        for k in ("train", "val", "test", "loss")))
+    if seen["calls"] != 2 or not same or res["stage1"] != straight["stage1"]:
+        raise RuntimeError(f"elastic pipeline: {seen['calls']} attempts, "
+                           f"stage 2 {b} against {a}")
+    if seen["allocated"][1] != seen["allocated"][0]:
+        raise RuntimeError(f"elastic pipeline: {seen['allocated'][0]} bytes "
+                           f"allocated at the first attempt, "
+                           f"{seen['allocated'][1]} at the retry")
+    out = dict(phase="elastic_pipeline", attempts=seen["calls"],
+               error=seen["error"], allocated_at_attempts=seen["allocated"],
+               straight_s=straight_s, elastic_s=elastic_s,
+               stage2_best={k: v for k, v in b.items() if k != "per_head"},
+               cuts=dict(stage1=ELASTIC_STAGE1, stage2=ELASTIC_STAGE2))
+    log(json.dumps(dict(card=card, **out)))
+    return out
+
+
+def rest_phase(bench, c: int, s1, bridge, card: str) -> dict:
+    """Phase 28: (a) sharded scan mode, (c) row-sharded stage 1 and (d)
+    the sharded bridge top-k on SHARDED_RANKS gloo ranks sharing cuda:0,
+    spawned once, each against this process's single-device run; (b)
+    the 1-rank NCCL group's captured scan and stage-1 scan; (e) the
+    pipeline's elastic retry."""
+    import torch
+
+    from bridged_gnn_tpu_torch.parallel.multihost import spawn
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
+
+    t_phase = time.perf_counter()
+    loop = train_ktgnn(bench, sharded_cfg(n_shards=1, epochs=SCAN28_EPOCHS),
+                       device="cuda")
+    src, tar, _, _ = s1["data"]
+    s1_single = ts1.train_adversarial(src, tar, stage1_cfg(**STAGE1_SHARDED),
+                                      device="cuda")
+    states = {name: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+              for name, m in (("v1", s1["model"]),
+                              ("v2", bridge["v2_model"]))}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(rest_rank, SHARDED_RANKS, (bench, c, s1["data"], states),
+                  device_type="cuda", timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    # (a)
+    out = dict(scan={}, bridge={})
+    for name, _ in SCAN28_CASES:
+        per_rank = [r["scan"][name] for r in ranks]
+        for r, got in zip(ranks, per_rank):
+            for key in ("loss", "loss_t2"):
+                _same_losses(f"{name} rank {r['rank']} {key}",
+                             got[f"losses{key[4:]}"],
+                             [h[key] for h in loop["history"]])
+            if got["best_epoch"] != loop["best"]["epoch"] or (
+                    got["scan"]["capture"], got["scan"]["captures"]) != (
+                    "none (gloo)", 0):
+                raise RuntimeError(f"{name} rank {r['rank']}: best "
+                                   f"{got['best_epoch']}, scan {got['scan']}")
+        if any(g["losses"] != per_rank[0]["losses"] for g in per_rank):
+            raise RuntimeError(f"{name}: the ranks' losses differ")
+        row = dict(phase=name, ranks=SHARDED_RANKS, epochs=SCAN28_EPOCHS,
+                   chunk=SCAN28_CHUNK, rule=ranks[0]["rule"],
+                   single_device_loop_losses=[h["loss"]
+                                              for h in loop["history"]],
+                   **{f"rank{r['rank']}": g
+                      for r, g in zip(ranks, per_rank)})
+        log(json.dumps(dict(card=card, **row)))
+        out["scan"][name] = row
+    # (c)
+    for r in ranks:
+        got = r["stage1"]
+        _same_losses(f"sharded stage 1 rank {r['rank']}", got["losses"],
+                     [h["loss"] for h in s1_single["history"]])
+        _same_losses(f"sharded stage 1 rank {r['rank']} loss_d",
+                     got["losses_d"],
+                     [h["loss_d"] for h in s1_single["history"]])
+    if ranks[0]["stage1"]["losses"] != ranks[1]["stage1"]["losses"]:
+        raise RuntimeError("sharded stage 1: the ranks' losses differ")
+    out["stage1"] = dict(
+        phase="stage1_sharded", ranks=SHARDED_RANKS, **STAGE1_SHARDED,
+        single_device_losses=[h["loss"] for h in s1_single["history"]],
+        single_device_epoch_ms_median=1e3 * s1_single["throughput"]["p50_s"],
+        single_device_best=s1_single["best"],
+        **{f"rank{r['rank']}": r["stage1"] for r in ranks})
+    log(json.dumps(dict(card=card, **out["stage1"])))
+    # (d): the single device's builds, the sharded ones against them
+    for name, model_name, backbone, sim_mode, rerank in BRIDGE28:
+        model = s1["model"] if model_name == "v1" else bridge["v2_model"]
+        G = ts1.prepare_stage1_graphs(src, tar, backbone, "cuda")
+        timings = {}
+        t0 = time.perf_counter()
+        m1, p1, c1 = recorded_bridge(model, G, s1["data"], "cuda", timings,
+                                     sim_mode, rerank)
+        single_s = time.perf_counter() - t0
+        got = ranks[0]["bridge"][name]
+        if ranks[1]["bridge"][name]["digest"] != got["digest"]:
+            raise RuntimeError(f"{name}: the ranks' graphs differ")
+        sharded = (dict(edge_index=got["edge_index"]), got["props"],
+                   got["probs"])
+        row = dict(phase=name, ranks=SHARDED_RANKS, rerank=rerank,
+                   s=[r["bridge"][name]["s"] for r in ranks],
+                   timings_s=[r["bridge"][name]["timings_s"] for r in ranks],
+                   single_device_s=single_s,
+                   single_device_timings_s=timings,
+                   edges=int(got["edge_index"].shape[1]),
+                   single_device_edges=int(m1["edge_index"].shape[1]))
+        if rerank is None:
+            row["near_ties"] = bridge_near_ties((m1, p1, c1), sharded)
+        else:
+            row["rows_apart"] = rerank_superset(p1, got["props"])
+        log(json.dumps(dict(card=card, **row)))
+        out["bridge"][name] = row
+        del G
+        torch.cuda.empty_cache()
+    # (b) and the end of (c)
+    out["nccl"] = nccl28_phase(bench, c, s1["data"], card)
+    # (e)
+    out["elastic"] = elastic_phase(card)
+    out["s"] = time.perf_counter() - t_phase
+    log(f"phase 28 (the rest of multi-device): {out['s']:.1f} s, the "
+        f"ranks' spawn {spawn_s:.1f} s [{card}]")
+    return out
+
+
+def rest_rows(kernels, rest) -> None:
+    """Phase 28's launches join the f32 rows' counts: the sharded scan
+    runs' (both ranks of each case and the NCCL rank's eager epochs and
+    capture), ``launches_sharded_scan_by_d``; the row-sharded stage-1
+    runs' (both ranks and the NCCL rank), ``launches_stage1_sharded_by_d``
+    on gather_reduce."""
+    scan_runs = [r[f"rank{i}"]["launches_by_d"]
+                 for r in rest["scan"].values()
+                 for i in range(SHARDED_RANKS)] + [rest["nccl"]["launches"]]
+    stage1_runs = [rest["stage1"][f"rank{i}"]["launches"]
+                   for i in range(SHARDED_RANKS)] + [
+        rest["nccl"]["stage1"]["launches"]]
+    for row in kernels:
+        if row.get("dtype") == "bfloat16":
+            continue
+        for key, runs in (("launches_sharded_scan_by_d", scan_runs),
+                          ("launches_stage1_sharded_by_d", stage1_runs)):
+            by_d = {}
+            for run in runs:
+                for d, n in run.get(row["name"], {}).items():
+                    by_d[d] = by_d.get(d, 0) + n
+            if by_d:
+                row[key] = by_d
+                row["launches"] += sum(by_d.values())
+
+
 def main() -> int:
     import torch
 
@@ -4540,6 +5165,10 @@ def main() -> int:
     # 27. multi-device stage 2: the native library, two gloo ranks on the
     # card for each sharded layout, a 1-rank NCCL group
     sharded = sharded_phase(bench, c, card)
+    # 28. the rest of multi-device: sharded scan mode, row-sharded stage 1
+    # and the sharded bridge on two gloo ranks, a 1-rank NCCL group's
+    # captured epochs, the pipeline's elastic retry
+    rest = rest_phase(bench, c, s1, bridge, card)
 
     # summary, per kernel: its launches in its main-path phase and its
     # time inside that run (per predict for the forwards, per epoch for
@@ -4662,6 +5291,7 @@ def main() -> int:
                 row["launches_pipeline"] = n
                 row["launches"] += n
     sharded_rows(kernels, sharded)
+    rest_rows(kernels, rest)
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

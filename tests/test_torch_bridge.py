@@ -289,11 +289,25 @@ def test_stage1_cli_runs_scan_options(tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags,item", [(["--n_shards", "2"], "item 9")])
-def test_stage1_cli_refuses_unported_options(flags, item):
+def test_stage1_cli_refuses_unported_options(tmp_path, flags, item):
+    """``--n_shards 2``, refused until ROADMAP Queue 1 ``item`` brought
+    it, trains: the CLI starts two gloo ranks for stage 1 (v1, rows
+    sharded), then builds and saves the bridged graph from rank 0's best
+    weights."""
     args = s1cli.build_argparser().parse_args(
-        ["--dataset_name", "sync_unrelational", "--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match=item):
-        s1cli.main(args)
+        ["--dataset_name", "sync_unrelational", "--device", "cpu",
+         "--k_within", "2", "--k_cross", "4", "--num_epoch", "2",
+         "--start_eval_epoch", "2", "--eval_per_epoch", "2",
+         "--hidden_dim", "16", "--out_dir", str(tmp_path), "--ckpt_dir",
+         str(tmp_path), "--save", "--verbose"] + flags)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        merged = s1cli.main(args)
+    out = text.getvalue()
+    assert "[stage-1 best]" in out and "saved bridged graph" in out
+    assert merged["x"].shape[0] == 3500
+    assert (tmp_path / "model_AdvLearner_sync_unrelational_best.pkl"
+            ).is_file()
 
 
 def test_stage1_cli_runs_on_the_card_by_default(monkeypatch):

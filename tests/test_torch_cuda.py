@@ -10,6 +10,8 @@ GPU machine without JAX:
 The data helpers here are shared with the other tests/test_torch_*.py.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1528,3 +1530,70 @@ def test_cuda_similarity_scorer_matches_cpu(backbone, sim_mode):
     np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-5)
     for r, j in zip(*np.nonzero(gi != wi)):
         assert np.abs(np.delete(wv[r], j) - wv[r, j]).min() <= 1e-5, (r, j)
+
+
+# ------------------------------------------------- a 1-rank NCCL group
+
+
+@contextlib.contextmanager
+def _nccl_group():
+    """A 1-rank NCCL group in this process, destroyed on the way out."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from bridged_gnn_tpu_torch.parallel.multihost import init_distributed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        assert init_distributed("cuda", f"file://{tmp}/store", 1, 0)
+        try:
+            assert dist.get_backend() == "nccl"
+            yield dist.group.WORLD
+        finally:
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["halo", "edgeshard"])
+def test_cuda_nccl_sharded_scan_captures(rng, layout):
+    """Sharded scan mode over a 1-rank NCCL group
+    (``train_ktgnn(group=...)``): the epoch, its collectives included, is
+    captured once after the warm-up epochs and replayed; the losses are
+    the single-device scan run's at rtol 1e-4 and the best epoch is
+    its."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
+
+    data = _scan_data(rng, "blocked")
+    cfg = _scan_cfg(dropout=0.0, n_shards=1, shard_layout=layout)
+    single = train_ktgnn(data, cfg, device=dev)
+    with _nccl_group() as group:
+        got = train_ktgnn(data, cfg, device=dev, group=group)
+    info = got["scan"]
+    assert (info["capture"], info["captures"], info["eager_epochs"],
+            info["replays"]) == ("nccl", 1, WARMUP_EPOCHS, 9 - WARMUP_EPOCHS)
+    assert got["parallel"]["layout"] == layout
+    for a, b in zip(got["history"], single["history"], strict=True):
+        for key in ("loss", "loss_t2"):
+            assert abs(a[key] - b[key]) <= 1e-4 * abs(b[key]), a
+    assert got["best"]["epoch"] == single["best"]["epoch"]
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_row_sharded_stage1_scan_captures():
+    """Row-sharded stage 1 over a 1-rank NCCL group in scan mode (host
+    pairs): the all-gathers and reduce-scatters inside the captured
+    epoch; the losses are the single-device scan run's at rtol 1e-4."""
+    _need_cuda()
+    from bridged_gnn_tpu_torch.train import stage1 as ts1
+
+    src, tar, _, _ = _stage1_domains()
+    cfg = _stage1_cfg(scan_epochs=2, num_epoch=5, start_eval_epoch=5)
+    single = ts1.train_adversarial(src, tar, cfg, device="cuda")
+    with _nccl_group() as group:
+        got = ts1.train_adversarial(src, tar, cfg, device="cuda",
+                                    group=group)
+    assert (got["scan"]["capture"], got["scan"]["captures"]) == ("nccl", 1)
+    for a, b in zip(got["history"], single["history"], strict=True):
+        for key in ("loss", "loss_d", "loss_ae"):
+            assert abs(a[key] - b[key]) <= 1e-4 * abs(b[key]), a

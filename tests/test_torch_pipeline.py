@@ -3,7 +3,7 @@ against the JAX package: every recipe equal to JAX's as a dict, a
 ``PipelineConfig`` JSON read by the other package as it was written,
 ``run_pipeline`` on a tiny synthetic config from JAX's stage-1 init at
 dropout 0 giving JAX's bridged edge set but for named near-ties, the
-pipeline CLI on a ``--config`` file, and the options that wait for
+pipeline CLI on a ``--config`` file, and ``--elastic``, which waited for
 ROADMAP.md item 9.
 
 Near-ties: the two runs' stage-1 weights part by Adam's rounding steps,
@@ -274,15 +274,24 @@ def test_pipeline_cli_on_a_config_file(tmp_path):
     assert (tmp_path / "sync_relational-intra_bridged_graph.npz").exists()
 
 
-def test_pipeline_waits_for_item_9_and_defaults_to_the_card(monkeypatch):
+def test_pipeline_waits_for_item_9_and_defaults_to_the_card(monkeypatch,
+                                                            tmp_path):
+    """Elastic retries and the mesh, refused until ROADMAP Queue 1 item 9
+    brought them, run: ``--elastic`` on the pipeline CLI trains both
+    stages under ``run_elastic`` (``tests/test_torch_elastic.py`` holds
+    a retried run and ``mesh=`` over two ranks against the straight
+    run); without a card the pipeline raises rather than run on the
+    CPU."""
     cfg = _tiny()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpipe.run_pipeline(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpipe.run_pipeline(cfg, elastic=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpipe.main(["--recipe", "sync_unrelational", "--elastic",
-                    "--device", "cpu"])
+    path = tmp_path / "cfg.json"
+    path.write_text(cfg.to_json())
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        res = tpipe.main(["--config", str(path), "--elastic", "--device",
+                          "cpu"])
+    for line in ("[stage-1 best]", "[stage-2 best]", "[diagnostics]"):
+        assert line in text.getvalue()
+    assert np.isfinite(res["stage2"]["loss"])
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

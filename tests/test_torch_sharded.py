@@ -11,8 +11,9 @@ of two CPU ranks, started once for the module
   atol 1e-6;
 * three epochs of ``train_ktgnn(n_shards=2)`` — KTGNN on the halo
   layout, its overlap form and the edge-shard layout, KTGNN_noDTC on the
-  halo layout — against the JAX package's ``n_shards=2`` run of the same
-  layout on the CPU mesh of ``tests/conftest.py``, from the port's
+  halo layout — and six of KTGNN on the halo layout in scan mode
+  (``scan_epochs=3``) against the JAX package's ``n_shards=2`` run of the
+  same layout on the CPU mesh of ``tests/conftest.py``, from the port's
   seeded init: losses at rtol 1e-4, the same best epoch;
 * parameters and BN statistics bit-identical on both ranks;
 * the edge-shard SpMM against one segment sum;
@@ -46,6 +47,7 @@ from bridged_gnn_tpu_torch.parallel.multihost import backend_for, spawn
 from bridged_gnn_tpu_torch.train.stage2 import (
     Stage2Config,
     build_model,
+    check_ported,
     prepare_stage2_graph,
     train_ktgnn,
     train_step,
@@ -69,6 +71,7 @@ TRAIN_CASES = dict(
     overlap=dict(TRAIN, halo_overlap=True),
     edgeshard=dict(TRAIN, shard_layout="edgeshard"),
     nodtc_halo=dict(TRAIN, model_name="KTGNN_noDTC"),
+    halo_scan=dict(TRAIN, num_epoch=6, scan_epochs=3),
 )
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -108,7 +111,8 @@ def test_sharded_train_matches_jax(ranks_pending, monkeypatch, case):
     jres = js2.train_ktgnn(data, js2.Stage2Config(**kw))
     port = ranks_pending.result()[0]["train"][case]
     assert [h["epoch"] for h in port["history"]] == \
-        [h["epoch"] for h in jres["history"]] == [1, 2, 3]
+        [h["epoch"] for h in jres["history"]] == \
+        list(range(1, kw["num_epoch"] + 1))
     for hp, hj in zip(port["history"], jres["history"]):
         for key in ("loss", "loss_t2"):
             assert hp[key] == pytest.approx(hj[key], rel=1e-4), hp["epoch"]
@@ -210,12 +214,17 @@ def test_cli_trains_with_n_shards(tmp_path, capfd, launch):
         assert out.count(line) == 1, (line, out)
 
 
-def test_sharded_refusals():
-    """Sharded scan mode waits for ROADMAP item 9; other models and the
-    complementor are refused as by the JAX runtime."""
+def test_sharded_refusals(ranks):
+    """Sharded scan mode runs (the ``halo_scan`` case on both ranks,
+    every epoch eager under gloo; ``tests/test_torch_sharded_scan.py``
+    holds it against the loop); other models and the complementor are
+    refused as by the JAX runtime."""
     data = _data()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_ktgnn(data, Stage2Config(**BASE, scan_epochs=2), "cpu")
+    check_ported(Stage2Config(**BASE, scan_epochs=2))
+    for out in ranks:
+        scan = out["train"]["halo_scan"]["scan"]
+        assert scan["capture"] == "none (gloo)"
+        assert (scan["eager_epochs"], scan["captures"]) == (6, 0)
     for kw in (dict(model_name="GCN"), dict(need_complement=True)):
         with pytest.raises(ValueError, match="KTGNN_noDTC"):
             train_ktgnn(data, Stage2Config(**BASE, **kw), "cpu")

@@ -347,15 +347,23 @@ def test_cli_trains_on_npz(cli_run, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(cli_run, tmp_path):
-    """``--memory_policy xla_plain`` and sharded scan mode raise; the
-    sharding flags themselves train (tests/test_torch_sharded.py)."""
+    """``--memory_policy xla_plain`` raises. Sharded scan mode, refused
+    until the port ran it, trains through the CLI: two gloo ranks it
+    starts itself, every epoch eager (tests/test_torch_sharded_scan.py
+    holds it against the loop)."""
     _, npz, _, argv = cli_run
     ap = tcli2.build_argparser()
-    for extra in (["--n_shards", "2", "--scan_epochs", "2"],
-                  ["--memory_policy", "xla_plain"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tcli2.main(ap.parse_args(argv[:-2] + ["--device", "cpu"]
-                                     + extra))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tcli2.main(ap.parse_args(argv[:-2] + ["--device", "cpu",
+                                              "--memory_policy",
+                                              "xla_plain"]))
+    res = tcli2.main(ap.parse_args(
+        ["--path_data", npz, "--num_epoch", "4", "--hidden_dim", "8",
+         "--device", "cpu", "--n_shards", "2", "--scan_epochs", "2",
+         "--ckpt_dir", str(tmp_path / "ck")]))
+    assert [h["epoch"] for h in res["history"]] == [1, 2, 3, 4]
+    assert np.all(np.isfinite([h["loss"] for h in res["history"]]))
+    assert res["scan"]["capture"] == "none (gloo)"
 
 
 def test_port_checkpoint_serves_in_both_clis(cli_run):

@@ -63,12 +63,14 @@ def sharded_train(data, kw):
     res = train_ktgnn(data, Stage2Config(**kw), device="cpu")
     return dict(history=res["history"], best=res["best"],
                 state={k: v.numpy() for k, v in res["state_dict"].items()},
-                parallel=res["parallel"])
+                parallel=res["parallel"], scan=res["scan"])
 
 
 def rank_work(data, step_cases, spmm_kw, train_cases):
     """Every case's sharded step, the edge-shard SpMM, then every
-    training case's run."""
+    training case's run. One thread a rank: the tensors are a few rows
+    wide, and the ranks share the host with the other test processes."""
+    torch.set_num_threads(1)
     out = {name: sharded_step(data, kw) for name, kw in step_cases.items()}
     out["spmm"] = edge_spmm(data, spmm_kw)
     out["train"] = {name: sharded_train(data, kw)
