@@ -15,7 +15,8 @@ backend that gives it two calls:
   epoch (``train/stage2.py::_epoch_body``), which a CUDA graph captures.
 
 Layouts: ``halo`` (:class:`HaloStage2Backend`, row partition + boundary
-exchange, ``halo_overlap`` for the overlap form) and ``edgeshard``
+exchange, ``halo_overlap`` for the overlap form unless the model
+recomputes its convs, ``memory_policy="lean"``) and ``edgeshard``
 (:class:`EdgeShardStage2Backend`). ``KTGNN`` and ``KTGNN_noDTC`` run on
 either.
 
@@ -239,9 +240,14 @@ class HaloStage2Backend(_Backend):
     def __init__(self, group, device, model, g: Graph, cfg,
                  num_classes: int, part: Optional[HaloPartition] = None):
         super().__init__(group, device, model, cfg, num_classes)
-        self.part = part = part or build_halo_partition(
-            g, self.n, overlap=cfg.halo_overlap,
-            node_block=cfg.halo_node_block)
+        # JAX takes the overlap form only without recompute-backward
+        # (nn/ktgnn.py:428-429), and a sharded lean KT-GNN recomputes: a
+        # model whose convs recompute in the backward runs the plain
+        # exchange and the attention kernels, whatever halo_overlap says
+        overlap = cfg.halo_overlap and not getattr(model, "remat", False)
+        part = part or build_halo_partition(
+            g, self.n, overlap=overlap, node_block=cfg.halo_node_block)
+        self.part = part = part if overlap else part._replace(pl2=None)
         if part.num_shards != self.n:
             raise ValueError(f"the partition has {part.num_shards} shards, "
                              f"the group {self.n} ranks")

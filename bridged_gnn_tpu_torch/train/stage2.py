@@ -161,7 +161,8 @@ class Stage2Config:
     # Its partials run in plain PyTorch around gather_reduce: on an H100
     # an epoch's device time is ~5x the plain halo form's (179 ms against
     # 36 on chip_smoke.py's bench graph), so it loses unless the exchange
-    # takes longer than that difference
+    # takes longer than that difference. With memory_policy="lean" KT-GNN
+    # runs the plain halo form instead, as the JAX runtime does
     halo_overlap: bool = False
     # halo only: the shards' slot-layout block (None: 128)
     halo_node_block: Optional[int] = None
@@ -183,7 +184,8 @@ def check_ported(cfg: Stage2Config) -> None:
             "Stage2Config.memory_policy='xla_plain' (the JAX package's "
             "kernels-off tier) is not ported by design: on the card the "
             "port always runs its kernels, and its plain versions run "
-            "only for CPU tensors; see ROADMAP.md Queue 1 item 10")
+            "only for CPU tensors; see ROADMAP.md Queue 1, \"left out by "
+            "design\"")
     if cfg.memory_policy not in ("auto", "plain", "lean"):
         raise ValueError(f"memory_policy: {cfg.memory_policy!r}")
     if cfg.need_complement and not _multi_head(cfg):

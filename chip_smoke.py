@@ -245,17 +245,21 @@ Phases, in order; any failure exits non-zero:
    1-shard partition for 2 epochs, against the single-device run;
 28. the rest of multi-device, on the bench graph (dropout 0) and phase
    21's stage-1 graph: (a) two gloo ranks sharing the card (spawned once
-   for (a), (c) and (d)) train KT-GNN on the halo layout and on the edge
-   shards in scan mode, 10 epochs in chunks of 5, every epoch eager:
-   each epoch's losses within rtol 1e-4 of the single-device loop's, the
-   same best epoch, both ranks equal, the launches per rank per epoch
-   asserted; (b) a 1-rank NCCL group in this process trains the halo
-   layout in scan mode for 12 epochs through ``train_ktgnn(group=...)``:
-   the epoch, its collectives included, captured once after the 2
-   warm-up epochs and replayed 10 times, a replay's launches asserted,
-   losses within rtol 1e-4 of the single-device scan run and the same
-   best epoch, one chunk of replays traced (busy share, what the
-   collectives became on the device); (c) stage 1 v1 row-sharded over
+   for (a), (c) and (d)) train KT-GNN on the halo layout, in its overlap
+   form and on the edge shards in scan mode, 10 epochs in chunks of 5,
+   every epoch eager: each epoch's losses within rtol 1e-4 of the
+   single-device loop's, the same best epoch, both ranks equal, the
+   launches per rank per epoch asserted; (b) a 1-rank NCCL group in this
+   process trains the halo layout and its overlap form in scan mode for
+   12 epochs each through ``train_ktgnn(group=...)``: the epoch, its
+   collectives included (the overlap's exchange in flight while its
+   local partials run), captured once after the 2 warm-up epochs and
+   replayed 10 times, a replay's launches asserted, losses within rtol
+   1e-4 of the single-device scan run and the same best epoch, one chunk
+   of replays traced (busy share, what the collectives became on the
+   device); the overlap form's step, its ``gather_reduce`` calls
+   replayed against their plain version (the one rank's halo set has no
+   real edge: those calls give zeros); (c) stage 1 v1 row-sharded over
    the two ranks for 6 epochs, evaluating at 4 and 6: one step's
    ``gather_reduce`` calls replayed against their plain versions on each
    rank, the all-gather of a 128-wide layer input timed per domain, the
@@ -308,8 +312,10 @@ counts (``launches_pipeline``); phase 27's launches (both ranks of every
 case and the NCCL rank) join the f32 rows' counts
 (``launches_sharded_by_d``), beside their replayed calls
 (``sharded_replay``); phase 28's sharded scan runs (both ranks of each
-case, the NCCL rank's eager epochs and capture) join them as
-``launches_sharded_scan_by_d``, and its row-sharded stage-1 runs join
+case, the NCCL rank's eager epochs and captures) join them as
+``launches_sharded_scan_by_d``, its NCCL overlap step's replayed calls
+join ``gather_reduce``'s row as ``sharded_nccl_overlap_replay``, and its
+row-sharded stage-1 runs join
 ``gather_reduce``'s count as ``launches_stage1_sharded_by_d``. The last
 line is ``{"ok": true, "device":
 {...}}``. Without a CUDA
@@ -4398,8 +4404,11 @@ def sharded_rows(kernels, sharded) -> None:
 SCAN28_EPOCHS = 10         # (a): sharded scan on two gloo ranks, chunks of 5
 SCAN28_CHUNK = 5
 SCAN28_CASES = (("scan_halo", dict()),
-                ("scan_edgeshard", dict(shard_layout="edgeshard")))
+                ("scan_edgeshard", dict(shard_layout="edgeshard")),
+                ("scan_overlap", dict(halo_overlap=True)))
 NCCL28_EPOCHS = 12         # (b): the 1-rank NCCL group, chunks of 5
+NCCL28_CASES = (("sharded_nccl_scan", dict()),
+                ("sharded_nccl_scan_overlap", dict(halo_overlap=True)))
 # (c): phase 21's v1 model on two gloo ranks, evaluating at 4 and 6; the
 # 1-rank NCCL stage-1 scan in segments 1-3, 4, 5-6
 STAGE1_SHARDED = dict(num_epoch=6, start_eval_epoch=4, eval_per_epoch=2)
@@ -4625,18 +4634,117 @@ def rerank_superset(single, sharded) -> dict:
     return out
 
 
+def nccl_scan_run(bench, cfg, c: int, group, single, name: str) -> dict:
+    """Phase 28 (b), one case on the 1-rank NCCL group: ``cfg`` in scan
+    mode through ``train_ktgnn(group=...)``, counts at 0 just before; the
+    epoch captured once after the warm-up epochs and replayed, a replay's
+    launches ``sharded_want``'s, losses within LOSS_RTOL of ``single``
+    (the single-device scan run) and the same best epoch; one chunk of
+    replays traced (busy share, launches an epoch) and what the
+    collectives' ranges launched on the device in the traced run's eager
+    epochs (``collective_work``)."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.train import stage2
+
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = stage2.train_ktgnn(bench, cfg, device="cuda", group=group)
+    run_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counted = {k: v for k, v in fk.launch_counts().items() if v}
+    traced = trace_phase(
+        f"{name}_trace", bench, cfg, window=1, epochs=SCAN_CHUNK,
+        trainer=(stage2, lambda: stage2.train_ktgnn(bench, cfg, "cuda",
+                                                    group=group)))
+    torch.cuda.empty_cache()
+    info, want = res["scan"], sharded_want(cfg, c)
+    if (info["capture"], info["captures"], info["eager_epochs"],
+            info["replays"]) != ("nccl", 1, stage2.WARMUP_EPOCHS,
+                                 NCCL28_EPOCHS - stage2.WARMUP_EPOCHS):
+        raise RuntimeError(f"{name}: {info}")
+    if info["launches_per_replay"] != want:
+        raise RuntimeError(f"{name}: a replay launches "
+                           f"{info['launches_per_replay']}, not {want}")
+    counted_want = {k: {d: (info["eager_epochs"] + 1) * n
+                        for d, n in v.items()} for k, v in want.items()}
+    if counted != counted_want:
+        raise RuntimeError(f"{name}: the wrappers counted {counted}, "
+                           f"not {counted_want}")
+    for key in ("loss", "loss_t2"):
+        _same_losses(f"{name} {key}", [h[key] for h in res["history"]],
+                     [h[key] for h in single["history"]])
+    if res["best"]["epoch"] != single["best"]["epoch"]:
+        raise RuntimeError(f"{name}: best epoch {res['best']['epoch']} "
+                           f"against {single['best']['epoch']}")
+    if traced["hand_kernel_launches"] != sum(
+            sum(v.values()) for v in want.values()):
+        raise RuntimeError(f"{name}: the traced chunk shows "
+                           f"{traced['hand_kernel_launches']} launches an "
+                           "epoch")
+    if not traced["collective_work"]:
+        raise RuntimeError(f"{name}: the trace holds no collective range")
+    return dict(
+        phase=name, backend="nccl", epochs=NCCL28_EPOCHS,
+        chunk=SCAN_CHUNK, halo_overlap=res["parallel"]["overlap"], **info,
+        run_s=run_s, epoch_ms_median=1e3 * res["throughput"]["p50_s"],
+        single_epoch_ms_median=1e3 * single["throughput"]["p50_s"],
+        losses=[h["loss"] for h in res["history"]],
+        single_device_losses=[h["loss"] for h in single["history"]],
+        best_epoch=res["best"]["epoch"], launches=counted, trace=traced)
+
+
+def nccl_step_replay(bench, cfg, c: int, group) -> dict:
+    """One recorded train step of ``cfg`` on a halo backend over the
+    1-rank NCCL group, every kernel call replayed against its plain
+    version (``sharded_replay``): for the overlap form, the local and
+    halo partials' SpMMs and their transposes; the halo set of one rank
+    has no real edge, so its calls must give zeros."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+    from bridged_gnn_tpu_torch.parallel.stage2_runtime import (
+        HaloStage2Backend,
+    )
+    from bridged_gnn_tpu_torch.train.optim import make_optimizer
+    from bridged_gnn_tpu_torch.train.stage2 import (
+        build_model,
+        prepare_stage2_graph,
+    )
+
+    g, _ = prepare_stage2_graph(bench, cfg, "cpu", build_adj=False)
+    model = build_model(cfg, c, g.num_features, "cuda")
+    backend = HaloStage2Backend(group, "cuda", model, g, cfg, c)
+    opt, _ = make_optimizer(model.parameters(), cfg.lr, cfg.weight_decay,
+                            False, cfg.step_size, cfg.gamma)
+    with fk.record_launches(keep_inputs=True) as recs:
+        backend.train_step(opt, None)
+    halo = backend.halo
+    replay = sharded_replay(recs, halo)
+    halo_calls = [r for r in replay.get("gather_reduce", [])
+                  if halo.lay_halo is not None and r["layout"] == 2]
+    if halo.lay_halo is not None and (not halo_calls or any(
+            r["real_slots"] for r in halo_calls)):
+        raise RuntimeError(f"overlap step: the halo set's calls "
+                           f"{halo_calls}")
+    del recs, backend, model, opt
+    torch.cuda.empty_cache()
+    return {k: [{f: r[f] for f in (
+        "d", "layout", "transpose", "real_slots", "ms", "device_ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+        for r in v] for k, v in replay.items()}
+
+
 def nccl28_phase(bench, c: int, s1_data, card: str) -> dict:
     """Phase 28 (b) and the end of (c): a 1-rank NCCL group in this
-    process. KT-GNN on the halo layout in scan mode (NCCL28_EPOCHS
-    epochs in chunks of SCAN_CHUNK) through ``train_ktgnn(group=...)``,
-    counts at 0 just before: the epoch captured once after the warm-up
-    epochs and replayed, a replay's launches phase 27's per-epoch
-    launches, losses within LOSS_RTOL of the single-device scan run and
-    the same best epoch; one chunk of replays traced (busy share), and
-    what the collectives' ranges launched on the device in the traced
-    run's eager epochs (``collective_work``). Then the v1 stage-1 run of (c) in scan
-    mode over the same group (segments of STAGE1_NCCL_CHUNK), captured,
-    against the single-device scan run."""
+    process. KT-GNN in scan mode (NCCL28_EPOCHS epochs in chunks of
+    SCAN_CHUNK) for each of NCCL28_CASES, the halo layout and its
+    overlap form (``nccl_scan_run``), held against one single-device
+    scan run; the overlap form's step replayed (``nccl_step_replay``).
+    Then the v1 stage-1 run of (c) in scan mode over the same group
+    (segments of STAGE1_NCCL_CHUNK), captured, against the single-device
+    scan run."""
     import torch
     import torch.distributed as dist
 
@@ -4645,11 +4753,16 @@ def nccl28_phase(bench, c: int, s1_data, card: str) -> dict:
     from bridged_gnn_tpu_torch.train import stage1 as ts1
     from bridged_gnn_tpu_torch.train import stage2
 
-    cfg = sharded_cfg(n_shards=1, epochs=NCCL28_EPOCHS,
-                      scan_epochs=SCAN_CHUNK)
+    cfgs = {name: sharded_cfg(n_shards=1, epochs=NCCL28_EPOCHS,
+                              scan_epochs=SCAN_CHUNK, **kw)
+            for name, kw in NCCL28_CASES}
     src, tar, _, _ = s1_data
     s1cfg = stage1_cfg(n_shards=1, scan_epochs=STAGE1_NCCL_CHUNK,
                        **STAGE1_SHARDED)
+    single = stage2.train_ktgnn(bench, cfgs["sharded_nccl_scan"],
+                                device="cuda")
+    torch.cuda.empty_cache()
+    runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         init_distributed("cuda", f"file://{tmp}/store", 1, 0)
         try:
@@ -4657,18 +4770,12 @@ def nccl28_phase(bench, c: int, s1_data, card: str) -> dict:
             if dist.get_backend(group) != "nccl":
                 raise RuntimeError(f"1-rank group on "
                                    f"{dist.get_backend(group)}")
-            fk.reset_launch_counts()
-            t0 = time.perf_counter()
-            res = stage2.train_ktgnn(bench, cfg, device="cuda", group=group)
-            run_s = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            counted = {k: v for k, v in fk.launch_counts().items() if v}
-            single = stage2.train_ktgnn(bench, cfg, device="cuda")
-            traced = trace_phase(
-                "sharded_nccl_scan_trace", bench, cfg, window=1,
-                epochs=SCAN_CHUNK, trainer=(stage2, lambda: stage2.
-                                            train_ktgnn(bench, cfg, "cuda",
-                                                        group=group)))
+            for name, cfg in cfgs.items():
+                runs[name] = nccl_scan_run(bench, cfg, c, group, single,
+                                           name)
+            overlap = "sharded_nccl_scan_overlap"
+            runs[overlap]["replay"] = nccl_step_replay(
+                bench, cfgs[overlap], c, group)
             torch.cuda.empty_cache()
             fk.reset_launch_counts()
             s1res = ts1.train_adversarial(src, tar, s1cfg, device="cuda",
@@ -4678,32 +4785,9 @@ def nccl28_phase(bench, c: int, s1_data, card: str) -> dict:
                                               device="cuda")
         finally:
             dist.destroy_process_group()
-    info, want = res["scan"], sharded_want(cfg, c)
-    if (info["capture"], info["captures"], info["eager_epochs"],
-            info["replays"]) != ("nccl", 1, stage2.WARMUP_EPOCHS,
-                                 NCCL28_EPOCHS - stage2.WARMUP_EPOCHS):
-        raise RuntimeError(f"nccl scan: {info}")
-    if info["launches_per_replay"] != want:
-        raise RuntimeError(f"nccl scan: a replay launches "
-                           f"{info['launches_per_replay']}, not {want}")
-    counted_want = {k: {d: (info["eager_epochs"] + 1) * n
-                        for d, n in v.items()} for k, v in want.items()}
-    if counted != counted_want:
-        raise RuntimeError(f"nccl scan: the wrappers counted {counted}, "
-                           f"not {counted_want}")
-    for key in ("loss", "loss_t2"):
-        _same_losses(f"nccl scan {key}", [h[key] for h in res["history"]],
-                     [h[key] for h in single["history"]])
-    if res["best"]["epoch"] != single["best"]["epoch"]:
-        raise RuntimeError(f"nccl scan: best epoch {res['best']['epoch']} "
-                           f"against {single['best']['epoch']}")
-    if traced["hand_kernel_launches"] != sum(
-            sum(v.values()) for v in want.values()):
-        raise RuntimeError(f"nccl scan: the traced chunk shows "
-                           f"{traced['hand_kernel_launches']} launches an "
-                           "epoch")
-    if not traced["collective_work"]:
-        raise RuntimeError("nccl scan: the trace holds no collective range")
+    if [r["halo_overlap"] for r in runs.values()] != [False, True]:
+        raise RuntimeError("nccl scan: the cases ran "
+                           f"{[r['halo_overlap'] for r in runs.values()]}")
     s1info = s1res["scan"]
     if (s1info["capture"], s1info["captures"]) != ("nccl", 1):
         raise RuntimeError(f"nccl stage-1 scan: {s1info}")
@@ -4712,13 +4796,7 @@ def nccl28_phase(bench, c: int, s1_data, card: str) -> dict:
                      [h[key] for h in s1res["history"]],
                      [h[key] for h in s1_single["history"]])
     out = dict(
-        phase="sharded_nccl_scan", backend="nccl", epochs=NCCL28_EPOCHS,
-        chunk=SCAN_CHUNK, **info, run_s=run_s,
-        epoch_ms_median=1e3 * res["throughput"]["p50_s"],
-        single_epoch_ms_median=1e3 * single["throughput"]["p50_s"],
-        losses=[h["loss"] for h in res["history"]],
-        single_device_losses=[h["loss"] for h in single["history"]],
-        best_epoch=res["best"]["epoch"], launches=counted, trace=traced,
+        runs["sharded_nccl_scan"],
         stage1=dict(scan={k: v for k, v in s1info.items()},
                     launches=s1_counted,
                     losses=[h["loss"] for h in s1res["history"]],
@@ -4728,6 +4806,8 @@ def nccl28_phase(bench, c: int, s1_data, card: str) -> dict:
                     single_epoch_ms_median=1e3
                     * s1_single["throughput"]["p50_s"]))
     log(json.dumps(dict(card=card, **out)))
+    out["overlap"] = runs[overlap]
+    log(json.dumps(dict(card=card, **runs[overlap])))
     return out
 
 
@@ -4802,8 +4882,8 @@ def rest_phase(bench, c: int, s1, bridge, card: str) -> dict:
     """Phase 28: (a) sharded scan mode, (c) row-sharded stage 1 and (d)
     the sharded bridge top-k on SHARDED_RANKS gloo ranks sharing cuda:0,
     spawned once, each against this process's single-device run; (b)
-    the 1-rank NCCL group's captured scan and stage-1 scan; (e) the
-    pipeline's elastic retry."""
+    the 1-rank NCCL group's captured scans (halo and overlap) and
+    stage-1 scan; (e) the pipeline's elastic retry."""
     import torch
 
     from bridged_gnn_tpu_torch.parallel.multihost import spawn
@@ -4907,12 +4987,14 @@ def rest_phase(bench, c: int, s1, bridge, card: str) -> dict:
 def rest_rows(kernels, rest) -> None:
     """Phase 28's launches join the f32 rows' counts: the sharded scan
     runs' (both ranks of each case and the NCCL rank's eager epochs and
-    capture), ``launches_sharded_scan_by_d``; the row-sharded stage-1
-    runs' (both ranks and the NCCL rank), ``launches_stage1_sharded_by_d``
-    on gather_reduce."""
+    capture, halo and overlap), ``launches_sharded_scan_by_d``; the
+    row-sharded stage-1 runs' (both ranks and the NCCL rank),
+    ``launches_stage1_sharded_by_d`` on gather_reduce. The NCCL overlap
+    step's replayed calls join gather_reduce's row."""
     scan_runs = [r[f"rank{i}"]["launches_by_d"]
                  for r in rest["scan"].values()
-                 for i in range(SHARDED_RANKS)] + [rest["nccl"]["launches"]]
+                 for i in range(SHARDED_RANKS)] + [
+        rest["nccl"]["launches"], rest["nccl"]["overlap"]["launches"]]
     stage1_runs = [rest["stage1"][f"rank{i}"]["launches"]
                    for i in range(SHARDED_RANKS)] + [
         rest["nccl"]["stage1"]["launches"]]
@@ -4928,6 +5010,9 @@ def rest_rows(kernels, rest) -> None:
             if by_d:
                 row[key] = by_d
                 row["launches"] += sum(by_d.values())
+        replay = rest["nccl"]["overlap"]["replay"].get(row["name"])
+        if replay:
+            row["sharded_nccl_overlap_replay"] = replay
 
 
 def main() -> int:

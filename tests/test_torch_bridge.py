@@ -289,11 +289,10 @@ def test_stage1_cli_runs_scan_options(tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags,item", [(["--n_shards", "2"], "item 9")])
-def test_stage1_cli_refuses_unported_options(tmp_path, flags, item):
-    """``--n_shards 2``, refused until ROADMAP Queue 1 ``item`` brought
-    it, trains: the CLI starts two gloo ranks for stage 1 (v1, rows
-    sharded), then builds and saves the bridged graph from rank 0's best
-    weights."""
+def test_stage1_cli_trains_with_n_shards(tmp_path, flags, item):
+    """``--n_shards 2`` (ROADMAP Queue 1 ``item``) trains: the CLI
+    starts two gloo ranks for stage 1 (v1, rows sharded), then builds
+    and saves the bridged graph from rank 0's best weights."""
     args = s1cli.build_argparser().parse_args(
         ["--dataset_name", "sync_unrelational", "--device", "cpu",
          "--k_within", "2", "--k_cross", "4", "--num_epoch", "2",

@@ -1554,25 +1554,29 @@ def _nccl_group():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["halo", "edgeshard"])
+@pytest.mark.parametrize("layout", ["halo", "edgeshard", "overlap"])
 def test_cuda_nccl_sharded_scan_captures(rng, layout):
     """Sharded scan mode over a 1-rank NCCL group
     (``train_ktgnn(group=...)``): the epoch, its collectives included, is
     captured once after the warm-up epochs and replayed; the losses are
     the single-device scan run's at rtol 1e-4 and the best epoch is
-    its."""
+    its. ``overlap``: the halo layout's overlap form, whose exchange is
+    still in flight while the local partials are captured."""
     dev = _need_cuda()
     from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
 
     data = _scan_data(rng, "blocked")
-    cfg = _scan_cfg(dropout=0.0, n_shards=1, shard_layout=layout)
+    kw = (dict(shard_layout="halo", halo_overlap=True)
+          if layout == "overlap" else dict(shard_layout=layout))
+    cfg = _scan_cfg(dropout=0.0, n_shards=1, **kw)
     single = train_ktgnn(data, cfg, device=dev)
     with _nccl_group() as group:
         got = train_ktgnn(data, cfg, device=dev, group=group)
     info = got["scan"]
     assert (info["capture"], info["captures"], info["eager_epochs"],
             info["replays"]) == ("nccl", 1, WARMUP_EPOCHS, 9 - WARMUP_EPOCHS)
-    assert got["parallel"]["layout"] == layout
+    assert got["parallel"]["layout"] == kw["shard_layout"]
+    assert got["parallel"].get("overlap", False) == (layout == "overlap")
     for a, b in zip(got["history"], single["history"], strict=True):
         for key in ("loss", "loss_t2"):
             assert abs(a[key] - b[key]) <= 1e-4 * abs(b[key]), a

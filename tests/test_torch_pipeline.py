@@ -274,14 +274,13 @@ def test_pipeline_cli_on_a_config_file(tmp_path):
     assert (tmp_path / "sync_relational-intra_bridged_graph.npz").exists()
 
 
-def test_pipeline_waits_for_item_9_and_defaults_to_the_card(monkeypatch,
-                                                            tmp_path):
-    """Elastic retries and the mesh, refused until ROADMAP Queue 1 item 9
-    brought them, run: ``--elastic`` on the pipeline CLI trains both
-    stages under ``run_elastic`` (``tests/test_torch_elastic.py`` holds
-    a retried run and ``mesh=`` over two ranks against the straight
-    run); without a card the pipeline raises rather than run on the
-    CPU."""
+def test_pipeline_elastic_runs_and_defaults_to_the_card(monkeypatch,
+                                                         tmp_path):
+    """Elastic retries and the mesh run: ``--elastic`` on the pipeline
+    CLI trains both stages under ``run_elastic``
+    (``tests/test_torch_elastic.py`` holds a retried run and ``mesh=``
+    over two ranks against the straight run); without a card the
+    pipeline raises rather than run on the CPU."""
     cfg = _tiny()
     path = tmp_path / "cfg.json"
     path.write_text(cfg.to_json())

@@ -4,17 +4,18 @@ of two CPU ranks, started once for the module
 
 * one train step of each sharded backend — KTGNN on the halo layout, its
   overlap form, a smaller slot block, with the embedding conv recomputed
-  in the backward (``memory_policy="lean"``) and on the edge-shard
-  layout, and
-  KTGNN_noDTC on the halo layout — against the single-device step:
-  loss, every parameter's gradient and the BN statistics at rtol 1e-5,
-  atol 1e-6;
+  in the backward (``memory_policy="lean"``, with and without
+  ``halo_overlap``: lean runs the plain halo form, as in JAX) and on the
+  edge-shard layout, and KTGNN_noDTC on the halo layout — against the
+  single-device step: loss, every parameter's gradient and the BN
+  statistics at rtol 1e-5, atol 1e-6;
 * three epochs of ``train_ktgnn(n_shards=2)`` — KTGNN on the halo
   layout, its overlap form and the edge-shard layout, KTGNN_noDTC on the
-  halo layout — and six of KTGNN on the halo layout in scan mode
-  (``scan_epochs=3``) against the JAX package's ``n_shards=2`` run of the
-  same layout on the CPU mesh of ``tests/conftest.py``, from the port's
-  seeded init: losses at rtol 1e-4, the same best epoch;
+  halo layout — and six of KTGNN on the halo layout and in its overlap
+  form in scan mode (``scan_epochs=3``) against the JAX package's
+  ``n_shards=2`` run of the same layout on the CPU mesh of
+  ``tests/conftest.py``, from the port's seeded init: losses at rtol
+  1e-4, the same best epoch;
 * parameters and BN statistics bit-identical on both ranks;
 * the edge-shard SpMM against one segment sum;
 * the training CLI with ``--n_shards 2``, starting its own two ranks or
@@ -62,6 +63,7 @@ STEP_CASES = dict(
     overlap=dict(BASE, halo_overlap=True),
     halo_block32=dict(BASE, halo_node_block=32),
     halo_lean=dict(BASE, memory_policy="lean"),
+    overlap_lean=dict(BASE, halo_overlap=True, memory_policy="lean"),
     edgeshard=dict(BASE, shard_layout="edgeshard"),
     nodtc_halo=dict(BASE, model_name="KTGNN_noDTC"),
 )
@@ -72,6 +74,7 @@ TRAIN_CASES = dict(
     edgeshard=dict(TRAIN, shard_layout="edgeshard"),
     nodtc_halo=dict(TRAIN, model_name="KTGNN_noDTC"),
     halo_scan=dict(TRAIN, num_epoch=6, scan_epochs=3),
+    overlap_scan=dict(TRAIN, num_epoch=6, scan_epochs=3, halo_overlap=True),
 )
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -149,11 +152,30 @@ def test_sharded_step_matches_single_device(ranks, case):
         assert info["layout"] == STEP_CASES[case].get("shard_layout",
                                                       "halo")
         if info["layout"] == "halo":
-            assert info["overlap"] == STEP_CASES[case].get("halo_overlap",
-                                                           False)
+            kw = STEP_CASES[case]
+            # lean recomputes the convs, and then JAX runs the plain form
+            assert info["overlap"] == (kw.get("halo_overlap", False)
+                                       and kw.get("memory_policy") != "lean")
             # forward and backward exchange of every conv, no staging
             assert info["exchange"]["calls"] > 0
             assert not info["exchange"]["staged"]
+
+
+def test_lean_overlap_runs_the_plain_halo_form(ranks):
+    """``halo_overlap`` with ``memory_policy="lean"``: JAX takes the
+    overlap form only without recompute-backward (its ``nn/ktgnn.py``
+    rule), so the step exchanges and calls the kernels as the plain halo
+    form under lean does (the concatenated attention pair and the
+    sender reduce, no SpMM); the overlap form without lean calls the
+    SpMM alone."""
+    for out in ranks:
+        lean, plain = out["overlap_lean"], out["halo_lean"]
+        assert lean["info"]["exchange"]["calls"] == \
+            plain["info"]["exchange"]["calls"] > 0
+        assert lean["kernel_calls"] == plain["kernel_calls"]
+        assert set(lean["kernel_calls"]) == {"attention_fwd",
+                                             "attention_bwd", "slot_reduce"}
+        assert set(out["overlap"]["kernel_calls"]) == {"gather_reduce"}
 
 
 def test_replicated_state_identical_across_ranks(ranks):

@@ -2,10 +2,11 @@
 scan_epochs=3)``) on one gloo group of two CPU ranks, started once for
 the module (``tests/torch_multidevice_worker.py::scan_rank_work``):
 
-* KTGNN on the halo layout and on the edge-shard layout, and KTGNN_noDTC
-  on the halo layout, 6 epochs in chunks of 3, against the port's
-  sharded loop run of the same case: losses at rtol 1e-4, the same best
-  epoch and scores, the same final state; every epoch eager under gloo
+* KTGNN on the halo layout, in its overlap form and on the edge-shard
+  layout, and KTGNN_noDTC on the halo layout, 6 epochs in chunks of 3,
+  against the port's sharded loop run of the same case: losses at rtol
+  1e-4, the same best epoch and scores, the same final state; every
+  epoch eager under gloo
   (``scan["capture"]`` is ``"none (gloo)"``, no capture);
 * a run cut at its first chunk's end and resumed from that checkpoint
   against the straight run (JAX ``tests/test_stage2_sharded.py``'s
@@ -15,8 +16,9 @@ the module (``tests/torch_multidevice_worker.py::scan_rank_work``):
   single device's scan run;
 * both ranks' results bit-identical.
 
-The JAX package's ``n_shards=2, scan_epochs=3`` run is held against the
-port's in ``tests/test_torch_sharded.py`` (its ``halo_scan`` case).
+The JAX package's ``n_shards=2, scan_epochs=3`` runs are held against
+the port's in ``tests/test_torch_sharded.py`` (its ``halo_scan`` and
+``overlap_scan`` cases).
 Dropout is 0 throughout."""
 
 import numpy as np
@@ -33,6 +35,7 @@ CASES = dict(
     halo=dict(BASE),
     edgeshard=dict(BASE, shard_layout="edgeshard"),
     nodtc_halo=dict(BASE, model_name="KTGNN_noDTC"),
+    overlap=dict(BASE, halo_overlap=True),
 )
 RESUME = dict(BASE, dropout=0.5, step_size=4)
 

@@ -571,12 +571,11 @@ def test_evaluator_encodes_once_as_per_chunk(no_dropout):
 
 
 @pytest.mark.parametrize("field,value,item", [("n_shards", 2, "item 9")])
-def test_unported_stage1_options_raise(field, value, item):
-    """Row sharding, refused until ROADMAP Queue 1 ``item`` brought it,
-    trains: two gloo ranks the trainer starts itself, v1 for 4 epochs
-    with its evaluations, finite losses
-    (``tests/test_torch_stage1_sharded.py`` holds it against one device
-    and JAX)."""
+def test_stage1_n_shards_option_trains(field, value, item):
+    """Row sharding (ROADMAP Queue 1 ``item``) trains: two gloo ranks
+    the trainer starts itself, v1 for 4 epochs with its evaluations,
+    finite losses (``tests/test_torch_stage1_sharded.py`` holds it
+    against one device and JAX)."""
     src, tar = domains()
     cfg = _cfg("gnn", "cosine", **{field: value})
     res = ts1.train_adversarial(src, tar, cfg, device="cpu")

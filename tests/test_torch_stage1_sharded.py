@@ -17,7 +17,7 @@ stage1_rank_work``):
   loop, and the sharded loop against the single device's;
 * both ranks alike; ``device_sampling`` refused with JAX's ``ValueError``;
   the stage-1 CLI with ``--n_shards 2`` is
-  ``tests/test_torch_bridge.py::test_stage1_cli_refuses_unported_options``;
+  ``tests/test_torch_bridge.py::test_stage1_cli_trains_with_n_shards``;
 * ``repad_graph_nodes`` changes no aggregation (JAX's check); the
   gather and dense adjacencies refuse a sender count they would ignore.
 """

@@ -284,12 +284,12 @@ def test_dropout_draws_from_the_generator():
     dict(model_name="GCN", need_complement=True),
     dict(adjacency_method="dense"),
 ], ids=lambda o: "-".join(f"{k}-{v}" for k, v in o.items()))
-def test_unported_options_raise(overrides):
-    """``memory_policy="xla_plain"`` raises NotImplementedError naming its
-    ROADMAP.md item. The other options of this list were refused until
-    the port ran them: ``need_complement``, the dense and gather
-    adjacencies and ``n_shards=4`` (four ranks the trainer starts itself)
-    train (finite losses), and the rest refuse as the JAX runtime does,
+def test_options_run_or_refuse_as_jax(overrides):
+    """``memory_policy="xla_plain"`` raises NotImplementedError naming
+    ROADMAP.md Queue 1's "left out by design". Of the other options,
+    ``need_complement``, the dense and gather adjacencies and
+    ``n_shards=4`` (four ranks the trainer starts itself) train (finite
+    losses), and the rest refuse as the JAX runtime does,
     ConvNet without pseudo-coordinates with its ValueError and the
     complementor on GCN with a TypeError."""
     cfg = _train_cfg(**overrides)
@@ -303,7 +303,8 @@ def test_unported_options_raise(overrides):
         res = train_ktgnn(_data("sync"), cfg, device="cpu")
         assert np.all(np.isfinite([h["loss"] for h in res["history"]]))
         return
-    exc, match = refused.get(key, (NotImplementedError, "ROADMAP.md"))
+    exc, match = refused.get(key, (NotImplementedError,
+                                   "ROADMAP.md Queue 1, \"left out by"))
     with pytest.raises(exc, match=match):
         train_ktgnn(_data("sync"), cfg, device="cpu")
 
@@ -346,14 +347,14 @@ def test_cli_trains_on_npz(cli_run, capsys):
     assert len(res["history"]) == 5 and ckpt.is_file()
 
 
-def test_cli_refuses_what_is_not_ported(cli_run, tmp_path):
-    """``--memory_policy xla_plain`` raises. Sharded scan mode, refused
-    until the port ran it, trains through the CLI: two gloo ranks it
-    starts itself, every epoch eager (tests/test_torch_sharded_scan.py
-    holds it against the loop)."""
+def test_cli_refuses_xla_plain_and_trains_sharded_scan(cli_run, tmp_path):
+    """``--memory_policy xla_plain`` raises. Sharded scan mode trains
+    through the CLI: two gloo ranks it starts itself, every epoch eager
+    (tests/test_torch_sharded_scan.py holds it against the loop)."""
     _, npz, _, argv = cli_run
     ap = tcli2.build_argparser()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1, \"left out by"):
         tcli2.main(ap.parse_args(argv[:-2] + ["--device", "cpu",
                                               "--memory_policy",
                                               "xla_plain"]))

@@ -3,6 +3,8 @@
 light. Each function runs on every rank of one gloo group and returns
 numpy arrays and numbers."""
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
@@ -25,9 +27,36 @@ def step_state(model, loss, aux):
         buffers={n: b.numpy().copy() for n, b in model.named_buffers()})
 
 
+@contextlib.contextmanager
+def kernel_calls():
+    """Calls of each kernel wrapper inside the block, by wrapper and
+    width: on CPU tensors a wrapper runs its plain version in place of
+    the launch, so the plain versions count what a card would launch."""
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    counts, saved = {}, {}
+    for fn in fk.KERNEL_WRAPPERS:
+        name = f"{fn.__name__}_plain"
+        saved[name] = plain = getattr(fk, name)
+
+        def counting(*args, _wrapper=fn.__name__, _plain=plain, **kw):
+            by_d = counts.setdefault(_wrapper, {})
+            d = args[1].shape[-1]
+            by_d[d] = by_d.get(d, 0) + 1
+            return _plain(*args, **kw)
+
+        setattr(fk, name, counting)
+    try:
+        yield counts
+    finally:
+        for name, plain in saved.items():
+            setattr(fk, name, plain)
+
+
 def sharded_step(data, kw):
     """One train step of the sharded backend ``kw`` names (an optimizer
-    of rate 0 leaves the weights; the gradients stay on them)."""
+    of rate 0 leaves the weights; the gradients stay on them) and its
+    kernel calls (:func:`kernel_calls`)."""
     cfg = Stage2Config(**kw)
     g, _ = prepare_stage2_graph(data, cfg, "cpu", build_adj=False)
     model = build_model(cfg, g.num_classes, g.num_features, "cpu",
@@ -35,8 +64,10 @@ def sharded_step(data, kw):
     backend = make_stage2_backend(dist.group.WORLD, "cpu", model, g, cfg,
                                   g.num_classes)
     opt = torch.optim.SGD(model.parameters(), lr=0.0)
-    loss, aux = backend.train_step(opt, None)
-    return dict(step_state(model, loss, aux), info=backend.info())
+    with kernel_calls() as calls:
+        loss, aux = backend.train_step(opt, None)
+    return dict(step_state(model, loss, aux), info=backend.info(),
+                kernel_calls=calls)
 
 
 def edge_spmm(data, kw):
