@@ -1,0 +1,10 @@
+"""Scan mode's capture of an epoch in a CUDA graph (the port's
+``stage2.capture`` range: the synchronize before it and the capture), ms
+a traced run."""
+
+from lib import spans
+
+
+def read(ctx):
+    s = spans.mean_per_root("stage2.train", "stage2.capture")
+    return None if s is None else 1e3 * s

@@ -41,6 +41,7 @@ from bridged_gnn_tpu_torch.ops.sddmm import (
 )
 from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph
 from bridged_gnn_tpu_torch.train.stage2 import to_undirected_np
+from bridged_gnn_tpu_torch.utils.profiling import annotate
 from bridged_gnn_tpu_torch.utils.platform import (
     check_matmul_precision,
     matmul_precision,
@@ -90,19 +91,33 @@ class KTGNNPredictor:
         self.model = model.to(self.device).eval()
 
     def _forward(self, g: Graph) -> Dict[str, np.ndarray]:
+        """The heads' log-probabilities over ``g``: the forward and the
+        heads' stack launched, and the host array they go to allocated
+        while the card works (range ``serve.forward``); the host waiting
+        for the card (``serve.wait``); one copy of all three heads to the
+        host (``serve.copy``, with its ``bytes``)."""
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
-            outs = self.model(g, self.adj)
-            lp_s, lp_t, lp_that = (outs[:3] if isinstance(outs, tuple)
-                                   else (outs,) * 3)
-            n = g.num_nodes
-            # one host transfer for all three heads
-            both = torch.stack([lp_s[:n], lp_t[:n], lp_that[:n]]).cpu()
-        lp = both.numpy()
+            with annotate("serve.forward"):
+                outs = self.model(g, self.adj)
+                lp_s, lp_t, lp_that = (outs[:3] if isinstance(outs, tuple)
+                                       else (outs,) * 3)
+                n = g.num_nodes
+                both = torch.stack([lp_s[:n], lp_t[:n], lp_that[:n]])
+                lp = torch.empty(both.shape, dtype=both.dtype)
+            with annotate("serve.wait"):
+                # the copy then starts with nothing else in flight
+                if both.is_cuda:
+                    torch.cuda.current_stream(both.device).synchronize()
+            with annotate("serve.copy", bytes=lp.numel() * lp.element_size()):
+                lp.copy_(both)
+        lp = lp.numpy()
         return dict(source=lp[0], target=lp[1], target_hat=lp[2])
 
     def predict(self) -> Dict[str, np.ndarray]:
-        """Per-node log-probabilities from each head (real nodes only)."""
-        return self._forward(self.graph)
+        """Per-node log-probabilities from each head (real nodes only);
+        under ``torch.profiler`` one range, ``serve.predict``."""
+        with annotate("serve.predict"):
+            return self._forward(self.graph)
 
     def _graph_with_features(self, x: Optional[np.ndarray],
                              nodes: Optional[np.ndarray] = None) -> Graph:
@@ -146,9 +161,17 @@ class KTGNNPredictor:
 
         ``x`` alone: full [N, D] feature replacement for this call.
         ``x`` + ``nodes``: partial row update of the stored features.
-        Neither: re-run on the stored graph."""
-        g = self.graph if x is None else self._graph_with_features(x, nodes)
-        return self._forward(g)
+        Neither: re-run on the stored graph.
+
+        Under ``torch.profiler`` the call is one range, ``serve.predict``,
+        holding the feature update (``serve.update``) and
+        :meth:`_forward`'s."""
+        with annotate("serve.predict"):
+            g = self.graph
+            if x is not None:
+                with annotate("serve.update"):
+                    g = self._graph_with_features(x, nodes)
+            return self._forward(g)
 
     def update_features(self, x: np.ndarray,
                         nodes: Optional[np.ndarray] = None) -> None:

@@ -93,7 +93,7 @@ from bridged_gnn_tpu_torch.utils.platform import (
     matmul_precision,
     resolve_device,
 )
-from bridged_gnn_tpu_torch.utils.profiling import EpochTimer
+from bridged_gnn_tpu_torch.utils.profiling import EpochTimer, annotate
 from bridged_gnn_tpu_torch.utils.sanitizers import assert_all_finite
 
 
@@ -276,22 +276,24 @@ def prepare_stage2_graph(
     tiers. ``build_adj=False`` gives None in its place (the sharded
     backends build their own layouts)."""
     dev = resolve_device(device)
-    data = dict(data)
-    # reference quirk kept: unlabeled nodes can never be train
-    # (main_graph_knowledge_transfer.py:404)
-    data["train_mask"] = np.asarray(data["train_mask"]).copy()
-    data["train_mask"][np.asarray(data["y"]) == -1] = False
-    if cfg.to_undirected:
-        data = to_undirected_np(data)
-    g = graph_from_dict(data)
-    if cfg.model_name in SELF_LOOP_MODELS:
-        g = with_self_loops(g)
-    g = g.to(dev)
+    with annotate("stage2.graph"):
+        data = dict(data)
+        # reference quirk kept: unlabeled nodes can never be train
+        # (main_graph_knowledge_transfer.py:404)
+        data["train_mask"] = np.asarray(data["train_mask"]).copy()
+        data["train_mask"][np.asarray(data["y"]) == -1] = False
+        if cfg.to_undirected:
+            data = to_undirected_np(data)
+        g = graph_from_dict(data)
+        if cfg.model_name in SELF_LOOP_MODELS:
+            g = with_self_loops(g)
+        g = g.to(dev)
     if not build_adj:
         return g, None
-    adj = adjacency_from_graph(
-        g, method=cfg.adjacency_method,
-        node_block=128 if _ktgnn_family(cfg) else 256, device=dev)
+    with annotate("stage2.layout"):
+        adj = adjacency_from_graph(
+            g, method=cfg.adjacency_method,
+            node_block=128 if _ktgnn_family(cfg) else 256, device=dev)
     return g, adj
 
 
@@ -675,7 +677,13 @@ def train_ktgnn(
 
     ``group``: a process group this rank is in, of ``cfg.n_shards``
     ranks, to train the sharded backends over in place of the default
-    group; with it a group of one rank (``n_shards=1``) runs them too."""
+    group; with it a group of one rank (``n_shards=1``) runs them too.
+
+    Under ``torch.profiler`` (the CLI's ``--profile_dir``) the run is one
+    range, ``stage2.train``, holding the graph's build (``stage2.graph``),
+    its layouts (``stage2.layout``) and in scan mode the capture
+    (``stage2.capture``) and each chunk's host scoring
+    (``stage2.score``); see ``utils/profiling.annotate``."""
     cfg = cfg or Stage2Config()
     check_ported(cfg)
     if group is not None:
@@ -688,7 +696,7 @@ def train_ktgnn(
             return multihost.spawn(train_ktgnn, cfg.n_shards,
                                    (data, cfg, device),
                                    torch.device(device).type)[0]
-    with matmul_precision(cfg.matmul_precision):
+    with annotate("stage2.train"), matmul_precision(cfg.matmul_precision):
         return _train_ktgnn(data, cfg, device, group)
 
 
@@ -826,7 +834,7 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
         ))
 
     t_start = time.time()
-    timer = EpochTimer(dev, num_edges=g.num_edges)
+    timer = EpochTimer(dev)
     scan_info = None
     if use_scan:
         run = _scan_run(model, g, adj, inputs, opt, gen, cfg, lr,
@@ -885,7 +893,8 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
 
 def run_scan(segments, body, generators, i: torch.Tensor,
              timer: EpochTimer, fetch, after, load=None,
-             capture: Optional[bool] = None) -> dict:
+             capture: Optional[bool] = None,
+             spans: Optional[str] = None) -> dict:
     """The segment loop of both trainers' scan modes. For each segment
     ``(first, last)`` of k epochs, timed as one ``timer.chunk(k)``: the
     segment's inputs (``load(k)``), the record row counter ``i`` zeroed,
@@ -899,7 +908,11 @@ def run_scan(segments, body, generators, i: torch.Tensor,
     replay of that graph. Without it (the CPU, or a sharded run over
     gloo) every epoch runs eagerly. A failed capture raises. Returns the
     eager epochs, the captures, the replays and each replay's kernel
-    launches."""
+    launches.
+
+    ``spans``: a name under which a profiler sees the capture
+    (``<spans>.capture``) and each ``after`` (``<spans>.score``) as
+    ranges of their own; None for no ranges."""
     dev = i.device
     on_card = dev.type == "cuda" if capture is None else capture
     stream = capture_stream(dev) if on_card else None
@@ -927,10 +940,11 @@ def run_scan(segments, body, generators, i: torch.Tensor,
                         eager += 1
                         continue
                     if graph is None:
-                        # nothing in flight when the capture starts
-                        torch.cuda.synchronize(dev)
-                        graph, per_replay = capture_epoch(
-                            body, generators, stream)
+                        with _span(spans, "capture"):
+                            # nothing in flight when the capture starts
+                            torch.cuda.synchronize(dev)
+                            graph, per_replay = capture_epoch(
+                                body, generators, stream)
                         captured = True
                     graph.replay()
                     replays += 1
@@ -940,11 +954,17 @@ def run_scan(segments, body, generators, i: torch.Tensor,
                 # the first segment, and on the card the warm-up epochs
                 # and the capture, stay out of the steady statistics
                 timer.warmup = len(timer.times)
-            after(first, last, fetched)
+            with _span(spans, "score"):
+                after(first, last, fetched)
     if stream is not None:
         torch.cuda.current_stream(dev).wait_stream(stream)
     return dict(eager_epochs=eager, captures=int(graph is not None),
                 replays=replays, launches_per_replay=per_replay)
+
+
+def _span(prefix: Optional[str], name: str):
+    return (contextlib.nullcontext() if prefix is None
+            else annotate(f"{prefix}.{name}"))
 
 
 def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
@@ -974,4 +994,4 @@ def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
                 for e in range(start_epoch, cfg.num_epoch + 1,
                                cfg.scan_epochs)]
     return run_scan(segments, lambda: _epoch_body(run), (run.gen,), run.i,
-                    timer, fetch, after, capture=capture)
+                    timer, fetch, after, capture=capture, spans="stage2")

@@ -2,6 +2,10 @@
 ``bridged_gnn_tpu/utils/profiling.py``: ``trace``, ``annotate`` and
 ``StepTimer``).
 
+While a profiler runs, ``annotate``'s ranges also go to an in-memory log
+(``recorded``): the trainer's and the predictor's named host layers, on
+the host clock, each under its run or request.
+
 Card work runs asynchronously, so the timer synchronizes the device
 before it reads the clock at both ends of a step: a step's time is the
 host clock around work that has finished on the card.
@@ -10,6 +14,7 @@ host clock around work that has finished on the card.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from typing import Dict, Iterator, List, Optional
@@ -34,14 +39,76 @@ def trace(log_dir: str, device="cpu") -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range around the block in a ``torch.profiler`` trace
-    (``record_function``; JAX ``TraceAnnotation``): a row of its own in
-    ``key_averages()`` and a span in the Chrome trace. Outside a profiler
-    it costs one small host object."""
-    with torch.profiler.record_function(name):
-        yield
+@dataclasses.dataclass
+class Span:
+    """One :func:`annotate` range: its name, its host clock
+    (``time.perf_counter_ns``) at entry and exit, the index in the log of
+    the range it opened inside (None at a root) and of its root, and the
+    counts passed in."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    root: int
+    counts: Dict[str, int]
+
+
+_LOG: List[Span] = []
+_OPEN: List[int] = []   # indices of the ranges open now, innermost last
+_OFF = contextlib.nullcontext()
+
+
+class _Range:
+    __slots__ = ("name", "counts", "_rf")
+
+    def __init__(self, name: str, counts: Dict[str, int]):
+        self.name, self.counts = name, counts
+
+    def __enter__(self):
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        index = len(_LOG)
+        parent = _OPEN[-1] if _OPEN else None
+        root = index if parent is None else _LOG[parent].root
+        _LOG.append(Span(self.name, time.perf_counter_ns(), 0, parent, root,
+                         self.counts))
+        _OPEN.append(index)
+        return self
+
+    def __exit__(self, *exc):
+        _LOG[_OPEN.pop()].end_ns = time.perf_counter_ns()
+        self._rf.__exit__(*exc)
+        return False
+
+
+def annotate(name: str, **counts: int):
+    """A named range around the block while a ``torch.profiler`` runs on
+    this thread (``record_function``; JAX ``TraceAnnotation``), and with
+    no profiler nothing at all: no range, no clock read.
+
+    The range is a row of its own in ``key_averages()`` and a span in the
+    Chrome trace, on the profiler's clock beside the device's work, so an
+    idle stretch of the card lies inside the host work that held it up.
+    Each range is also kept in :func:`recorded`'s log, under the range it
+    opened inside, with the integer ``counts`` given (a copy's ``bytes``).
+    Ranges opened inside a CUDA graph's capture are the capture's; its
+    replays carry none."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return _Range(name, counts)
+
+
+def recorded() -> List[Span]:
+    """The ranges :func:`annotate` has kept since the last
+    :func:`clear_recorded`, in the order they opened; a root's index is
+    shared by every range inside it (one training run, one request)."""
+    return list(_LOG)
+
+
+def clear_recorded() -> None:
+    """Empty the log (with no range open)."""
+    _LOG.clear()
 
 
 COLLECTIVE = "collective:"
@@ -63,10 +130,8 @@ class EpochTimer:
     ``with timer:`` times one epoch; ``with timer.chunk(k):`` times k
     epochs run as one unit and records a k-th of it for each."""
 
-    def __init__(self, device: torch.device, num_edges: int = 0,
-                 warmup: int = 2):
+    def __init__(self, device: torch.device, warmup: int = 2):
         self.device = torch.device(device)
-        self.num_edges = num_edges
         self.warmup = warmup
         self.times: List[float] = []
         self._t0: Optional[float] = None
@@ -97,14 +162,9 @@ class EpochTimer:
 
     def summary(self) -> Dict[str, float]:
         s = self.steady
-        mean = float(s.mean()) if len(s) else float("nan")
-        out = dict(
-            mean_s=mean,
+        return dict(
+            mean_s=float(s.mean()) if len(s) else float("nan"),
             p50_s=float(np.percentile(s, 50)) if len(s) else float("nan"),
-            p95_s=float(np.percentile(s, 95)) if len(s) else float("nan"),
             steps=len(self.times),
             steady_steps=len(s),
         )
-        if self.num_edges and mean > 0:
-            out["edges_per_sec"] = self.num_edges / mean
-        return out
