@@ -10,7 +10,10 @@ attention call is one fused CUDA kernel launch per layout
 the graph's skew calls for them; a zoo model's SpMMs run the padded SpMM
 kernel on its ``node_block=256`` layout. ``"auto"`` resolves by
 ``ops/spmm.py::resolve_adjacency_method``; on a dense or gather
-adjacency the attention and the SpMMs are plain PyTorch.
+adjacency the attention and the SpMMs are plain PyTorch. The heads come
+back into resident host buffers of the predictor's ``HostPool``
+(page-locked on the card), each lent with its answer until the caller
+drops it.
 
 ``SimilarityScorer``: the online counterpart of the bridge build. The
 source corpus is encoded once and its columns projected through the
@@ -22,6 +25,8 @@ bridge's top-k (``ops/sddmm.py``: ``lax.top_k``'s tie order).
 
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -47,6 +52,68 @@ from bridged_gnn_tpu_torch.utils.platform import (
     matmul_precision,
     resolve_device,
 )
+
+# host buffers a predictor keeps for the heads, per shape and dtype
+POOL_BUFFERS = 8
+
+
+class _Lease:
+    """One answer's hold on a pooled host buffer. The answer's arrays are
+    numpy views whose ``base`` chain ends here, so the lease lives exactly
+    as long as the last of them."""
+
+    __slots__ = ("__array_interface__", "buffer", "__weakref__")
+
+    def __init__(self, buffer: torch.Tensor):
+        self.buffer = buffer
+        self.__array_interface__ = buffer.numpy().__array_interface__
+
+
+class HostPool:
+    """Resident host buffers that the heads are copied into, at most
+    :data:`POOL_BUFFERS` for each shape and dtype, page-locked when the
+    heads are on a card (``pin_memory``) and plain arrays otherwise.
+
+    A buffer is lent with the answer made of it and comes back only when
+    the caller has dropped every array of that answer, so a later request
+    never writes over an answer still held. With every buffer of a shape
+    lent, :meth:`take` gives None and the caller copies to a fresh array.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()   # a lease may end on any thread
+        self._free: Dict[tuple, list] = {}
+        self._made: Dict[tuple, int] = {}
+
+    def take(self, shape, dtype: torch.dtype, pin: bool
+             ) -> Optional[Tuple[torch.Tensor, np.ndarray]]:
+        """A free buffer of ``shape`` and ``dtype`` (made when fewer than
+        :data:`POOL_BUFFERS` are) and the numpy array lent over it; None
+        when every one is lent."""
+        key = (tuple(shape), dtype)
+        with self._lock:
+            free = self._free.setdefault(key, [])
+            if free:
+                buffer = free.pop()
+            elif self._made.get(key, 0) < POOL_BUFFERS:
+                self._made[key] = self._made.get(key, 0) + 1
+                buffer = None
+            else:
+                return None
+        if buffer is None:
+            buffer = torch.empty(shape, dtype=dtype, pin_memory=pin)
+        lease = _Lease(buffer)
+        weakref.finalize(lease, self._give_back, key, buffer)
+        return buffer, np.asarray(lease)
+
+    def _give_back(self, key: tuple, buffer: torch.Tensor) -> None:
+        with self._lock:
+            self._free[key].append(buffer)
+
+    def counts(self) -> Dict[tuple, Tuple[int, int]]:
+        """Per ``(shape, dtype)``: the buffers made and those free now."""
+        with self._lock:
+            return {k: (n, len(self._free[k])) for k, n in self._made.items()}
 
 
 class KTGNNPredictor:
@@ -89,13 +156,22 @@ class KTGNNPredictor:
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
+        self.host_pool = HostPool()
 
     def _forward(self, g: Graph) -> Dict[str, np.ndarray]:
         """The heads' log-probabilities over ``g``: the forward and the
-        heads' stack launched, and the host array they go to allocated
-        while the card works (range ``serve.forward``); the host waiting
-        for the card (``serve.wait``); one copy of all three heads to the
-        host (``serve.copy``, with its ``bytes``)."""
+        heads' stack launched, and a host buffer for them taken from
+        :attr:`host_pool` while the card works (range ``serve.forward``);
+        the host waiting for the card (``serve.wait``); one copy of all
+        three heads into the buffer (``serve.copy``, with its ``bytes`` and
+        ``pooled``: 1 when the buffer came from the pool).
+
+        The answer's three arrays are views of that buffer and are the
+        caller's: no later request writes into it while any of them is
+        held, and it goes back to the pool once all are dropped. The pool
+        keeps at most :data:`POOL_BUFFERS` buffers per heads' shape and
+        dtype (page-locked on a card); with every one held, the heads go
+        to a fresh pageable array instead, alike but slower to fill."""
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
             with annotate("serve.forward"):
                 outs = self.model(g, self.adj)
@@ -103,19 +179,27 @@ class KTGNNPredictor:
                                        else (outs,) * 3)
                 n = g.num_nodes
                 both = torch.stack([lp_s[:n], lp_t[:n], lp_that[:n]])
-                lp = torch.empty(both.shape, dtype=both.dtype)
+                lent = self.host_pool.take(both.shape, both.dtype,
+                                           both.is_cuda)
+                host, lp = lent or (torch.empty(both.shape, dtype=both.dtype),
+                                    None)
             with annotate("serve.wait"):
                 # the copy then starts with nothing else in flight
                 if both.is_cuda:
                     torch.cuda.current_stream(both.device).synchronize()
-            with annotate("serve.copy", bytes=lp.numel() * lp.element_size()):
-                lp.copy_(both)
-        lp = lp.numpy()
+            with annotate("serve.copy", bytes=host.numel() * host.element_size(),
+                          pooled=int(lent is not None)):
+                host.copy_(both)
+        if lp is None:
+            lp = host.numpy()
         return dict(source=lp[0], target=lp[1], target_hat=lp[2])
 
     def predict(self) -> Dict[str, np.ndarray]:
         """Per-node log-probabilities from each head (real nodes only);
-        under ``torch.profiler`` one range, ``serve.predict``."""
+        under ``torch.profiler`` one range, ``serve.predict``. The arrays
+        are the caller's until dropped (see :meth:`_forward`: their host
+        memory is then recycled, at most :data:`POOL_BUFFERS` buffers a
+        shape)."""
         with annotate("serve.predict"):
             return self._forward(self.graph)
 
@@ -165,7 +249,9 @@ class KTGNNPredictor:
 
         Under ``torch.profiler`` the call is one range, ``serve.predict``,
         holding the feature update (``serve.update``) and
-        :meth:`_forward`'s."""
+        :meth:`_forward`'s. The answer's arrays are the caller's until
+        dropped, then their pooled host memory is recycled (at most
+        :data:`POOL_BUFFERS` buffers a shape; see :meth:`_forward`)."""
         with annotate("serve.predict"):
             g = self.graph
             if x is not None:

@@ -259,6 +259,36 @@ def test_cuda_predictor_launches_kernels(rng, method):
         np.testing.assert_allclose(got[head], want[head], atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_cuda_served_heads_land_in_pinned_pool_buffers(rng):
+    """On the card the heads go to page-locked buffers of the predictor's
+    pool; an answer kept through later requests stays as it was, and
+    both match their CPU twins."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.serve import KTGNNPredictor
+    from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, build_model
+
+    data = skewed_data(rng, n=200, c=4, d=12)
+    nodes = rng.choice(200, size=5, replace=False)
+    rows = rng.normal(size=(5, 12)).astype(np.float32)
+    model = build_model(Stage2Config(hidden=16), 4, 12, device="cpu")
+    cpu = KTGNNPredictor(model, None, data, device="cpu")
+    want_live, want = cpu.predict_live(x=rows, nodes=nodes), cpu.predict()
+    card = KTGNNPredictor(model, None, data, device=dev)
+    kept = card.predict_live(x=rows, nodes=nodes)
+    frozen = {h: kept[h].copy() for h in kept}
+    later = [card.predict() for _ in range(3)]
+    owner = kept["target_hat"]
+    while isinstance(owner, np.ndarray):
+        owner = owner.base
+    assert owner.buffer.is_pinned()
+    assert list(card.host_pool.counts().values()) == [(4, 0)]
+    for head in want:
+        np.testing.assert_array_equal(kept[head], frozen[head])
+        np.testing.assert_allclose(kept[head], want_live[head], atol=1e-4)
+        np.testing.assert_allclose(later[-1][head], want[head], atol=1e-4)
+
+
 def _card_layouts(rng, dev):
     """A single layout with masked edges and empty rows, the hub layout
     (a 3000-slot destination row and a 2500-slot sender), and degree

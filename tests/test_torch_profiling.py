@@ -122,7 +122,8 @@ def test_each_request_is_a_root_and_the_copy_counts_its_bytes():
                            [p for p in parented if p[0] != "serve.update"]]
     n = data["x"].shape[0]
     copies = [s for s in log if s.name == "serve.copy"]
-    assert [s.counts for s in copies] == [dict(bytes=3 * n * CLASSES * 4)] * 3
+    assert [s.counts for s in copies] == \
+        [dict(bytes=3 * n * CLASSES * 4, pooled=1)] * 3
     assert all(s.counts == {} for s in log if s.name != "serve.copy")
     names = {e.key for e in prof.key_averages()}
     assert set(PREDICT_SPANS) <= names
