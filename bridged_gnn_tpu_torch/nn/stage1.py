@@ -31,6 +31,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from bridged_gnn_tpu_torch.nn.common import (
@@ -47,6 +48,14 @@ from bridged_gnn_tpu_torch.nn.common import (
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency, spmm
 
 Tensor = torch.Tensor
+
+
+def rows(table: Tensor, idx: Tensor) -> Tensor:
+    """``table[idx]``: the rows of an ``[N, D]`` table at int64 ids, as an
+    embedding lookup, whose backward sums each row's cotangents in a fixed
+    order. Advanced indexing's backward adds them with atomics on the CPU,
+    so two runs of one seed could part in the last bit there."""
+    return F.embedding(idx, table)
 
 
 def cosine_similarity(a: Tensor, b: Tensor, eps: float = 1e-8) -> Tensor:
@@ -176,21 +185,22 @@ class SimilarV2(nn.Module):
     def similarity(self, x: Tensor, idx1: Tensor, idx2: Tensor) -> Tensor:
         if self.mode == "cosine":
             z = self.embed_cosine(x)
-            alpha = cosine_similarity(self.biasatt(z[idx1]),
-                                      self.biasatt(z[idx2]))
+            alpha = cosine_similarity(self.biasatt(rows(z, idx1)),
+                                      self.biasatt(rows(z, idx2)))
         else:
-            alpha = self.pair_mlp(torch.cat([x[idx1], x[idx2]], 1))[:, 0]
+            alpha = self.pair_mlp(torch.cat([rows(x, idx1), rows(x, idx2)],
+                                            1))[:, 0]
         return torch.sigmoid(alpha)
 
     def similarity_cross_domain(self, x_src: Tensor, x_tar: Tensor,
                                 idx1: Tensor, idx2: Tensor) -> Tensor:
         if self.mode == "cosine":
-            z1 = self.embed_cosine(x_src)[idx1]
-            z2 = self.embed_cosine(x_tar)[idx2]
+            z1 = rows(self.embed_cosine(x_src), idx1)
+            z2 = rows(self.embed_cosine(x_tar), idx2)
             alpha = cosine_similarity(self.biasatt(z1), self.biasatt(z2))
         else:
             alpha = self.pair_mlp(
-                torch.cat([x_src[idx1], x_tar[idx2]], 1))[:, 0]
+                torch.cat([rows(x_src, idx1), rows(x_tar, idx2)], 1))[:, 0]
         return torch.sigmoid(alpha)
 
     def classify(self, z: Tensor,
@@ -224,11 +234,12 @@ class SimilarNoTrans(nn.Module):
                         if use_clf else None)
 
     def similarity(self, x: Tensor, idx1: Tensor, idx2: Tensor) -> Tensor:
-        return torch.sigmoid(cosine_similarity(x[idx1], x[idx2]))
+        return torch.sigmoid(cosine_similarity(rows(x, idx1), rows(x, idx2)))
 
     def similarity_cross_domain(self, x_src: Tensor, x_tar: Tensor,
                                 idx1: Tensor, idx2: Tensor) -> Tensor:
-        return torch.sigmoid(cosine_similarity(x_src[idx1], x_tar[idx2]))
+        return torch.sigmoid(cosine_similarity(rows(x_src, idx1),
+                                               rows(x_tar, idx2)))
 
     def forward(self, x: Tensor, idx1: Tensor, idx2: Tensor,
                 generator: Optional[torch.Generator] = None
@@ -262,7 +273,7 @@ class SimNet(nn.Module):
         self.act = _ACTIVATIONS[act_fn]
 
     def forward(self, z: Tensor, idx1: Tensor, idx2: Tensor) -> Tensor:
-        x = torch.cat([z[idx1], z[idx2]], 1)
+        x = torch.cat([rows(z, idx1), rows(z, idx2)], 1)
         for i, lin in enumerate(self.layers[:-1]):
             x = lin(x)
             if self.bns is not None:

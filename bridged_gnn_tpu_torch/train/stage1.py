@@ -97,7 +97,7 @@ from bridged_gnn_tpu_torch.train.stage2 import (
     run_scan,
 )
 from bridged_gnn_tpu_torch.utils.platform import resolve_device
-from bridged_gnn_tpu_torch.utils.profiling import EpochTimer
+from bridged_gnn_tpu_torch.utils.profiling import EpochTimer, annotate
 from bridged_gnn_tpu_torch.utils.sanitizers import assert_all_finite
 
 _EPS = 1e-7  # probability clamp of the BCEs
@@ -420,6 +420,7 @@ class Stage1Evaluator:
         self.src_d, self.tar_d = src_d, tar_d
         self.cfg = cfg
         self.chunk = chunk
+        self.scored = 0   # pairs scored so far
         self.enus = {
             split: (PairEnumerator(src_d, split, rng),
                     PairEnumerator(tar_d, split, rng),
@@ -428,6 +429,7 @@ class Stage1Evaluator:
         }
 
     def _scores(self, fn, idx1, idx2) -> np.ndarray:
+        self.scored += len(idx1)
         return _pair_scores_in_chunks(fn, idx1, idx2, self.G.g_src.x.device,
                                       self.chunk)
 
@@ -549,6 +551,7 @@ class DeviceStage1Evaluator:
                  seed: Optional[int] = None):
         self.model, self.G, self.cfg = model, G, cfg
         self.seed = (cfg.seed or 0) if seed is None else seed
+        self.scored = 0   # pairs scored so far
         dev = G.g_src.x.device
         n_src = int(np.asarray(src_d["y"]).max()) + 1
         n_tar = int(np.asarray(tar_d["y"]).max()) + 1
@@ -588,6 +591,7 @@ class DeviceStage1Evaluator:
         tables, then the two classifiers'."""
         sim = self.model.source_learner.sim_net
         pairs = self.draw(split, epoch)
+        self.scored += sum(len(p[0]) for p in pairs.values())
         probs = dict(src=sim.similarity(z_src, *pairs["src"]),
                      tar=sim.similarity(z_tar, *pairs["tar"]),
                      cross=sim.similarity_cross_domain(z_src, z_tar,
@@ -758,7 +762,9 @@ def train_adversarial(
     (``state_dict``) and in the flax layout (``variables``, what
     ``ckpt_path`` gets), the per-repeat scores and their summary, the
     per-epoch losses (``history``), the epoch timer's summary, the
-    evaluations' seconds (``eval_s``) and, in scan mode, ``scan``: the
+    evaluations' seconds (``eval_s``), the seconds of the repeats' epochs,
+    evaluations and checkpoints (``total_time``: the graphs' and models'
+    builds left out) and, in scan mode, ``scan``: the
     last repeat's eager epochs, captures, replays, each replay's kernel
     launches and segments (a row-sharded run's also its ``capture``
     rule, ``"nccl"`` or ``"none (gloo)"``).
@@ -768,7 +774,17 @@ def train_adversarial(
     returns rank 0's result. ``group``: a process group this rank is in,
     of ``cfg.n_shards`` ranks, to shard the rows over in place of the
     default group; with it a group of one rank (``n_shards=1``) runs the
-    sharded path too."""
+    sharded path too.
+
+    Under ``torch.profiler`` the run is one range, ``stage1.train``
+    (counts ``segments``, scan mode's, and ``evaluations``), holding the
+    graphs' preparation (``stage1.graphs``), each repeat's build of the
+    model, Adams, samplers and evaluator (``stage1.build``), in scan mode
+    the capture (``stage1.capture``) and each segment's host work
+    (``stage1.score``), each evaluation (``stage1.eval``, counts
+    ``pairs``) and each copy of the best weights to the host
+    (``stage1.best``, counts ``bytes``); see
+    ``utils/profiling.annotate``."""
     cfg = cfg or Stage1Config()
     check_ported(cfg, sharded=group is not None)
     if cfg.n_shards > 1 and group is None:
@@ -780,7 +796,14 @@ def train_adversarial(
                 train_adversarial, cfg.n_shards,
                 (src_d, tar_d, cfg, ckpt_path, device),
                 torch.device(device).type)[0]
-    return _train_adversarial(src_d, tar_d, cfg, ckpt_path, device, group)
+    with annotate("stage1.train") as span:
+        out = _train_adversarial(src_d, tar_d, cfg, ckpt_path, device,
+                                 group)
+        span.counts.update(
+            segments=cfg.repeat * len(out["scan"]["segments"])
+            if out["scan"] else 0,
+            evaluations=len(out["eval_s"]))
+    return out
 
 
 def _train_adversarial(src_d, tar_d, cfg: Stage1Config, ckpt_path,
@@ -802,8 +825,9 @@ def _train_adversarial(src_d, tar_d, cfg: Stage1Config, ckpt_path,
 
         group, dev = make_group(cfg.n_shards, device, group)
         primary = is_primary()
-        G = prepare_sharded_stage1_graphs(src_d, tar_d, cfg.backbone, group,
-                                          dev)
+        with annotate("stage1.graphs"):
+            G = prepare_sharded_stage1_graphs(src_d, tar_d, cfg.backbone,
+                                              group, dev)
         capture, rule = capture_rule(group, dev)
         if cfg.verbose and primary:
             print(describe(group, dev))
@@ -811,7 +835,8 @@ def _train_adversarial(src_d, tar_d, cfg: Stage1Config, ckpt_path,
                 print(describe_capture(group, dev))
     else:
         dev = resolve_device(device)
-        G = prepare_stage1_graphs(src_d, tar_d, cfg.backbone, dev)
+        with annotate("stage1.graphs"):
+            G = prepare_stage1_graphs(src_d, tar_d, cfg.backbone, dev)
     verbose = cfg.verbose and primary
     y_src, y_tar = np.asarray(src_d["y"]), np.asarray(tar_d["y"])
     # each relation's labels on its two sides
@@ -823,29 +848,37 @@ def _train_adversarial(src_d, tar_d, cfg: Stage1Config, ckpt_path,
     best_overall = None
     timer = EpochTimer(dev)
     history, eval_s, scan_info = [], [], None
+    total_time = 0.0
     for rep in range(cfg.repeat):
         seed = cfg.seed if cfg.seed is not None else rep
         host_rng = np.random.default_rng(seed)
-        model = build_model(cfg, src_d, tar_d, dev, seed)
-        opts = make_optimizers(model, capturable=scan and dev.type == "cuda")
-        if sharded:
-            G = dataclasses.replace(G, grad_sync=GradAllReduce(
-                list(model.source_learner.parameters())
-                + list(model.target_learner.parameters()), group))
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        # device sampling draws from a generator of its own, so that its
-        # runs take the host-sampled runs' dropout masks
-        sampler_gen = (torch.Generator(device=dev).manual_seed(
-            _seed_of(seed, 0x5A3))
-            if cfg.device_sampling else None)
-        if not cfg.device_sampling:
-            enus = (PairEnumerator(src_d, "train", host_rng),
-                    PairEnumerator(tar_d, "train", host_rng),
-                    PairEnumeratorCross(src_d, tar_d, "train", host_rng))
-        evaluator = (
-            DeviceStage1Evaluator(model, G, src_d, tar_d, cfg, seed)
-            if use_device_evaluator(cfg)
-            else Stage1Evaluator(model, G, src_d, tar_d, cfg, host_rng))
+        with annotate("stage1.build"):
+            model = build_model(cfg, src_d, tar_d, dev, seed)
+            opts = make_optimizers(model,
+                                   capturable=scan and dev.type == "cuda")
+            if sharded:
+                G = dataclasses.replace(G, grad_sync=GradAllReduce(
+                    list(model.source_learner.parameters())
+                    + list(model.target_learner.parameters()), group))
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            # device sampling draws from a generator of its own, so that
+            # its runs take the host-sampled runs' dropout masks
+            sampler_gen = (torch.Generator(device=dev).manual_seed(
+                _seed_of(seed, 0x5A3))
+                if cfg.device_sampling else None)
+            if not cfg.device_sampling:
+                enus = (PairEnumerator(src_d, "train", host_rng),
+                        PairEnumerator(tar_d, "train", host_rng),
+                        PairEnumeratorCross(src_d, tar_d, "train", host_rng))
+            evaluator = (
+                DeviceStage1Evaluator(model, G, src_d, tar_d, cfg, seed)
+                if use_device_evaluator(cfg)
+                else Stage1Evaluator(model, G, src_d, tar_d, cfg, host_rng))
+            # scan mode's train samplers (a host-sampled run reads their
+            # sizes) and both domains' labels on the device
+            samplers = (build_device_samplers(
+                src_d, tar_d, cfg.max_class_num, cfg.sample_size,
+                device=dev) if scan else None)
 
         best = {"epoch": -1, "train": (0, 0, 0), "val": (0, 0, 0),
                 "test": (0, 0, 0), "loss": 666.0}
@@ -897,18 +930,25 @@ def _train_adversarial(src_d, tar_d, cfg: Stage1Config, ckpt_path,
             if (epoch >= cfg.start_eval_epoch
                     and epoch % cfg.eval_per_epoch == 0):
                 t_eval = time.perf_counter()
-                if isinstance(evaluator, DeviceStage1Evaluator):
-                    val, test = evaluator.both(epoch)
-                else:
-                    val = evaluator("val", epoch)
-                    test = evaluator("test", epoch)
+                with annotate("stage1.eval") as span:
+                    scored = evaluator.scored
+                    if isinstance(evaluator, DeviceStage1Evaluator):
+                        val, test = evaluator.both(epoch)
+                    else:
+                        val = evaluator("val", epoch)
+                        test = evaluator("test", epoch)
+                    span.counts.update(pairs=evaluator.scored - scored)
                 eval_s.append(time.perf_counter() - t_eval)
                 if val[4] > best["val"][2]:
                     best.update(epoch=epoch, train=train_scores,
                                 val=(val[0], val[2], val[4]),
                                 test=(test[0], test[2], test[4]),
                                 loss=loss)
-                    best_state = _cpu_state(model)
+                    with annotate("stage1.best") as span:
+                        best_state = _cpu_state(model)
+                        span.counts.update(bytes=sum(
+                            v.numel() * v.element_size()
+                            for v in best_state.values()))
 
         def save(epoch):
             state = dict(
@@ -925,9 +965,10 @@ def _train_adversarial(src_d, tar_d, cfg: Stage1Config, ckpt_path,
             if primary:
                 ckptr.save(epoch, state)
 
+        t_rep = time.time()
         if scan:
             scan_info = _train_scan(
-                cfg, rep, model, opts, G, gen, sampler_gen, src_d, tar_d,
+                cfg, rep, model, opts, G, gen, sampler_gen, samplers,
                 sample_epoch, timer, start_epoch, history, train_f1s,
                 check_numerics, maybe_eval, save if ckptr else None,
                 verbose, capture)
@@ -963,6 +1004,7 @@ def _train_adversarial(src_d, tar_d, cfg: Stage1Config, ckpt_path,
                 if ckptr is not None and (epoch % cfg.ckpt_every == 0
                                           or epoch == cfg.num_epoch):
                     save(epoch)
+        total_time += time.time() - t_rep
         if best_state is None:
             best_state = _cpu_state(model)
         final["train"].append(best["train"])
@@ -990,22 +1032,21 @@ def _train_adversarial(src_d, tar_d, cfg: Stage1Config, ckpt_path,
     return dict(best=best, model=model, state_dict=best_state,
                 variables=variables, final=final, summary=summary,
                 history=history, throughput=timer.summary(), eval_s=eval_s,
-                scan=scan_info)
+                total_time=total_time, scan=scan_info)
 
 
-def _train_scan(cfg, rep, model, opts, G, gen, sampler_gen, src_d, tar_d,
+def _train_scan(cfg, rep, model, opts, G, gen, sampler_gen, samplers,
                 sample_epoch, timer, start_epoch, history, train_f1s,
                 check_numerics, maybe_eval, save, verbose,
                 capture=None) -> dict:
     """One repeat's epochs in scan mode (JAX ``stage1.py:1038-1129``): the
     run's buffers and pair source (host-sampled stacks or the device
-    samplers), then stage 2's ``run_scan`` over :func:`segment_bounds`,
-    with the host's work at every segment's end: history, train F1,
-    numerics, evaluation and checkpoint. ``capture``: run_scan's rule
-    (None: on a card)."""
+    ``samplers``, ``build_device_samplers``' pair), then stage 2's
+    ``run_scan`` over :func:`segment_bounds`, with the host's work at
+    every segment's end: history, train F1, numerics, evaluation and
+    checkpoint. ``capture``: run_scan's rule (None: on a card)."""
     dev = G.g_src.x.device
-    samplers, labels = build_device_samplers(
-        src_d, tar_d, cfg.max_class_num, cfg.sample_size, device=dev)
+    samplers, labels = samplers
     sizes = tuple(samplers[rel].num_pairs for rel in RELATIONS)
     i = torch.zeros(1, dtype=torch.int64, device=dev)
     if sampler_gen is not None:
@@ -1048,7 +1089,7 @@ def _train_scan(cfg, rep, model, opts, G, gen, sampler_gen, src_d, tar_d,
     segments = segment_bounds(start_epoch, cfg)
     info = run_scan(segments, lambda: _scan_epoch(run), generators, i, timer,
                     lambda first, last: out.cpu().numpy(), after_segment,
-                    load, capture=capture)
+                    load, capture=capture, spans="stage1")
     return dict(info, segments=segments)
 
 

@@ -56,7 +56,26 @@ class Span:
 
 _LOG: List[Span] = []
 _OPEN: List[int] = []   # indices of the ranges open now, innermost last
-_OFF = contextlib.nullcontext()
+
+
+class _Off:
+    """What :func:`annotate` gives with no profiler running: no range,
+    and counts set on it go nowhere."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        return {}
+
+
+_OFF = _Off()
 
 
 class _Range:
@@ -91,7 +110,9 @@ def annotate(name: str, **counts: int):
     Chrome trace, on the profiler's clock beside the device's work, so an
     idle stretch of the card lies inside the host work that held it up.
     Each range is also kept in :func:`recorded`'s log, under the range it
-    opened inside, with the integer ``counts`` given (a copy's ``bytes``).
+    opened inside, with the integer ``counts`` given (a copy's ``bytes``)
+    and any set on the range's ``counts`` before it closes (``with
+    annotate(name) as span: ...; span.counts.update(pairs=n)``).
     Ranges opened inside a CUDA graph's capture are the capture's; its
     replays carry none."""
     if not torch._C._autograd._profiler_enabled():

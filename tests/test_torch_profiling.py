@@ -155,3 +155,16 @@ def test_epoch_timer_summary_holds_what_is_read():
     s = timer.summary()
     assert set(s) == {"mean_s", "p50_s", "steps", "steady_steps"}
     assert (s["steps"], s["steady_steps"]) == (3, 2)
+
+
+def test_counts_set_before_a_range_closes_are_kept():
+    with profile(activities=[ProfilerActivity.CPU]):
+        with annotate("a", rows=1) as span:
+            span.counts.update(pairs=6)
+    assert [(s.name, s.counts) for s in recorded()] == [
+        ("a", dict(rows=1, pairs=6))]
+    clear_recorded()
+    # with no profiler the counts go nowhere
+    with annotate("b") as span:
+        span.counts.update(pairs=6)
+    assert recorded() == []
