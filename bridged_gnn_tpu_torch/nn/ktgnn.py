@@ -23,10 +23,12 @@ Dropout in train mode draws its masks from a ``torch.Generator`` the
 caller passes, on the model's device, never from the global generator.
 
 ``msg_dtype="bfloat16"`` (JAX ``msg_dtype``, the production stage-2
-setting) casts each conv's two linear outputs, the message tables, to
-bf16 before the attention and casts the attention's output back to the
-input's dtype; parameters, the gated shifts, batch norm and the heads
-stay f32.
+setting) writes each conv's message tables, the two linear outputs, in
+bf16 for the attention (rounded once from f32) and casts the attention's
+output back to the input's dtype; parameters, the gated shifts, batch
+norm and the heads stay f32. The domain means, gated shifts and linears
+before the attention run as ``ops/conv_prologue.py`` (hand-written
+kernels around one projection GEMM on the card).
 """
 
 from __future__ import annotations
@@ -46,9 +48,9 @@ from bridged_gnn_tpu_torch.nn.common import (
     MaskedBatchNorm,
     TorchLinear,
     dropout,
-    masked_mean,
     uniform_fan_in_,
 )
+from bridged_gnn_tpu_torch.ops.conv_prologue import ConvPrologue
 from bridged_gnn_tpu_torch.ops.fused_attention import (
     AttentionCat,
     AttentionSel,
@@ -96,22 +98,22 @@ class AdaptedConv(nn.Module):
         self.lin_r = (TorchLinear(in_channels, out_channels, bias=False,
                                   generator=g) if root_weight else None)
 
-    def _branch(self, x: torch.Tensor, dd_row: torch.Tensor,
-                central: torch.Tensor, target: torch.Tensor):
-        """The gated domain shifts and the two linear paths of rows ``x``
-        (KTGNN.py:275-284): ``(u_t2s, u_s2t)``, in the message dtype."""
-        dd = dd_row.expand_as(x)
-        gcat = torch.cat([x, dd], dim=-1)
-        shift_s2t = torch.tanh(self.a_g_s2t(gcat)) * dd
-        shift_t2s = torch.tanh(self.a_g_t2s(gcat)) * dd
-        x_s2t = x - shift_s2t * central[:, None].to(x.dtype)
-        x_t2s = x + shift_t2s * target[:, None].to(x.dtype)
-        u_s2t = self.lin_t(x_s2t)
-        u_t2s = self.lin_s(x_t2s)
-        if self.msg_dtype is not None:
-            u_s2t = u_s2t.to(self.msg_dtype)
-            u_t2s = u_t2s.to(self.msg_dtype)
-        return u_t2s, u_s2t
+    def _branch(self, x: torch.Tensor, dd_row: Optional[torch.Tensor],
+                central: torch.Tensor, target: torch.Tensor,
+                n_sum: Optional[int] = None, group=None):
+        """The domain means, the gated domain shifts and the two linear
+        paths of rows ``x`` (KTGNN.py:275-284), from one read of ``x``
+        (``ops/conv_prologue.py``): ``(u_t2s, u_s2t, dd_row)``, the tables
+        in the message dtype. ``dd_row`` None: the means are taken over the
+        masked rows of ``x``'s first ``n_sum`` (default all), their sums
+        and counts all-reduced over ``group`` when given; else the shift
+        ``dd_row`` [D] is given."""
+        return ConvPrologue.apply(
+            x.contiguous(), dd_row, central, target,
+            x.shape[0] if n_sum is None else n_sum, group,
+            self.msg_dtype or x.dtype, self.lin_t.weight, self.lin_t.bias,
+            self.lin_s.weight, self.lin_s.bias, self.a_g_s2t.weight,
+            self.a_g_t2s.weight)
 
     def forward(self, x: torch.Tensor, adj: Optional[Adjacency],
                 central_mask: torch.Tensor,
@@ -131,9 +133,7 @@ class AdaptedConv(nn.Module):
         central = central_mask & node_mask
         target = (~central_mask) & node_mask
         # --- g and f: domain difference, shifts, two linear paths
-        mean_c = masked_mean(x, central, dim=0, keepdim=True)    # [1, D]
-        mean_t = masked_mean(x, target, dim=0, keepdim=True)
-        u_t2s, u_s2t = self._branch(x, mean_c - mean_t, central, target)
+        u_t2s, u_s2t, _ = self._branch(x, None, central, target)
 
         # --- fused attention + segment softmax + aggregation
         if adj.fast_fn is not None:
@@ -154,39 +154,39 @@ class AdaptedConv(nn.Module):
     def _halo_forward(self, x, central_mask, node_mask, halo):
         """Row-partitioned forward (JAX ``nn/ktgnn.py:383-541``): this rank
         owns node rows ``[0, R)``. The domain means are global, their sums
-        and counts all-reduced ([D]-sized); the only node-array collective
-        is the boundary exchange (``parallel/halopart.py``). Every edge into
-        an owned row is on this rank, so the attention runs on the shard's
-        slot layout with the kernels of one device: senders in ``x_ext =
-        [own ‖ halo]``, destinations the owned rows. With the overlap
-        layouts the exchange starts first and the local partials run while
-        it is in flight (``adapted_attention_overlap``)."""
+        and counts all-reduced (2D + 2 floats); the only node-array
+        collective is the boundary exchange (``parallel/halopart.py``).
+        Every edge into an owned row is on this rank, so the attention runs
+        on the shard's slot layout with the kernels of one device: senders
+        in ``x_ext = [own ‖ halo]``, destinations the owned rows. With the
+        overlap layouts the exchange starts first and the local prologue
+        and partials run while it is in flight
+        (``adapted_attention_overlap``)."""
         central_l = central_mask & node_mask
         target_l = (~central_mask) & node_mask
-        mean_c = masked_mean(x, central_l, dim=0, keepdim=True,
-                             group=halo.group)
-        mean_t = masked_mean(x, target_l, dim=0, keepdim=True,
-                             group=halo.group)
-        dd_row = mean_c - mean_t
         rows = halo.rows
         central_e = halo.central_ext & halo.node_mask_ext
         target_e = (~halo.central_ext) & halo.node_mask_ext
         if halo.overlap:
             recv, wait = halo.exchange_recv_async(x)
+            u_t2s_l, u_s2t_l, dd_row = self._branch(
+                x, None, central_l, target_l, group=halo.group)
 
             def halo_rows():
                 wait()
                 return torch.cat(self._branch(recv, dd_row, central_e[rows:],
-                                              target_e[rows:]), dim=-1)
+                                              target_e[rows:])[:2], dim=-1)
 
-            u_cat_l = torch.cat(self._branch(x, dd_row, central_l, target_l),
-                                dim=-1)
             return adapted_attention_overlap(
-                halo.lay_local, halo.lay_halo, u_cat_l, halo_rows,
+                halo.lay_local, halo.lay_halo,
+                torch.cat([u_t2s_l, u_s2t_l], dim=-1), halo_rows,
                 central_mask, self.a_f_t2s, self.a_f_s2t,
                 self.negative_slope)
-        x_ext = halo.exchange(x)
-        u_t2s, u_s2t = self._branch(x_ext, dd_row, central_e, target_e)
+        # the ext rows' first `rows` are this rank's own, under the same
+        # masks (parallel/halopart.py): the means take those
+        u_t2s, u_s2t, _ = self._branch(halo.exchange(x), None, central_e,
+                                       target_e, n_sum=rows,
+                                       group=halo.group)
         ud = torch.where(central_mask[:, None], u_t2s[:rows], u_s2t[:rows])
         fn = AttentionSel if halo.selective else AttentionCat
         return fn.apply(halo.lay, u_t2s, u_s2t, ud, central_mask,

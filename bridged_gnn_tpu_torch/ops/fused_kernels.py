@@ -17,11 +17,16 @@ Port of the kernels of ``bridged_gnn_tpu/ops/pallas_fused.py`` and
 * :func:`gather_reduce` — the same ``_reduce_kernel`` in its
   destination-keyed use, the padded SpMM ``y[v] = Σ w·x[u]`` of the model
   zoo (``gather_reduce_pallas``, pallas_padded.py:135), and its transpose
-  over the sender CSR for the SpMM's backward.
+  over the sender CSR for the SpMM's backward;
+* ``conv_prologue_*`` — AdaptedConv's domain-shift prologue around its
+  projection GEMM, which XLA fused on the TPU (no Pallas kernel): the
+  domain pass, its finish, the epilogue, and the backward's pass, finish
+  and ``dx`` terms (``ops/conv_prologue.py`` differentiates through them).
 
 The forwards live in ``csrc/attention_fwd.cu``, the backwards in
-``csrc/attention_bwd.cu``, the reduce in ``csrc/slot_reduce.cu`` and the
-SpMM in ``csrc/gather_reduce.cu``. Each
+``csrc/attention_bwd.cu``, the reduce in ``csrc/slot_reduce.cu``, the
+SpMM in ``csrc/gather_reduce.cu`` and the prologue in
+``csrc/conv_prologue.cu``. Each
 kernel also covers the index work its JAX wrapper ran around the Pallas
 call: the forwards and backwards read sender rows by index from the
 ``u1``/``u2`` tables, and the reduce reads the dst-ordered slot rows by
@@ -206,6 +211,34 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # out, stream (f32 only)
     lib.gather_reduce.argtypes = [p] * 6 + [i] * 5 + [p, p]
     entries.append(lib.gather_reduce)
+    # the conv prologue (csrc/conv_prologue.cu); the epilogue and the
+    # backward pass also for bf16 message tables
+    for name, types in dict(
+            # p, gd, aux, bt, bs, central, target, n, h, u_t2s, u_s2t, ab
+            conv_prologue_epilogue=[p] * 7 + [i] * 2 + [p] * 3 + [p],
+            # g_t2s, g_s2t, x, ab, aux, central, target, n, d, h, nb, dy,
+            # dz, parts
+            conv_prologue_bwd=[p] * 7 + [i] * 4 + [p] * 3 + [p]).items():
+        for suffix in _ENTRY_SUFFIX.values():
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = types
+            entries.append(fn)
+    for name, types in dict(
+            # x, central, target, wg1, wg2, n, d, n_sum, nb, parts, gd
+            conv_prologue_pass=[p] * 5 + [i] * 4 + [p] * 2 + [p],
+            # parts, nb, dd_in, wg1, wg2, wt, ws, d, h, dd_out, aux
+            conv_prologue_finish=[p, i] + [p] * 5 + [i] * 2 + [p] * 2 + [p],
+            # parts, nb, dd, dd_ext, wt, ws, wg1, wg2, d, h, dw, dbt, dbs,
+            # dwg1, dwg2, d_dd
+            conv_prologue_bwd_finish=[p, i] + [p] * 6 + [i] * 2 + [p] * 6
+            + [p],
+            # dx, dz, d_dd, aux, wg1, wg2, central, target, n, d, h, n_sum
+            conv_prologue_dx=[p] * 8 + [i] * 4 + [p]).items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        entries.append(fn)
+    lib.conv_prologue_blocks.argtypes = [i]
+    entries.append(lib.conv_prologue_blocks)
     # n_rows_layout, n_heavy, d
     lib.attention_bwd_grid.argtypes = [i] * 3
     # the attention sources share their bounds (csrc/lane_groups.cuh)
@@ -640,6 +673,117 @@ def gather_reduce_plain(
     return out
 
 
+
+def _row_masks(central: torch.Tensor, target: torch.Tensor, n_sum: int):
+    """The central and target masks of the rows below ``n_sum``."""
+    below = torch.arange(central.shape[0], device=central.device) < n_sum
+    return central & below, target & below
+
+
+def conv_prologue_pass_plain(
+    x: torch.Tensor, central: torch.Tensor, target: torch.Tensor,
+    n_sum: int, wg1: torch.Tensor, wg2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`conv_prologue_pass`, as one partial row."""
+    d = x.shape[1]
+    c, t = _row_masks(central, target, n_sum)
+    c, t = c.to(x.dtype), t.to(x.dtype)
+    sums = torch.cat([(x * c[:, None]).sum(0), (x * t[:, None]).sum(0),
+                      c.sum()[None], t.sum()[None]])
+    gd = torch.stack([x @ wg1[0, :d], x @ wg2[0, :d]], dim=1)
+    return sums[None], gd
+
+
+def conv_prologue_finish_plain(
+    parts: Optional[torch.Tensor], wg1: torch.Tensor, wg2: torch.Tensor,
+    wt: torch.Tensor, ws: torch.Tensor, dd: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`conv_prologue_finish`."""
+    d = wt.shape[1]
+    if dd is None:
+        tot = parts.sum(0)
+        cnt = tot[2 * d:].clamp(min=1.0)
+        dd = tot[:d] / cnt[0] - tot[d:2 * d] / cnt[1]
+    else:
+        cnt = dd.new_ones(2)
+    aux = torch.cat([wt @ dd, ws @ dd, (wg1[0, d:] @ dd)[None],
+                     (wg2[0, d:] @ dd)[None], cnt])
+    return dd, aux
+
+
+def conv_prologue_epilogue_plain(
+    p: torch.Tensor, gd: torch.Tensor, aux: torch.Tensor, bt: torch.Tensor,
+    bs: torch.Tensor, central: torch.Tensor, target: torch.Tensor,
+    out_dtype: torch.dtype, d: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`conv_prologue_epilogue`."""
+    h = bt.shape[0]
+    a = torch.tanh(gd[:, 0] + aux[2 * h])
+    b = torch.tanh(gd[:, 1] + aux[2 * h + 1])
+    ac = torch.where(central, a, 0.0)
+    bt_ = torch.where(target, b, 0.0)
+    u_s2t = (p[:, :h] + bt) - ac[:, None] * aux[:h]
+    u_t2s = (p[:, h:] + bs) + bt_[:, None] * aux[h:2 * h]
+    return (u_t2s.to(out_dtype), u_s2t.to(out_dtype),
+            torch.stack([a, b], dim=1))
+
+
+def conv_prologue_bwd_plain(
+    g_t2s: torch.Tensor, g_s2t: torch.Tensor, x: torch.Tensor,
+    ab: torch.Tensor, aux: torch.Tensor, central: torch.Tensor,
+    target: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`conv_prologue_bwd`, as one partial row;
+    the cotangents are widened to ``x``'s dtype."""
+    h = g_t2s.shape[1]
+    gs, gt = g_s2t.to(x.dtype), g_t2s.to(x.dtype)
+    a, b = ab[:, 0], ab[:, 1]
+    za = torch.where(central, -(gs @ aux[:h]) * (1 - a * a), 0.0)
+    zb = torch.where(target, (gt @ aux[h:2 * h]) * (1 - b * b), 0.0)
+    ac = torch.where(central, a, 0.0)
+    bt_ = torch.where(target, b, 0.0)
+    sums = torch.cat([gs.sum(0), gt.sum(0), (ac[:, None] * gs).sum(0),
+                      (bt_[:, None] * gt).sum(0), za @ x, zb @ x,
+                      za.sum()[None], zb.sum()[None]])
+    return (torch.cat([gs, gt], dim=1), torch.stack([za, zb], dim=1),
+            sums[None])
+
+
+def conv_prologue_bwd_finish_plain(
+    parts: torch.Tensor, dd: torch.Tensor, dw: torch.Tensor,
+    dd_ext: Optional[torch.Tensor], wt: torch.Tensor, ws: torch.Tensor,
+    wg1: torch.Tensor, wg2: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain version of :func:`conv_prologue_bwd_finish` (``dw`` updated
+    in place)."""
+    h, d = wt.shape
+    tot = parts.sum(0)
+    gs, gt = tot[2 * h:3 * h], tot[3 * h:4 * h]
+    sza, szb = tot[4 * h + 2 * d], tot[4 * h + 2 * d + 1]
+    dw += torch.cat([-gs[:, None] * dd, gt[:, None] * dd])
+    d_dd = -(gs @ wt) + gt @ ws + sza * wg1[0, d:] + szb * wg2[0, d:]
+    if dd_ext is not None:
+        d_dd = dd_ext + d_dd
+    return (tot[:h], tot[h:2 * h],
+            torch.cat([tot[4 * h:4 * h + d], sza * dd])[None],
+            torch.cat([tot[4 * h + d:4 * h + 2 * d], szb * dd])[None], d_dd)
+
+
+def conv_prologue_dx_plain(
+    dx: torch.Tensor, dz: torch.Tensor, d_dd: torch.Tensor,
+    aux: torch.Tensor, wg1: torch.Tensor, wg2: torch.Tensor,
+    central: torch.Tensor, target: torch.Tensor, n_sum: int,
+) -> torch.Tensor:
+    """Plain version of :func:`conv_prologue_dx` (``dx`` updated in
+    place)."""
+    d = dx.shape[1]
+    c, t = _row_masks(central, target, n_sum)
+    dx += dz[:, :1] * wg1[:, :d] + dz[:, 1:] * wg2[:, :d]
+    dx += (torch.where(c[:, None], d_dd / aux[-2], 0.0)
+           - torch.where(t[:, None], d_dd / aux[-1], 0.0))
+    return dx
+
+
 # ---------------------------------------------------------------- wrappers
 
 
@@ -899,8 +1043,255 @@ def _gather_reduce_launch(
     return out
 
 
+def _check_prologue(dev, floats: dict, masks: dict, n: int,
+                    tables: Optional[dict] = None) -> None:
+    """The prologue kernels' tensors: device, dtype and contiguity, and
+    the row masks bool ``[n]``."""
+    _check_tensors(dev, floats, masks, tables)
+    for name, m in masks.items():
+        if m.dtype != torch.bool or list(m.shape) != [n]:
+            raise ValueError(f"{name} must be bool [{n}], got {m.dtype} "
+                             f"{list(m.shape)}")
+
+
+def _check_gates(d: int, wg1: torch.Tensor, wg2: torch.Tensor) -> None:
+    if list(wg1.shape) != [1, 2 * d] or list(wg2.shape) != [1, 2 * d]:
+        raise ValueError(f"the gate weights must be [1, {2 * d}], got "
+                         f"{list(wg1.shape)} and {list(wg2.shape)}")
+
+
+def conv_prologue_pass(
+    x: torch.Tensor, central: torch.Tensor, target: torch.Tensor,
+    n_sum: int, wg1: torch.Tensor, wg2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """AdaptedConv's domain pass: one read of ``x`` [N, D] (f32).
+
+    ``central``/``target`` [N] bool: the rows' domains; the column sums
+    take the rows below ``n_sum``. ``wg1``/``wg2`` [1, 2D]: the gates'
+    weights ``a_g_s2t.weight``, ``a_g_t2s.weight``, whose first D columns
+    the rows are dotted with. Returns ``parts`` [B, 2D + 2], one partial
+    row per row block of ``[Σ x·c ‖ Σ x·t ‖ Σ c ‖ Σ t]``, which
+    :func:`conv_prologue_finish` sums in block order, and ``gd`` [N, 2] =
+    ``[x·p_x, x·q_x]`` in f32. The launch counts under ``D``."""
+    inputs = (x, central, target, n_sum, wg1, wg2)
+    _forward_only(x=x, wg1=wg1, wg2=wg2)
+    if x.device.type != "cuda":
+        return conv_prologue_pass_plain(*inputs)
+    if x.dim() != 2 or x.shape[1] < 1:
+        raise ValueError(f"x must be [N, D], got {list(x.shape)}")
+    n, d = x.shape
+    _check_prologue(x.device, dict(x=x, wg1=wg1, wg2=wg2),
+                    dict(central=central, target=target), n)
+    _check_gates(d, wg1, wg2)
+    if not 0 <= n_sum <= n:
+        raise ValueError(f"n_sum must be in [0, {n}], got {n_sum}")
+    nb = _kernel_lib().conv_prologue_blocks(n)
+    parts = torch.empty(nb, 2 * d + 2, device=x.device)
+    gd = torch.empty(n, 2, device=x.device)
+    args = [x.data_ptr(), central.data_ptr(), target.data_ptr(),
+            wg1.data_ptr(), wg2.data_ptr(), n, d, n_sum, nb,
+            parts.data_ptr(), gd.data_ptr()]
+    _launch(conv_prologue_pass, d, x.dtype, args, inputs, x.device)
+    return parts, gd
+
+
+def conv_prologue_finish(
+    parts: Optional[torch.Tensor], wg1: torch.Tensor, wg2: torch.Tensor,
+    wt: torch.Tensor, ws: torch.Tensor, dd: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The domain shift and what the epilogue takes of it, on the card.
+
+    From ``parts`` (:func:`conv_prologue_pass`, or their sum over a
+    group's ranks): ``dd`` [D] = ``Σx·c / max(Σc, 1) − Σx·t / max(Σt,
+    1)``; or, with ``dd`` given, that ``dd``. Returns ``dd`` and ``aux``
+    [2H + 4] = ``[W_t dd ‖ W_s dd ‖ dd·p_d ‖ dd·q_d ‖ max(Σc, 1) ‖
+    max(Σt, 1)]`` (counts 1 with ``dd`` given), for ``wt``/``ws`` [H, D]
+    the weights of ``lin_t``/``lin_s``. The launch counts under ``D``."""
+    inputs = (parts, wg1, wg2, wt, ws, dd)
+    given = dict(parts=parts) if dd is None else dict(dd=dd)
+    _forward_only(wg1=wg1, wg2=wg2, wt=wt, ws=ws, **given)
+    if wt.device.type != "cuda":
+        return conv_prologue_finish_plain(*inputs)
+    h, d = wt.shape
+    _check_prologue(wt.device, dict(wg1=wg1, wg2=wg2, wt=wt, ws=ws,
+                                    **given), {}, 0)
+    _check_gates(d, wg1, wg2)
+    if list(ws.shape) != [h, d]:
+        raise ValueError(f"ws must be [{h}, {d}], got {list(ws.shape)}")
+    if dd is None and (parts.dim() != 2 or parts.shape[1] != 2 * d + 2):
+        raise ValueError(f"parts must be [B, {2 * d + 2}], got "
+                         f"{list(parts.shape)}")
+    if dd is not None and list(dd.shape) != [d]:
+        raise ValueError(f"dd must be [{d}], got {list(dd.shape)}")
+    out = torch.empty(d, device=wt.device) if dd is None else dd
+    aux = torch.empty(2 * h + 4, device=wt.device)
+    args = [None if dd is not None else parts.data_ptr(),
+            0 if dd is not None else parts.shape[0],
+            None if dd is None else dd.data_ptr(), wg1.data_ptr(),
+            wg2.data_ptr(), wt.data_ptr(), ws.data_ptr(), d, h,
+            out.data_ptr(), aux.data_ptr()]
+    _launch(conv_prologue_finish, d, torch.float32, args, inputs, wt.device)
+    return out, aux
+
+
+def conv_prologue_epilogue(
+    p: torch.Tensor, gd: torch.Tensor, aux: torch.Tensor, bt: torch.Tensor,
+    bs: torch.Tensor, central: torch.Tensor, target: torch.Tensor,
+    out_dtype: torch.dtype, d: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One pass over the projection ``p`` [N, 2H] = ``x [W_t; W_s]ᵀ``:
+    ``a = tanh(gd[:, 0] + dd·p_d)``, ``b = tanh(gd[:, 1] + dd·q_d)``,
+    ``u_s2t = p[:, :H] + bt − (a·c) ⊗ W_t dd`` and ``u_t2s = p[:, H:] +
+    bs + (b·t) ⊗ W_s dd`` (``aux`` from :func:`conv_prologue_finish`).
+    Returns ``u_t2s``, ``u_s2t`` [N, H] in ``out_dtype`` (float32 or
+    bfloat16, rounded once) and ``ab`` [N, 2] = ``[a, b]`` in f32. The
+    launch counts under the conv's input width ``d`` and ``out_dtype``."""
+    inputs = (p, gd, aux, bt, bs, central, target, out_dtype, d)
+    _forward_only(p=p, gd=gd, aux=aux, bt=bt, bs=bs)
+    if p.device.type != "cuda":
+        return conv_prologue_epilogue_plain(*inputs)
+    if out_dtype not in _ENTRY_SUFFIX:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    n, h = p.shape[0], bt.shape[0]
+    _check_prologue(p.device, dict(p=p, gd=gd, aux=aux, bt=bt, bs=bs),
+                    dict(central=central, target=target), n)
+    if (list(p.shape) != [n, 2 * h] or list(gd.shape) != [n, 2]
+            or list(bs.shape) != [h] or list(aux.shape) != [2 * h + 4]):
+        raise ValueError(
+            f"p must be [N, 2H], gd [N, 2], bs [H], aux [2H + 4]; got "
+            f"{list(p.shape)}, {list(gd.shape)}, {list(bs.shape)}, "
+            f"{list(aux.shape)} with H = {h}")
+    u_t2s = torch.empty(n, h, dtype=out_dtype, device=p.device)
+    u_s2t = torch.empty(n, h, dtype=out_dtype, device=p.device)
+    ab = torch.empty(n, 2, device=p.device)
+    args = [p.data_ptr(), gd.data_ptr(), aux.data_ptr(), bt.data_ptr(),
+            bs.data_ptr(), central.data_ptr(), target.data_ptr(), n, h,
+            u_t2s.data_ptr(), u_s2t.data_ptr(), ab.data_ptr()]
+    _launch(conv_prologue_epilogue, d, out_dtype, args, inputs, p.device)
+    return u_t2s, u_s2t, ab
+
+
+def conv_prologue_bwd(
+    g_t2s: torch.Tensor, g_s2t: torch.Tensor, x: torch.Tensor,
+    ab: torch.Tensor, aux: torch.Tensor, central: torch.Tensor,
+    target: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The prologue's backward pass: one read of the message tables'
+    cotangents ``g_t2s``, ``g_s2t`` [N, H] (float32 or bfloat16, one
+    dtype) and of ``x`` [N, D] at the rows of either domain.
+
+    Returns ``dy`` [N, 2H] = ``[g_s2t ‖ g_t2s]`` in f32 (the projection
+    GEMM's cotangent), ``dz`` [N, 2], the gates' pre-activation cotangents
+    ``dz_a = −c·(g_s2t·W_t dd)·(1 − a²)`` and ``dz_b = t·(g_t2s·W_s
+    dd)·(1 − b²)``, and ``parts`` [B, 4H + 2D + 2], one partial row per
+    row block of ``[Σ g_s2t ‖ Σ g_t2s ‖ Σ a·c·g_s2t ‖ Σ b·t·g_t2s ‖ Σ
+    dz_a·x ‖ Σ dz_b·x ‖ Σ dz_a ‖ Σ dz_b]``. The launch counts under ``D``
+    and the cotangents' dtype."""
+    inputs = (g_t2s, g_s2t, x, ab, aux, central, target)
+    _forward_only(g_t2s=g_t2s, g_s2t=g_s2t, x=x, ab=ab, aux=aux)
+    if x.device.type != "cuda":
+        return conv_prologue_bwd_plain(*inputs)
+    n, d = x.shape
+    h = g_t2s.shape[1]
+    _check_prologue(x.device, dict(x=x, ab=ab, aux=aux),
+                    dict(central=central, target=target), n,
+                    dict(g_t2s=g_t2s, g_s2t=g_s2t))
+    if (list(g_t2s.shape) != [n, h] or list(g_s2t.shape) != [n, h]
+            or list(ab.shape) != [n, 2] or list(aux.shape) != [2 * h + 4]):
+        raise ValueError(
+            f"g_t2s and g_s2t must be [{n}, H], ab [{n}, 2], aux [2H + 4];"
+            f" got {list(g_t2s.shape)}, {list(g_s2t.shape)}, "
+            f"{list(ab.shape)}, {list(aux.shape)}")
+    nb = _kernel_lib().conv_prologue_blocks(n)
+    dy = torch.empty(n, 2 * h, device=x.device)
+    dz = torch.empty(n, 2, device=x.device)
+    parts = torch.empty(nb, 4 * h + 2 * d + 2, device=x.device)
+    args = [g_t2s.data_ptr(), g_s2t.data_ptr(), x.data_ptr(), ab.data_ptr(),
+            aux.data_ptr(), central.data_ptr(), target.data_ptr(), n, d, h,
+            nb, dy.data_ptr(), dz.data_ptr(), parts.data_ptr()]
+    _launch(conv_prologue_bwd, d, g_t2s.dtype, args, inputs, x.device)
+    return dy, dz, parts
+
+
+def conv_prologue_bwd_finish(
+    parts: torch.Tensor, dd: torch.Tensor, dw: torch.Tensor,
+    dd_ext: Optional[torch.Tensor], wt: torch.Tensor, ws: torch.Tensor,
+    wg1: torch.Tensor, wg2: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """The backward's sums (:func:`conv_prologue_bwd`'s ``parts``, in
+    block order) turned into gradients. ``dw`` [2H, D], the GEMM's
+    ``dyᵀ x``, gets the shifts' rank-1 terms in place (``−Σa·c·g_s2t ⊗
+    dd`` on W_t's rows, ``+Σb·t·g_t2s ⊗ dd`` on W_s's). Returns the biases'
+    gradients ``dbt``, ``dbs`` [H], the gates' ``dwg1``, ``dwg2`` [1, 2D]
+    and ``d_dd`` [D], the cotangent of ``dd`` (``dd_ext``, that of ``dd``
+    from elsewhere, added when given). The launch counts under ``D``."""
+    inputs = (parts, dd, dw, dd_ext, wt, ws, wg1, wg2)
+    _forward_only(parts=parts, dd=dd, dw=dw, wt=wt, ws=ws, wg1=wg1, wg2=wg2)
+    if dw.device.type != "cuda":
+        return conv_prologue_bwd_finish_plain(*inputs)
+    h, d = wt.shape
+    ext = {} if dd_ext is None else dict(dd_ext=dd_ext)
+    _check_prologue(dw.device, dict(parts=parts, dd=dd, dw=dw, wt=wt, ws=ws,
+                                    wg1=wg1, wg2=wg2, **ext), {}, 0)
+    _check_gates(d, wg1, wg2)
+    if (parts.dim() != 2 or parts.shape[1] != 4 * h + 2 * d + 2
+            or list(dw.shape) != [2 * h, d] or list(ws.shape) != [h, d]
+            or list(dd.shape) != [d]
+            or (dd_ext is not None and list(dd_ext.shape) != [d])):
+        raise ValueError(
+            f"parts must be [B, {4 * h + 2 * d + 2}], dw [{2 * h}, {d}], ws "
+            f"[{h}, {d}], dd and dd_ext [{d}]")
+    dev = dw.device
+    dbt, dbs = torch.empty(h, device=dev), torch.empty(h, device=dev)
+    dwg1, dwg2 = (torch.empty(1, 2 * d, device=dev),
+                  torch.empty(1, 2 * d, device=dev))
+    d_dd = torch.empty(d, device=dev)
+    args = [parts.data_ptr(), parts.shape[0], dd.data_ptr(),
+            None if dd_ext is None else dd_ext.data_ptr(), wt.data_ptr(),
+            ws.data_ptr(), wg1.data_ptr(), wg2.data_ptr(), d, h,
+            dw.data_ptr(), dbt.data_ptr(), dbs.data_ptr(), dwg1.data_ptr(),
+            dwg2.data_ptr(), d_dd.data_ptr()]
+    _launch(conv_prologue_bwd_finish, d, torch.float32, args, inputs, dev)
+    return dbt, dbs, dwg1, dwg2, d_dd
+
+
+def conv_prologue_dx(
+    dx: torch.Tensor, dz: torch.Tensor, d_dd: torch.Tensor,
+    aux: torch.Tensor, wg1: torch.Tensor, wg2: torch.Tensor,
+    central: torch.Tensor, target: torch.Tensor, n_sum: int,
+) -> torch.Tensor:
+    """The rank-1 terms of the prologue's ``dx``, added in place to ``dx``
+    [N, D] (the GEMM's ``dy [W_t; W_s]``): ``dz_a·p_x + dz_b·q_x``, and
+    for the rows below ``n_sum`` the domain means' ``c·d_dd / max(Σc, 1)
+    − t·d_dd / max(Σt, 1)``. Returns ``dx``. The launch counts under
+    ``D``."""
+    inputs = (dx, dz, d_dd, aux, wg1, wg2, central, target, n_sum)
+    _forward_only(dx=dx, dz=dz, d_dd=d_dd, aux=aux, wg1=wg1, wg2=wg2)
+    if dx.device.type != "cuda":
+        return conv_prologue_dx_plain(*inputs)
+    n, d = dx.shape
+    h = (aux.shape[0] - 4) // 2
+    _check_prologue(dx.device, dict(dx=dx, dz=dz, d_dd=d_dd, aux=aux,
+                                    wg1=wg1, wg2=wg2),
+                    dict(central=central, target=target), n)
+    _check_gates(d, wg1, wg2)
+    if list(dz.shape) != [n, 2] or list(d_dd.shape) != [d] or h < 1:
+        raise ValueError(f"dz must be [{n}, 2], d_dd [{d}], aux [2H + 4]")
+    if not 0 <= n_sum <= n:
+        raise ValueError(f"n_sum must be in [0, {n}], got {n_sum}")
+    args = [dx.data_ptr(), dz.data_ptr(), d_dd.data_ptr(), aux.data_ptr(),
+            wg1.data_ptr(), wg2.data_ptr(), central.data_ptr(),
+            target.data_ptr(), n, d, h, n_sum]
+    _launch(conv_prologue_dx, d, torch.float32, args, inputs, dx.device)
+    return dx
+
+
 KERNEL_WRAPPERS = (attention_sel_fwd, attention_fwd, attention_sel_bwd,
-                   attention_bwd, slot_reduce, gather_reduce)
+                   attention_bwd, slot_reduce, gather_reduce,
+                   conv_prologue_pass, conv_prologue_finish,
+                   conv_prologue_epilogue, conv_prologue_bwd,
+                   conv_prologue_bwd_finish, conv_prologue_dx)
 
 
 def launch_counts() -> Dict[str, Dict]:

@@ -15,6 +15,17 @@ Phases, in order; any failure exits non-zero:
    PyTorch version on the card (f32, rtol and atol 1e-4), launched twice
    to give bit-identical outputs, timed with CUDA events, and set beside
    its bound counted from its own inputs;
+3b. the conv prologue (``ops/conv_prologue.py``) at the benchmark's
+   shapes: an AdaptedConv 256 → 64 and one 64 → 31 over 131,072 seeded
+   rows, f32 and bf16 message tables, forward and backward recorded; each
+   of the six kernels' calls replayed against its plain version on the
+   card (rtol 1e-4, atol 1e-4 times the output's largest magnitude, one
+   bf16 ulp more for bf16 tables; the per-block partial rows by their
+   sums), launched twice to give bit-identical outputs, timed, and set
+   beside its byte bound. Every later launch count includes the
+   prologue's: a pass, a finish and an epilogue a conv call, a backward
+   pass and finish a conv, ``dx`` where the conv's input takes a
+   gradient (``prologue_want``);
 4. serving, single layout: ``KTGNNPredictor`` on the bench graph
    (131,072 nodes, 2M edges before ``to_undirected``; KT-GNN hidden 64,
    2 layers, batch norm, 8 classes, seeded weights and BN statistics):
@@ -52,10 +63,14 @@ Phases, in order; any failure exits non-zero:
    epoch one line with the top 15 device operations by device time, the
    hand-written kernels' share of the epoch and the device's busy share
    (the union of device-op intervals over the epoch's wall time);
-11. card vs CPU: 1 epoch at dropout 0 from the same seeded init on the
-   card and on the CPU (plain versions), on each graph; per-epoch losses
-   within rtol 1e-4, final weights and BN statistics within rtol 1e-3 and
-   atol 1e-5;
+11. card vs CPU: 2 train steps at dropout 0 from the same seeded init on
+   each graph, one at a time, the CPU (plain versions) taking the card's
+   weights and Adam state before each: losses within rtol 1e-4, every
+   parameter's gradient within rtol 1e-3 and 1e-3 of the tensor's
+   largest (a gradient zero but for rounding, below 1e-6 of the model's
+   largest on both devices, apart), BN statistics within rtol 1e-3 and
+   atol 1e-5; a first ReLU input (the first batch norm's output) whose
+   sign the devices part must lie within 1e-6 of 0 (a tie, listed);
 12. heavy rows on a single layout: the "lead graph" (the bench graph with
    every 10th edge's destination redrawn from the 1,024 block-leading ids
    0, 128, ..., 131072 − 128), where the skew rule keeps one layout but
@@ -725,6 +740,201 @@ def check_kernel(name, wrapper, plain, calls, layouts, bound=None,
     return records
 
 
+# ------------------------------------------------ the conv prologue
+
+PROLOGUE_ROWS = 131072     # the benchmark's KT-GNN cells' nodes
+PROLOGUE_CONVS = ((256, 64), (64, 31))   # their first conv and heads
+PROLOGUE_PADDING = 1000    # rows in neither domain
+# the prologue wrappers that add into an argument: its index
+_PROLOGUE_INPLACE = {"conv_prologue_bwd_finish": 2, "conv_prologue_dx": 0}
+
+
+def _prologue_args(name, inputs):
+    """A wrapper's recorded arguments, the one it adds into cloned."""
+    i = _PROLOGUE_INPLACE.get(name)
+    if i is None:
+        return tuple(inputs)
+    args = list(inputs)
+    args[i] = args[i].clone()
+    return tuple(args)
+
+
+def _prologue_outs(name, args, result):
+    """A wrapper's outputs, the argument it added into last."""
+    outs = _outs(result)
+    i = _PROLOGUE_INPLACE.get(name)
+    return outs if i is None or outs[0] is args[i] else outs + (args[i],)
+
+
+def prologue_bound(inputs, outs):
+    """Least time of one prologue call: every tensor argument read once
+    and every output written once (an argument added into: read and
+    written), over HBM_BYTES_PER_S. The per-row work is a few operations
+    an element, far below the bytes' time."""
+    import torch
+
+    total = sum(t.numel() * t.element_size()
+                for t in list(inputs) + list(outs)
+                if isinstance(t, torch.Tensor))
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def check_prologue_calls(recs, plain_reps=PLAIN_REPS):
+    """Replay each recorded conv prologue call through its kernel (twice,
+    bit-identical) and its plain version on the card, the argument a
+    wrapper adds into cloned for each call. Floats within rtol ``RTOL``
+    (``RTOL + BF16_ULP`` for a bf16 output) and atol ``ATOL`` times the
+    output's largest magnitude; the per-block partial rows are compared
+    by their sums over the blocks, in float64. Returns per-call records
+    with errors, times (``ms`` the wrapper's host work included,
+    ``device_ms`` the card's alone) and the byte bound."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    out = []
+    for i, rec in enumerate(recs):
+        name, inputs = rec["name"], rec["inputs"]
+        wrapper, plain = getattr(fk, name), getattr(fk, name + "_plain")
+        where = f"{name} at D={rec['d']} ({rec['dtype']}), call {i}"
+        args = _prologue_args(name, inputs)
+        got = _prologue_outs(name, args, wrapper(*args))
+        again_args = _prologue_args(name, inputs)
+        again = _prologue_outs(name, again_args, wrapper(*again_args))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{where}: two launches on the same inputs "
+                               "differ")
+        del again, again_args
+        plain_args = _prologue_args(name, inputs)
+        want = _prologue_outs(name, plain_args, plain(*plain_args))
+        abs_err = norm_err = 0.0
+        for g, w in zip(got, want, strict=True):
+            rtol = RTOL + (BF16_ULP if g.dtype == torch.bfloat16 else 0.0)
+            if g.shape != w.shape:     # partial rows: per block, or one
+                g, w = (g.double().sum(0, keepdim=True),
+                        w.double().sum(0, keepdim=True))
+            g, w = g.double(), w.double()
+            if not torch.isfinite(g).all():
+                raise RuntimeError(f"{where}: non-finite kernel output")
+            diff = (g - w).abs()
+            w_max = float(w.abs().max()) if w.numel() else 0.0
+            err = float(diff.max()) if diff.numel() else 0.0
+            abs_err = max(abs_err, err)
+            norm_err = max(norm_err, err / max(w_max, 1e-30))
+            if not torch.allclose(g, w, rtol=rtol, atol=ATOL * w_max):
+                raise RuntimeError(f"{where} disagrees with its plain "
+                                   f"version: max abs err {err:.3g} (atol "
+                                   f"{ATOL * w_max:.3g})")
+        timed = _prologue_args(name, inputs)
+        t_bytes = prologue_bound(inputs, got)
+        out.append(dict(
+            name=name, call=i, d=rec["d"],
+            dtype=str(rec["dtype"]).replace("torch.", ""),
+            rows=int(next(t for t in inputs
+                          if isinstance(t, torch.Tensor)).shape[0]),
+            ms=cuda_ms(lambda: wrapper(*timed), KERNEL_REPS),
+            device_ms=cuda_device_ms(lambda: wrapper(*timed), KERNEL_REPS),
+            plain_ms=cuda_ms(lambda: plain(*timed), plain_reps, warmup=1),
+            bound_ms=t_bytes, bytes_ms=t_bytes, ops_ms=0.0,
+            bound_by="bytes", max_abs_err=abs_err,
+            max_err_over_max_abs=norm_err, library_ms=None))
+        del got, want, timed, args, plain_args
+    return out
+
+
+def prologue_phase(card: str) -> dict:
+    """Phase 3 (b): AdaptedConv's prologue at the benchmark's shapes, in
+    f32 and bf16 message tables: for each of PROLOGUE_CONVS an AdaptedConv
+    over PROLOGUE_ROWS seeded rows (PROLOGUE_PADDING of them in neither
+    domain), its prologue's forward and backward recorded (the first
+    conv's input takes no gradient, the heads' does, as on the main
+    path), every call replayed against its plain version
+    (:func:`check_prologue_calls`). Returns the records by message
+    dtype."""
+    import torch
+
+    from bridged_gnn_tpu_torch.nn.ktgnn import AdaptedConv
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    t0 = time.perf_counter()
+    out = {}
+    n = PROLOGUE_ROWS
+    for tables in (None, "bfloat16"):
+        recs = []
+        for i, (d, h) in enumerate(PROLOGUE_CONVS):
+            seed = BENCH["seed"] + d + h
+            conv = AdaptedConv(d, h, msg_dtype=tables,
+                               generator=torch.Generator().manual_seed(seed))
+            conv = conv.cuda()
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            x = torch.randn(n, d, generator=gen, device="cuda") + 0.5
+            x.requires_grad_(i > 0)
+            node = torch.arange(n, device="cuda") < n - PROLOGUE_PADDING
+            cm = torch.rand(n, generator=gen, device="cuda") < 0.5
+            central, target = cm & node, ~cm & node
+            with fk.record_launches(keep_inputs=True) as calls:
+                u_t2s, u_s2t, _ = conv._branch(x, None, central, target)
+                w1 = torch.randn(u_t2s.shape, generator=gen,
+                                 device="cuda").to(u_t2s.dtype)
+                w2 = torch.randn(u_s2t.shape, generator=gen,
+                                 device="cuda").to(u_s2t.dtype)
+                ((u_t2s * w1).float().sum()
+                 + (u_s2t * w2).float().sum()).backward()
+            torch.cuda.synchronize()
+            names = [r["name"] for r in calls]
+            want = list(PROLOGUE) if i > 0 else list(PROLOGUE[:-1])
+            if names != want:
+                raise RuntimeError(f"prologue {d}->{h}: launched {names}, "
+                                   f"not {want}")
+            recs += calls
+            del conv, x, u_t2s, u_s2t, w1, w2
+        with torch.no_grad():
+            out[tables or "float32"] = check_prologue_calls(recs)
+        del recs, calls
+        torch.cuda.empty_cache()
+    for dtype, recs in out.items():
+        for r in recs:
+            log(json.dumps(dict(phase="prologue", tables=dtype, card=card,
+                                **r)))
+    log(f"phase 3b (the conv prologue at {n} rows, D = "
+        f"{PROLOGUE_CONVS}): {time.perf_counter() - t0:.1f} s [{card}]")
+    return out
+
+
+def prologue_rows(prologue, train, card) -> list:
+    """The kernels line's rows of the conv prologue: one per wrapper (its
+    f32 calls), and one more for the epilogue's and the backward pass's
+    bf16 instantiations (``<name>_bf16``). ``ms``, ``plain_ms``,
+    ``bound_ms`` and ``max_abs_err`` sum or take the largest over the
+    replayed calls of phase 3 (b), one forward and backward of each of
+    PROLOGUE_CONVS at PROLOGUE_ROWS rows (``per``); the launches and the
+    in-run ms per epoch are phase 8's, on the bench graph."""
+    src = "bridged_gnn_tpu_torch/csrc/conv_prologue.cu"
+    replaces = ("bridged_gnn_tpu/nn/ktgnn.py AdaptedConv's prologue "
+                "(XLA-fused on the TPU)")
+    per = (f"forward and backward of convs {PROLOGUE_CONVS} at "
+           f"{PROLOGUE_ROWS} rows")
+    rows = []
+    for dtype, suffix, names in (("float32", "", PROLOGUE),
+                                 ("bfloat16", "_bf16",
+                                  ("conv_prologue_epilogue",
+                                   "conv_prologue_bwd"))):
+        for name in names:
+            recs = [r for r in prologue[dtype] if r["name"] == name]
+            row = summary_row(f"{name}{suffix}", src, replaces, recs,
+                              train["launches"][name],
+                              sum(r["ms"] for r in recs), per, card)
+            row.update(dtype=dtype, calls=[{k: r[k] for k in (
+                "d", "rows", "ms", "device_ms", "plain_ms", "bound_ms",
+                "max_abs_err")} for r in recs],
+                ms_per_epoch_bench=train["kernel_ms_per_epoch"][name],
+                launches_per_epoch_by_d=train["launches_per_epoch_by_d"][
+                    name])
+            rows.append(row)
+    return rows
+
+
 def _row_chunks(t):
     """Row slices of ``t`` holding about WIDE_CHUNK elements each."""
     per = max(1, WIDE_CHUNK // max(1, t[0].numel()))
@@ -914,13 +1124,15 @@ def serve_phase(name, pred, data, model, kernel, expect_tiered: bool,
             pred.predict()
         marks.append(len(recs))
     torch.cuda.synchronize()
-    if any(r["name"] != kernel.__name__ for r in recs):
+    if any(r["name"] not in (kernel.__name__,) + PROLOGUE for r in recs):
         raise RuntimeError(f"{name}: launches of another kernel recorded")
     kernel_ms = [sum(r["start"].elapsed_time(r["stop"])
-                     for r in recs[a:b]) for a, b in zip(marks, marks[1:])]
+                     for r in of(recs[a:b], kernel.__name__))
+                 for a, b in zip(marks, marks[1:])]
     launch_ms_by_d = {
         d: statistics.median(r["start"].elapsed_time(r["stop"])
-                             for r in recs if r["d"] == d)
+                             for r in of(recs, kernel.__name__)
+                             if r["d"] == d)
         for d in want_by_d}
     rng = np.random.default_rng(1)
     x = rng.normal(size=(n, pred.graph.num_features)).astype(np.float32)
@@ -928,13 +1140,18 @@ def serve_phase(name, pred, data, model, kernel, expect_tiered: bool,
     nodes = rng.choice(n, size=64, replace=False)
     live_rows = pred.predict_live(x[nodes], nodes)
     launches = kernel.launches
-    other = sum(fn.launches for fn in fk.KERNEL_WRAPPERS) - launches
     calls = 1 + 2 * reps + 2
-    if by_d != want_by_d or launches != calls * per_predict or other:
+    # every predict runs the four convs' prologues besides
+    prologue = prologue_want(pred.graph.num_features, HIDDEN,
+                             forwards=calls)
+    other = {k: c for k, c in fk.launch_counts().items()
+             if c and k != kernel.__name__}
+    if by_d != want_by_d or launches != calls * per_predict \
+            or other != prologue:
         raise RuntimeError(
             f"{name}: {kernel.__name__} launched {by_d} (by width) in one "
             f"predict (expected {want_by_d}) and {launches} in {calls} "
-            f"calls; other kernels {other}")
+            f"calls; other kernels {other}, expected {prologue}")
     for what, preds in (("predict", first), ("live full", live_full),
                         ("live rows", live_rows)):
         check_heads(preds, n, num_classes, f"{name} {what}")
@@ -1076,7 +1293,7 @@ def check_backward(name, data, cfg, tiered: bool):
                         fk.attention_sel_bwd_plain))
     recs = record_run(
         lambda: train_step(model, g, adj, opt, cfg.Lambda, gen),
-        (fwd.__name__, bwd.__name__, "slot_reduce"))
+        (fwd.__name__, bwd.__name__, "slot_reduce") + PROLOGUE)
     calls = {n: [r for r in recs if r["name"] == n]
              for n in (bwd.__name__, "slot_reduce")}
     # the recorded inputs are the step's activations: replay without
@@ -1184,7 +1401,10 @@ def train_phase(name, data, cfg, tiered: bool, n_layouts: int,
     # the eval forward
     want = {fwd: {HIDDEN: 2 * e * lays, num_classes: 6 * e * lays},
             bwd: {HIDDEN: e * lays, num_classes: 3 * e * lays},
-            fk.slot_reduce: {HIDDEN: e * lays, num_classes: 3 * e * lays}}
+            fk.slot_reduce: {HIDDEN: e * lays, num_classes: 3 * e * lays},
+            **{getattr(fk, k): v for k, v in prologue_want(
+                data["x"].shape[1], HIDDEN, forwards=2 * e,
+                backwards=e).items()}}
     fk.reset_launch_counts()
     t0 = time.perf_counter()
     with fk.record_launches() as recs:
@@ -1217,7 +1437,56 @@ def train_phase(name, data, cfg, tiered: bool, n_layouts: int,
 
 
 _HAND_KERNEL = re.compile(
-    r"attention_\w*_kernel|slot_reduce_kernel|gather_reduce_kernel")
+    r"attention_\w*_kernel|slot_reduce_kernel|gather_reduce_kernel"
+    r"|conv_prologue_\w+_kernel")
+# AdaptedConv's prologue (ops/conv_prologue.py): its wrappers in launch
+# order, forward then backward
+PROLOGUE = ("conv_prologue_pass", "conv_prologue_finish",
+            "conv_prologue_epilogue", "conv_prologue_bwd",
+            "conv_prologue_bwd_finish", "conv_prologue_dx")
+
+
+def prologue_want(d: int, hidden=None, forwards: int = 0,
+                  backwards: int = 0, tables=None, calls: int = 1,
+                  x_grad: bool = False, recompute: int = 0) -> dict:
+    """The conv prologue's launches by wrapper name and launch key in
+    ``forwards`` model forwards and ``backwards`` backwards: KT-GNN's conv
+    from ``d`` features and its three head calls at ``hidden``, or, with
+    ``hidden`` None, KTGNN_noDTC's one conv. A conv call launches a pass,
+    a finish and an epilogue forward, a backward pass and finish
+    backward, and ``dx`` where its input takes a gradient (the heads',
+    the first conv's with ``x_grad``). ``calls`` prologues a conv call
+    (2 in the overlap form: own rows, halo rows); ``recompute`` forwards
+    of the first conv more (``memory_policy="lean"``); ``tables`` the
+    message dtype, which keys the epilogue and the backward pass."""
+    import torch
+
+    from bridged_gnn_tpu_torch.ops import fused_kernels as fk
+
+    tables = tables or torch.float32
+
+    def by(n_first, n_heads, dtype=torch.float32):
+        out = {fk.launch_key(d, dtype): n_first * calls}
+        if hidden is not None:
+            key = fk.launch_key(hidden, dtype)
+            out[key] = out.get(key, 0) + 3 * n_heads * calls
+        return {k: v for k, v in out.items() if v}
+
+    fwd = forwards + recompute
+    want = dict(conv_prologue_pass=by(fwd, forwards),
+                conv_prologue_finish=by(fwd, forwards),
+                conv_prologue_epilogue=by(fwd, forwards, tables),
+                conv_prologue_bwd=by(backwards, backwards, tables),
+                conv_prologue_bwd_finish=by(backwards, backwards),
+                conv_prologue_dx=by(backwards if x_grad else 0, backwards))
+    return {k: v for k, v in want.items() if v}
+
+
+def of(recs: list, *names) -> list:
+    """The launch records of the kernels ``names``."""
+    return [r for r in recs if r["name"] in names]
+
+
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -1398,7 +1667,9 @@ def scan_phase(name, data, tiered: bool, n_layouts: int,
     lays = n_layouts
     want = {fwd.__name__: {HIDDEN: 2 * lays, num_classes: 6 * lays},
             bwd.__name__: {HIDDEN: lays, num_classes: 3 * lays},
-            "slot_reduce": {HIDDEN: lays, num_classes: 3 * lays}}
+            "slot_reduce": {HIDDEN: lays, num_classes: 3 * lays},
+            **prologue_want(data["x"].shape[1], HIDDEN, forwards=2,
+                            backwards=1)}
     with mock.patch.object(stage2, "prepare_stage2_graph",
                            lambda *a, **k: prepared):
         fk.reset_launch_counts()
@@ -1515,7 +1786,9 @@ def bf16_serve_phase(name, data, kernel, tiered: bool, n_layouts: int,
     with torch.inference_mode():
         recs = check_kernel(kernel.__name__, kernel,
                             getattr(fk, kernel.__name__ + "_plain"),
-                            record_run(p16.predict, (kernel.__name__,)),
+                            of(record_run(p16.predict,
+                                          (kernel.__name__,) + PROLOGUE),
+                               kernel.__name__),
                             lays)
     if any(r["dtype"] != "bfloat16" for r in recs):
         raise RuntimeError(f"{name}: a bf16 predict launched f32 kernels")
@@ -1536,14 +1809,20 @@ def bf16_serve_phase(name, data, kernel, tiered: bool, n_layouts: int,
         marks.append(len(events))
     torch.cuda.synchronize()
     launches = kernel.launches
-    other = sum(fn.launches for fn in fk.KERNEL_WRAPPERS) - launches
+    # every predict runs the four convs' prologues besides, bf16 tables
+    prologue = prologue_want(p16.graph.num_features, HIDDEN,
+                             forwards=1 + 2 * reps, tables=bf16)
+    other = {k: c for k, c in fk.launch_counts().items()
+             if c and k != kernel.__name__}
     if (by_d != want_by_d or launches != (1 + 2 * reps) * sum(
-            want_by_d.values()) or other):
+            want_by_d.values()) or other != prologue):
         raise RuntimeError(f"{name}: {kernel.__name__} launched {by_d} in "
                            f"one bf16 predict (expected {want_by_d}), "
-                           f"{launches} in all; other kernels {other}")
+                           f"{launches} in all; other kernels {other}, "
+                           f"expected {prologue}")
     kernel_ms = [sum(r["start"].elapsed_time(r["stop"])
-                     for r in events[a:b]) for a, b in zip(marks, marks[1:])]
+                     for r in of(events[a:b], kernel.__name__))
+                 for a, b in zip(marks, marks[1:])]
     n = p16.graph.num_nodes
     check_heads(first, n, num_classes, f"{name} bf16 predict")
     times = {"bfloat16": [], None: []}
@@ -1624,7 +1903,9 @@ def bf16_train_phase(name, data, tiered: bool, n_layouts: int,
                 fk.launch_key(num_classes, bf16))
     want = {fwd.__name__: {hid: 2 * n_layouts, cls: 6 * n_layouts},
             bwd.__name__: {hid: n_layouts, cls: 3 * n_layouts},
-            "slot_reduce": {hid: n_layouts, cls: 3 * n_layouts}}
+            "slot_reduce": {hid: n_layouts, cls: 3 * n_layouts},
+            **prologue_want(data["x"].shape[1], HIDDEN, forwards=2,
+                            backwards=1, tables=bf16)}
     prepared = stage2.prepare_stage2_graph(data, cfg16, "cuda")
     runs = {}
     with mock.patch.object(stage2, "prepare_stage2_graph",
@@ -1736,19 +2017,27 @@ def name_ties(name, data, cfg, loop, diffs) -> list:
     from bridged_gnn_tpu_torch.train.metrics import eval_metric
 
     evals, graph = [], {}
-    eval_arrays = stage2._eval_arrays
 
     def recording(model, g, adj, need_probs, inputs=None):
-        model.eval()
+        # stage2._eval_arrays on the same forward whose margins it keeps:
+        # the predictions are the argmax, whose first class wins an exact
+        # tie (topk's order there is unspecified)
         with torch.no_grad():
-            val, idx = torch.stack(stage2._heads(model, g, adj,
-                                                 inputs)).topk(2, dim=-1)
-        evals.append(((val[..., 0] - val[..., 1]).cpu().numpy(),
-                      idx[..., 0].cpu().numpy(), idx[..., 1].cpu().numpy()))
+            heads = stage2._heads(model, g, adj, inputs)
+            lp = torch.stack(heads)
+            first = lp.argmax(-1)
+            val, idx = lp.topk(2, dim=-1)
+            second = torch.where(idx[..., 0] == first, idx[..., 1],
+                                 idx[..., 0])
+            preds = first.cpu().numpy()
+            evals.append(((val[..., 0] - val[..., 1]).cpu().numpy(),
+                          preds.copy(), second.cpu().numpy()))
+            probs = (torch.stack([h[:, 1].exp() for h in heads]).cpu()
+                     .numpy() if need_probs else None)
         if not graph:
             graph.update({m: getattr(g, m).cpu().numpy() for m in
                           ("y", "train_mask", "val_mask", "test_mask")})
-        return eval_arrays(model, g, adj, need_probs, inputs)
+        return preds, probs
 
     with mock.patch.object(stage2, "_eval_arrays", recording):
         again = stage2.train_ktgnn(data, cfg, device="cuda")
@@ -1784,6 +2073,137 @@ def name_ties(name, data, cfg, loop, diffs) -> list:
                          nodes=list(flips),
                          margins=[float(margin[i]) for i in flips]))
     return ties
+
+
+GRAD_TOL = 1e-3          # phase 11: gradients, relative and of the
+                         # tensor's largest (a ReLU tie moves its column's
+                         # by up to ~5e-4 of the largest)
+ZERO_GRAD = 1e-6         # phase 11: a tensor whose gradient stays below
+                         # this share of the model's largest on both
+                         # devices is zero but for rounding
+
+
+def parity_steps(name, data, cfg) -> dict:
+    """Phase 11: KT-GNN's train step on the card against the CPU's, one
+    step at a time: before each of ``cfg.num_epoch`` steps the CPU model
+    and its Adam take the card's state, so that each comparison holds one
+    step's arithmetic. The losses within LOSS_RTOL; every parameter's
+    gradient within GRAD_TOL relative and GRAD_TOL of the tensor's
+    largest magnitude (a tensor below ZERO_GRAD of the model's largest on
+    both devices, a linear's bias before a batch norm, is zero but for
+    rounding); the batch norms' statistics after the step within
+    WEIGHT_RTOL and WEIGHT_ATOL. Every first ReLU input (the first batch
+    norm's output) whose sign the devices part must lie within TIE_ATOL
+    of 0: a tie, listed with its column c. A tie passes or stops one
+    node's gradient in column c, so the gradient elements apart must lie
+    in rows c of the first conv's linears, biases and attention vectors
+    or at c of the first batch norm's. Adam's step itself is torch's on
+    both devices and is not compared: it divides each gradient by its own
+    size, so where weight decay or the momentum cancels a gradient a
+    rounding apart moves the weight by a share of a step. Returns the
+    steps' errors and ties."""
+    import torch
+
+    from bridged_gnn_tpu_torch.train import stage2
+    from bridged_gnn_tpu_torch.train.optim import make_optimizer
+
+    n = data["x"].shape[0]
+    side = []
+    for dev in ("cuda", "cpu"):
+        g, adj = stage2.prepare_stage2_graph(data, cfg, dev)
+        model = stage2.build_model(cfg, g.num_classes, g.num_features, dev)
+        opt, _ = make_optimizer(model.parameters(), cfg.lr,
+                                cfg.weight_decay, False, cfg.step_size,
+                                cfg.gamma)
+        seen = []
+        model.bns[0].register_forward_hook(
+            lambda m, i, o, seen=seen: seen.append(o.detach().cpu()[:n])
+            if m.training else None)
+        side.append(dict(g=g, adj=adj, model=model, opt=opt, seen=seen))
+    card, cpu = side
+    steps, cpu_s = [], 0.0
+    for step in range(cfg.num_epoch):
+        cpu["model"].load_state_dict(card["model"].state_dict())
+        cpu["opt"].load_state_dict(card["opt"].state_dict())
+        got = []
+        for s_ in (card, cpu):
+            t0 = time.perf_counter()
+            s_["seen"].clear()
+            s_["opt"].zero_grad(set_to_none=True)
+            loss, aux = stage2.stage2_loss(s_["model"], s_["g"], s_["adj"],
+                                           cfg.Lambda, None)
+            loss.backward()
+            grads = {k: p.grad.detach().cpu().clone()
+                     for k, p in s_["model"].named_parameters()
+                     if p.grad is not None}
+            s_["opt"].step()
+            if s_ is cpu:
+                cpu_s += time.perf_counter() - t0
+            stats = {k: v.detach().cpu().clone()
+                     for k, v in s_["model"].named_buffers()}
+            got.append(dict(loss=float(loss.detach()),
+                            loss_t2=float(aux["loss_t2"]), grads=grads,
+                            stats=stats, relu=s_["seen"][0]))
+        a, b = got
+        where = f"{name} step {step}"
+        loss_err = max(abs(a[k] - b[k]) / abs(b[k])
+                       for k in ("loss", "loss_t2"))
+        if loss_err > LOSS_RTOL:
+            raise RuntimeError(f"{where}: card vs CPU losses differ by "
+                               f"{loss_err:.3g} > {LOSS_RTOL}")
+        flips = torch.nonzero((a["relu"] > 0) != (b["relu"] > 0)).tolist()
+        ties = [dict(node=int(v), column=int(c),
+                     card=float(a["relu"][v, c]), cpu=float(b["relu"][v, c]))
+                for v, c in flips]
+        if any(max(abs(t["card"]), abs(t["cpu"])) > TIE_ATOL for t in ties):
+            raise RuntimeError(f"{where}: a first ReLU input parts beyond a "
+                               f"tie: {ties[:10]}")
+        if a["grads"].keys() != b["grads"].keys():
+            raise RuntimeError(f"{where}: gradients of {set(a['grads'])} "
+                               f"against {set(b['grads'])}")
+        columns = {t["column"] for t in ties}
+        largest = max(float(t.abs().max()) for t in b["grads"].values())
+        grad_err, zero, apart = {}, [], {}
+        for k, want in b["grads"].items():
+            have = a["grads"][k]
+            top = max(float(have.abs().max()), float(want.abs().max()))
+            if top <= ZERO_GRAD * largest:
+                zero.append(k)
+                continue
+            err = float((have - want).abs().max())
+            grad_err[k] = err / float(want.abs().max())
+            far = ~torch.isclose(have, want, rtol=GRAD_TOL,
+                                 atol=GRAD_TOL * float(want.abs().max()))
+            tied = (k.startswith("convs.0.") and ".a_g_" not in k
+                    or k.startswith("bns.0."))
+            for idx in torch.nonzero(far).tolist():
+                if not (tied and idx and idx[0] in columns):
+                    raise RuntimeError(
+                        f"{where}: card vs CPU gradient {k}{idx} "
+                        f"{float(have[tuple(idx)])!r} against "
+                        f"{float(want[tuple(idx)])!r} ({grad_err[k]:.3g} of "
+                        f"its largest at most), which no ReLU tie explains "
+                        f"(ties {ties[:10]})")
+                apart.setdefault(k, []).append(idx)
+        stat_err = 0.0
+        for k, want in b["stats"].items():
+            have = a["stats"][k]
+            if not want.is_floating_point():
+                if not torch.equal(have, want):
+                    raise RuntimeError(f"{where}: {k} {have} against {want}")
+                continue
+            stat_err = max(stat_err, float((have - want).abs().max()))
+            if not torch.allclose(have, want, rtol=WEIGHT_RTOL,
+                                  atol=WEIGHT_ATOL):
+                raise RuntimeError(f"{where}: card vs CPU {k} parts")
+        steps.append(dict(step=step, loss_card=a["loss"], loss_cpu=b["loss"],
+                          max_rel_loss_err=loss_err,
+                          max_grad_err_over_largest=max(grad_err.values()),
+                          grad_err_over_largest=grad_err,
+                          zero_grads=zero, max_abs_stat_err=stat_err,
+                          relu_ties=ties,
+                          grads_apart_in_tied_columns=apart))
+    return dict(phase=name, steps=steps, nodes=n, cpu_s=cpu_s)
 
 
 def parity_phase(name, data, cfg, explain=None):
@@ -2197,7 +2617,7 @@ def zoo_per_epoch(name: str, f: int, h: int, c: int) -> dict:
     a linear; APPNP propagates 10 times at the classes; GAT, GATv2,
     DeeperGCN (segment softmax and sum) and MLP launch nothing;
     KTGNN_noDTC (2 layers: one conv to the classes) the attention
-    kernels."""
+    kernels and its conv's prologue (one layout)."""
     return {
         "GraphSAGE": {"gather_reduce": {f: 2, h: 3}},
         "GIN": {"gather_reduce": {f: 2, h: 3}},
@@ -2207,7 +2627,8 @@ def zoo_per_epoch(name: str, f: int, h: int, c: int) -> dict:
         "APPNP": {"gather_reduce": {c: 30}},
         "GAT": {}, "GATv2": {}, "DeeperGCN": {}, "MLP": {},
         "KTGNN_noDTC": {"attention_sel_fwd": {c: 2},
-                        "attention_sel_bwd": {c: 1}, "slot_reduce": {c: 1}},
+                        "attention_sel_bwd": {c: 1}, "slot_reduce": {c: 1},
+                        **prologue_want(f, forwards=2, backwards=1)},
     }[name]
 
 
@@ -2586,8 +3007,9 @@ def serve_zoo_phase(name, path, ckpt, flags, data, reps: int) -> dict:
                                            fk.gather_reduce_plain),
                fk.attention_sel_fwd.__name__: (fk.attention_sel_fwd,
                                                fk.attention_sel_fwd_plain)}
-    recs = record_run(pred.predict, tuple(kernels))
-    kname = recs[0]["name"]
+    recs = record_run(pred.predict, tuple(kernels) + PROLOGUE)
+    kname = next(r["name"] for r in recs if r["name"] in kernels)
+    recs = of(recs, kname)
     wrapper, plain = kernels[kname]
     with torch.inference_mode():
         replay = check_kernel(
@@ -2651,16 +3073,19 @@ def serve_zoo(bench, card: str) -> list:
         stage2.train_ktgnn(bench, stage2.Stage2Config(
             model_name="KTGNN_noDTC", num_epoch=SERVE_ZOO_EPOCHS,
             to_undirected=True, save_best_path=no_dtc), device="cuda")
-        for name, ckpt, flags, kernel in (
+        # KTGNN_noDTC's one conv runs the prologue once a predict
+        for name, ckpt, flags, kernel, prologue in (
                 ("serve_zoo_graphsage", sage, ["--model_name", "GraphSAGE"],
-                 "gather_reduce"),
+                 "gather_reduce", {}),
                 ("serve_zoo_no_dtc", no_dtc, ["--no_dtc"],
-                 "attention_sel_fwd")):
+                 "attention_sel_fwd",
+                 prologue_want(bench["x"].shape[1], forwards=1))):
             rec = serve_zoo_phase(name, path, ckpt, flags, bench,
                                   PREDICT_REPS)
-            if set(rec["launches_per_predict"]) != {kernel}:
-                raise RuntimeError(f"{name}: a predict launched "
-                                   f"{rec['launches_per_predict']}")
+            got = rec["launches_per_predict"]
+            if set(got) != {kernel, *prologue} or \
+                    {k: got[k] for k in prologue} != prologue:
+                raise RuntimeError(f"{name}: a predict launched {got}")
             log(json.dumps(dict(card=card, **rec)))
             out.append(rec)
     return out
@@ -2795,9 +3220,14 @@ def complementor_phase(bench, c: int, card: str) -> dict:
                               scan_epochs=COMPLEMENT_CHUNK, to_undirected=True,
                               adjacency_method=KERNEL_METHOD, **COMPLEMENT)
     prepared = stage2.prepare_stage2_graph(bench, cfg, "cuda")
+    # the first conv takes the complementor's rows, which need a gradient
+    d0 = stage2.build_model(cfg, c, bench["x"].shape[1],
+                            "cpu").convs[0].lin_t.weight.shape[1]
     want = {"attention_sel_fwd": {HIDDEN: 2, c: 6},
             "attention_sel_bwd": {HIDDEN: 1, c: 3},
-            "slot_reduce": {HIDDEN: 1, c: 3}}
+            "slot_reduce": {HIDDEN: 1, c: 3},
+            **prologue_want(d0, HIDDEN, forwards=2, backwards=1,
+                            x_grad=True)}
     with mock.patch.object(stage2, "prepare_stage2_graph",
                            lambda *a, **k: prepared):
         torch.cuda.synchronize()
@@ -2950,7 +3380,8 @@ def paths_phase(card: str) -> dict:
     "blocked" on each of phase 20's graphs (``path_run``); the three
     methods' loop losses agree within LOSS_RTOL (the same seeded init and
     dropout masks, another summation order); the dense and gather runs
-    launch no kernel, the blocked ones theirs. Prints the rule the
+    launch no kernel but KT-GNN's conv prologue, the blocked ones theirs
+    besides. Prints the rule the
     measurements support beside ``ops/spmm.py::DENSE_MAX_NODES``."""
     from bridged_gnn_tpu_torch.graph import round_up, NODE_BLOCK
     from bridged_gnn_tpu_torch.ops import spmm
@@ -2962,6 +3393,10 @@ def paths_phase(card: str) -> dict:
         for model_name in ("KTGNN", "GraphSAGE"):
             runs = {m: path_run(data, model_name, m) for m in PATH_METHODS}
             base = runs["blocked"]["loop_losses"]
+            # every AdaptedConv runs its prologue, whatever the adjacency
+            prologue = prologue_want(
+                data["x"].shape[1], HIDDEN, forwards=2 * PATH_LOOP_EPOCHS,
+                backwards=PATH_LOOP_EPOCHS) if model_name == "KTGNN" else {}
             for m, r in runs.items():
                 err = max(abs(a - b) / abs(b)
                           for a, b in zip(r["loop_losses"], base))
@@ -2969,9 +3404,12 @@ def paths_phase(card: str) -> dict:
                     raise RuntimeError(f"phase 20 {gname} {model_name}: "
                                        f"{m} against blocked losses differ "
                                        f"by {err:.3g}")
-                if (m == "blocked") != bool(r["loop_launches"]):
+                got = r["loop_launches"]
+                other = {k: v for k, v in got.items() if k not in PROLOGUE}
+                if (m == "blocked") != bool(other) or {
+                        k: got[k] for k in PROLOGUE if k in got} != prologue:
                     raise RuntimeError(f"phase 20 {gname} {model_name} {m}:"
-                                       f" launched {r['loop_launches']}")
+                                       f" launched {got}")
                 r.update(graph=gname, n_pad=n_pad,
                          max_rel_loss_err_vs_blocked=err)
                 log(json.dumps(dict(phase="adjacency_paths", card=card,
@@ -3625,8 +4063,8 @@ def stage1_scan_run(src, tar, **kw):
     per_eval = 4 if cfg.device_sampling else STAGE1_EVAL_FORWARDS
     want = {"gather_reduce": {128: STAGE1_PER_STEP[128] * (
         info["eager_epochs"] + info["captures"]) + per_eval * evals}}
-    if (info["launches_per_replay"] != per_replay or counted != want
-            or info["captures"] != 1
+    if (info["launches_per_replay"] != per_replay
+            or counted != want or info["captures"] != 1
             or info["eager_epochs"] + info["replays"] != cfg.num_epoch):
         raise RuntimeError(f"stage-1 scan: {info}, counted {counted}, want "
                            f"{want} and {per_replay} a replay")
@@ -4100,29 +4538,37 @@ def native_phase(card: str) -> dict:
     return out
 
 
-def sharded_want(cfg, c: int) -> dict:
+def sharded_want(cfg, c: int, f: int) -> dict:
     """Kernel launches per rank per epoch (train step and eval forward)
-    of a sharded case, by wrapper and width: KT-GNN's conv at HIDDEN and
-    three heads at the classes; halo: the concatenated pair, or the
-    selective pair for KTGNN_noDTC (one conv, at the classes); overlap:
-    two destination-keyed SpMMs per conv forward (local and halo sets,
-    2·D wide) and their transposes in the backward; edge shard: none."""
+    of a sharded case over ``f`` features, by wrapper and width: KT-GNN's
+    conv at HIDDEN and three heads at the classes; halo: the concatenated
+    pair, or the selective pair for KTGNN_noDTC (one conv, at the
+    classes); overlap: two destination-keyed SpMMs per conv forward
+    (local and halo sets, 2·D wide) and their transposes in the
+    backward; edge shard: none. Every form runs each conv's prologue
+    (:func:`prologue_want`), the overlap form twice a conv call (its own
+    rows, the halo rows)."""
+    no_dtc = cfg.model_name == "KTGNN_noDTC"
+    prologue = prologue_want(
+        f, None if no_dtc else HIDDEN, forwards=2, backwards=1,
+        calls=2 if cfg.halo_overlap and not no_dtc else 1)
     if cfg.shard_layout == "edgeshard":
-        return {}
-    if cfg.model_name == "KTGNN_noDTC":
+        return prologue
+    if no_dtc:
         return {"attention_sel_fwd": {c: 2}, "attention_sel_bwd": {c: 1},
-                "slot_reduce": {c: 1}}
+                "slot_reduce": {c: 1}, **prologue}
     if cfg.halo_overlap:
-        return {"gather_reduce": {2 * HIDDEN: 6, 2 * c: 18}}
+        return {"gather_reduce": {2 * HIDDEN: 6, 2 * c: 18}, **prologue}
     return {"attention_fwd": {HIDDEN: 2, c: 6},
             "attention_bwd": {HIDDEN: 1, c: 3},
-            "slot_reduce": {HIDDEN: 1, c: 3}}
+            "slot_reduce": {HIDDEN: 1, c: 3}, **prologue}
 
 
 def sharded_replay(recs, halo) -> dict:
     """Every kernel call of one recorded sharded step replayed against
-    its plain version, as phases 3, 7 and 16 replay theirs (forwards
-    rtol and atol 1e-4; backwards, reduce and SpMM scaled)."""
+    its plain version, as phases 3, 3b, 7 and 16 replay theirs (forwards
+    rtol and atol 1e-4; backwards, reduce, SpMM and the conv prologue
+    scaled)."""
     import torch
 
     from bridged_gnn_tpu_torch.ops import fused_kernels as fk
@@ -4134,7 +4580,11 @@ def sharded_replay(recs, halo) -> dict:
         by.setdefault(r["name"], []).append(r)
     out = {}
     with torch.no_grad():
+        for r in check_prologue_calls(of(recs, *PROLOGUE), plain_reps=2):
+            out.setdefault(r["name"], []).append(r)
         for name, calls in by.items():
+            if name in PROLOGUE:
+                continue
             if name == "gather_reduce":
                 out[name] = check_gather_calls(calls, layouts)
                 continue
@@ -4208,7 +4658,7 @@ def sharded_rank(data, cases, c: int) -> dict:
         counts = fk.launch_counts()
         e = cfg.num_epoch
         want = {k: {d: n * e for d, n in v.items()}
-                for k, v in sharded_want(cfg, c).items()}
+                for k, v in sharded_want(cfg, c, data["x"].shape[1]).items()}
         got = {k: v for k, v in counts.items() if v}
         if got != want:
             raise RuntimeError(f"{name} rank {rank}: launched {got} in {e} "
@@ -4234,8 +4684,8 @@ def sharded_rank(data, cases, c: int) -> dict:
             setup_s=setup_s, parallel=info,
             replay={k: [{f: r[f] for f in (
                 "d", "layout", "ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "max_abs_err")} for r in v]
-                for k, v in replay.items()})
+                "bound_by", "library_ms", "max_abs_err") if f in r}
+                for r in v] for k, v in replay.items()})
         del res, ev
         if name in SHARDED_TRACE:
             tcfg = dataclasses.replace(cfg, num_epoch=SHARDED_TRACE_EPOCHS)
@@ -4448,7 +4898,7 @@ def scan28_rank(data, c: int) -> dict:
         torch.cuda.synchronize()
         got = {k: v for k, v in fk.launch_counts().items() if v}
         want = {k: {d: n * cfg.num_epoch for d, n in v.items()}
-                for k, v in sharded_want(cfg, c).items()}
+                for k, v in sharded_want(cfg, c, data["x"].shape[1]).items()}
         if got != want:
             raise RuntimeError(f"{name} rank {dist.get_rank()}: launched "
                                f"{got}, expected {want}")
@@ -4659,7 +5109,7 @@ def nccl_scan_run(bench, cfg, c: int, group, single, name: str) -> dict:
         trainer=(stage2, lambda: stage2.train_ktgnn(bench, cfg, "cuda",
                                                     group=group)))
     torch.cuda.empty_cache()
-    info, want = res["scan"], sharded_want(cfg, c)
+    info, want = res["scan"], sharded_want(cfg, c, bench["x"].shape[1])
     if (info["capture"], info["captures"], info["eager_epochs"],
             info["replays"]) != ("nccl", 1, stage2.WARMUP_EPOCHS,
                                  NCCL28_EPOCHS - stage2.WARMUP_EPOCHS):
@@ -4732,8 +5182,8 @@ def nccl_step_replay(bench, cfg, c: int, group) -> dict:
     torch.cuda.empty_cache()
     return {k: [{f: r[f] for f in (
         "d", "layout", "transpose", "real_slots", "ms", "device_ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
-        for r in v] for k, v in replay.items()}
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+        if f in r} for r in v] for k, v in replay.items()}
 
 
 def nccl28_phase(bench, c: int, s1_data, card: str) -> dict:
@@ -5065,15 +5515,19 @@ def main() -> int:
         sel = check_kernel(
             "attention_sel_fwd", fk.attention_sel_fwd,
             fk.attention_sel_fwd_plain,
-            record_run(pred.predict, ("attention_sel_fwd",)),
+            of(record_run(pred.predict, ("attention_sel_fwd",) + PROLOGUE),
+               "attention_sel_fwd"),
             [pred.adj.fast_fn.lay_dst])
         cat = check_kernel(
             "attention_fwd", fk.attention_fwd, fk.attention_fwd_plain,
-            record_run(pred_t.predict, ("attention_fwd",)),
+            of(record_run(pred_t.predict, ("attention_fwd",) + PROLOGUE),
+               "attention_fwd"),
             [t.lay_dst for t in pred_t.adj.tiered_fn.tiers])
     for name, recs in (("attention_sel_fwd", sel), ("attention_fwd", cat)):
         for r in recs:
             log(json.dumps(dict(kernel=name, card=card, **r)))
+    # 3b. the conv prologue's kernels at the benchmark's shapes
+    prologue = prologue_phase(card)
 
     # 4. serving, single layout (selective kernel)
     single = serve_phase("serve_single", pred, bench, model,
@@ -5153,9 +5607,11 @@ def main() -> int:
              else make_benchmark_graph(**dict(BENCH, n=PARITY_NODES)))
     pcfg = Stage2Config(num_epoch=PARITY_EPOCHS, dropout=0.0,
                         to_undirected=True, adjacency_method=KERNEL_METHOD)
+    # one train step at a time from the card's state (parity_steps)
     for name, data in (("parity_single", small),
                        ("parity_tiered", hub_graph(small, BENCH["seed"]))):
-        log(json.dumps(dict(card=card, **parity_phase(name, data, pcfg))))
+        log(json.dumps(dict(card=card, **parity_steps(name, data, pcfg))))
+        torch.cuda.empty_cache()
 
     # 12. heavy rows below the skew rule: one layout, 1,024 heavy rows
     t0 = time.perf_counter()
@@ -5182,7 +5638,8 @@ def main() -> int:
         lead_recs = check_kernel(
             "attention_sel_fwd", fk.attention_sel_fwd,
             fk.attention_sel_fwd_plain,
-            record_run(pred_l.predict, ("attention_sel_fwd",)), [lay_l])
+            of(record_run(pred_l.predict, ("attention_sel_fwd",) + PROLOGUE),
+               "attention_sel_fwd"), [lay_l])
     for r in lead_recs:
         log(json.dumps(dict(kernel="attention_sel_fwd", graph="lead",
                             card=card, **r)))
@@ -5368,6 +5825,7 @@ def main() -> int:
             "hand_kernels_ms"],
         launches_stage1_device_eval=s1_scan["eval"]["launches_per_call"][
             "gather_reduce"])
+    kernels += prologue_rows(prologue, train_single, card)
     # the pipeline's stage 2 (phase 25) runs the bf16 instantiations
     for name, by_d in pipe["launches"].items():
         n = sum(c for k, c in by_d.items() if str(k).endswith(":bf16"))

@@ -20,6 +20,7 @@ from bridged_gnn_tpu_torch.graph import graph_from_dict, with_self_loops
 from bridged_gnn_tpu_torch.ops import blocked_segment as tbs
 from bridged_gnn_tpu_torch.ops import fused_kernels as fk
 from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph
+from chip_smoke import PROLOGUE, prologue_want
 
 SLOPE = 0.1
 
@@ -124,7 +125,53 @@ def _gather_calls(rng, lay, d, n_in=64):
             (fk.gather_reduce, (lay, x, n_in, w, True))]
 
 
+def _prologue_calls(rng, n=70, d=24, h=8, device="cpu",
+                    dtype=torch.float32):
+    """One argument tuple per conv prologue wrapper (``ops/fused_kernels``
+    ``conv_prologue_*``) at rows ``n``, input width ``d`` and output
+    width ``h``: random rows, weights, masks and cotangents, and each
+    wrapper's inputs from the plain versions of the ones before it;
+    message tables and cotangents in ``dtype``."""
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+
+    x, wg1, wg2, wt, ws, bt, bs = (t(n, d), t(1, 2 * d), t(1, 2 * d),
+                                   t(h, d), t(h, d), t(h), t(h))
+    node = torch.from_numpy(rng.random(n) < 0.7).to(device)
+    cm = torch.from_numpy(rng.random(n) < 0.5).to(device)
+    central, target = cm & node, ~cm & node
+    n_sum = n - 5
+    parts, gd = fk.conv_prologue_pass_plain(x, central, target, n_sum, wg1,
+                                            wg2)
+    dd, aux = fk.conv_prologue_finish_plain(parts, wg1, wg2, wt, ws)
+    p = x @ torch.cat([wt, ws]).t()
+    _, _, ab = fk.conv_prologue_epilogue_plain(p, gd, aux, bt, bs, central,
+                                               target, dtype, d)
+    g1, g2 = t(n, h).to(dtype), t(n, h).to(dtype)
+    dy, dz, bparts = fk.conv_prologue_bwd_plain(g1, g2, x, ab, aux, central,
+                                                target)
+    return [
+        (fk.conv_prologue_pass, (x, central, target, n_sum, wg1, wg2)),
+        (fk.conv_prologue_finish, (parts, wg1, wg2, wt, ws)),
+        (fk.conv_prologue_finish, (None, wg1, wg2, wt, ws, t(d))),
+        (fk.conv_prologue_epilogue, (p, gd, aux, bt, bs, central, target,
+                                     dtype, d)),
+        (fk.conv_prologue_bwd, (g1, g2, x, ab, aux, central, target)),
+        (fk.conv_prologue_bwd_finish, (bparts, dd, dy.t() @ x, t(d), wt, ws,
+                                       wg1, wg2)),
+        (fk.conv_prologue_dx, (dy @ torch.cat([wt, ws]), dz, t(d), aux, wg1,
+                               wg2, central, target, n_sum)),
+    ]
+
+
 _PLAIN = {
+    fk.conv_prologue_pass: fk.conv_prologue_pass_plain,
+    fk.conv_prologue_finish: fk.conv_prologue_finish_plain,
+    fk.conv_prologue_epilogue: fk.conv_prologue_epilogue_plain,
+    fk.conv_prologue_bwd: fk.conv_prologue_bwd_plain,
+    fk.conv_prologue_bwd_finish: fk.conv_prologue_bwd_finish_plain,
+    fk.conv_prologue_dx: fk.conv_prologue_dx_plain,
     fk.attention_sel_fwd: fk.attention_sel_fwd_plain,
     fk.attention_fwd: fk.attention_fwd_plain,
     fk.attention_sel_bwd: fk.attention_sel_bwd_plain,
@@ -143,7 +190,8 @@ def test_wrappers_route_cpu_tensors_to_plain(rng):
     fk.reset_launch_counts()
     with fk.record_launches(keep_inputs=True) as records:
         for wrapper, args in (_all_calls(rng, lay, 8, n_in=64)
-                              + _gather_calls(rng, lay, 8)):
+                              + _gather_calls(rng, lay, 8)
+                              + _prologue_calls(rng)):
             for g, w in zip(_outputs(wrapper(*args)),
                             _outputs(_PLAIN[wrapper](*args))):
                 assert torch.equal(g, w)
@@ -155,11 +203,16 @@ def test_wrappers_route_cpu_tensors_to_plain(rng):
 
 def test_wrappers_are_forward_only(rng):
     lay = _small_layout(rng)
-    calls = _all_calls(rng, lay, 8, n_in=64) + _gather_calls(rng, lay, 8)
+    prologue = _prologue_calls(rng)
+    calls = (_all_calls(rng, lay, 8, n_in=64) + _gather_calls(rng, lay, 8)
+             + prologue)
     assert {w for w, _ in calls} == set(fk.KERNEL_WRAPPERS)
     for wrapper, args in calls:
         # a float input that requires grad: the wrappers record no autograd
-        i = 1 if wrapper in (fk.slot_reduce, fk.gather_reduce) else 5
+        i = (0 if wrapper in {w for w, _ in prologue}
+             else 1 if wrapper in (fk.slot_reduce, fk.gather_reduce) else 5)
+        if args[i] is None:   # the finish given a shift: its dd
+            i = 5
         args = list(args)
         args[i] = args[i].clone().requires_grad_()
         with pytest.raises(RuntimeError, match="requires grad"):
@@ -252,9 +305,15 @@ def test_cuda_predictor_launches_kernels(rng, method):
     with fk.record_launches() as records:
         got = card.predict()
     assert kernel.launches == 4 * layouts
-    # the conv at hidden 16, the three head calls at 4 classes
+    # the conv at hidden 16, the three head calls at 4 classes; before
+    # each, its prologue: the conv at 12 features, the heads at 16
     assert kernel.launches_by_d == {16: layouts, 4: 3 * layouts}
-    assert [r["name"] for r in records] == [kernel.__name__] * 4 * layouts
+    assert {n: c for n, c in fk.launch_counts().items() if c} == {
+        kernel.__name__: kernel.launches_by_d,
+        **prologue_want(12, 16, forwards=1)}
+    names = [r["name"] for r in records]
+    assert {n: names.count(n) for n in set(names)} == {
+        kernel.__name__: 4 * layouts, **{n: 4 for n in PROLOGUE[:3]}}
     for head in want:
         np.testing.assert_allclose(got[head], want[head], atol=1e-4)
 
@@ -648,13 +707,146 @@ def test_cuda_scan_equals_loop(rng, method):
     assert scan["best"]["epoch"] == loop["best"]["epoch"]
 
 
+def _close(got, want, bf16):
+    """Card against CPU: f32 sums in another order (rtol 1e-4, as the
+    other kernels' tests), or one bf16 rounding (2^-7 of the largest)."""
+    got, want = got.detach().cpu().float(), want.detach().float()
+    if got.shape != want.shape:   # partial rows: per block, or one
+        got, want = got.sum(0), want.sum(0)
+    tol = 2 ** -7 * float(want.abs().max()) if bf16 else 1e-4
+    torch.testing.assert_close(got, want, rtol=tol if bf16 else 1e-4,
+                               atol=tol)
+
+
+def _prologue_run(conv, x, central, target, seed=1):
+    """A conv's prologue forward and the gradients of ``x`` and of its
+    parameters of a weighted sum of both tables."""
+    x = x.clone().requires_grad_()
+    conv.zero_grad()
+    u_t2s, u_s2t, _ = conv._branch(x, None, central, target)
+    g = torch.Generator().manual_seed(seed)
+    w1 = torch.randn(u_t2s.shape, generator=g).to(u_t2s)
+    w2 = torch.randn(u_s2t.shape, generator=g).to(u_s2t)
+    ((u_t2s * w1).float().sum() + (u_s2t * w2).float().sum()).backward()
+    return [t.detach().clone() for t in [u_t2s, u_s2t, x.grad] + [
+        p.grad for _, p in sorted(conv.named_parameters())
+        if p.grad is not None]]
+
+
+def _prologue_case(rng, d, h, n, msg_dtype, device="cpu"):
+    from bridged_gnn_tpu_torch.nn.ktgnn import AdaptedConv
+
+    conv = AdaptedConv(d, h, msg_dtype=msg_dtype,
+                       generator=torch.Generator().manual_seed(d + h))
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)) + 0.5
+    node = torch.from_numpy(rng.random(n) < 0.7)
+    cm = torch.from_numpy(rng.random(n) < 0.5)
+    return (conv.to(device), x.to(device), (cm & node).to(device),
+            (~cm & node).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("msg_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("d,h", [(256, 64), (64, 31), (13, 7)])
+def test_cuda_conv_prologue_matches_plain(rng, d, h, msg_dtype):
+    """The conv prologue's kernels on the card against their plain
+    versions: each wrapper on the same inputs (the partial rows compared
+    by their sums), then an AdaptedConv's prologue forward and backward
+    (``ops/conv_prologue.py``), the tables in the message dtype, ``x``'s
+    gradient and every parameter's, against the same conv on the CPU.
+    Full f32 matmuls on both sides (PyTorch's default)."""
+    dev = _need_cuda()
+    bf16 = msg_dtype is not None
+    tables = torch.bfloat16 if bf16 else torch.float32
+    for wrapper, args in _prologue_calls(rng, n=5000, d=d, h=h,
+                                         dtype=tables):
+        card = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                for a in args]
+        before = wrapper.launches
+        got = wrapper(*card)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        want = _PLAIN[wrapper](*args)
+        outs = zip(_outputs(got), _outputs(want))
+        for i, (g_, w_) in enumerate(outs):
+            _close(g_, w_, bf16 and wrapper is fk.conv_prologue_epilogue
+                   and i < 2)
+        if wrapper is fk.conv_prologue_bwd_finish:   # dw, in place
+            _close(card[2], args[2], False)
+    conv, x, central, target = _prologue_case(rng, d, h, 5000, msg_dtype)
+    want = _prologue_run(conv, x, central, target)
+    fk.reset_launch_counts()
+    got = _prologue_run(conv.to(dev), x.to(dev), central.to(dev),
+                        target.to(dev))
+    torch.cuda.synchronize()
+    for i, (g_, w_) in enumerate(zip(got, want, strict=True)):
+        assert g_.dtype == w_.dtype
+        _close(g_, w_, bf16 and i < 2)
+    key = f"{d}:bf16" if bf16 else d
+    assert fk.conv_prologue_pass.launches_by_d == {d: 1}
+    assert fk.conv_prologue_epilogue.launches_by_d == {key: 1}
+    assert fk.conv_prologue_bwd.launches_by_d == {key: 1}
+    assert fk.conv_prologue_dx.launches_by_d == {d: 1}
+
+
+@pytest.mark.cuda
+def test_cuda_conv_prologue_is_deterministic(rng):
+    """Two runs of the prologue's forward and backward on the card at the
+    benchmark's widths (256 → 64, bf16 tables) over 40,000 rows (the
+    passes' 256 row blocks) are bit-identical: every sum is taken in a
+    fixed order, with no atomics."""
+    dev = _need_cuda()
+    conv, x, central, target = _prologue_case(rng, 256, 64, 40000,
+                                              "bfloat16", dev)
+    first = _prologue_run(conv, x, central, target)
+    second = _prologue_run(conv, x, central, target)
+    for a, b in zip(first, second, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_prologue_captured_equals_eager(rng):
+    """The prologue's forward and backward captured in a CUDA graph (no
+    host read of a count, nothing shaped by data) and replayed give the
+    eager run's outputs and gradients bit for bit."""
+    dev = _need_cuda()
+    conv, x, central, target = _prologue_case(rng, 64, 31, 20000,
+                                              "bfloat16", dev)
+    x.requires_grad_()
+    params = [p for name, p in sorted(conv.named_parameters())
+              if not name.startswith("a_f")]
+    w1 = torch.randn(x.shape[0], 31, device=dev).bfloat16()
+    w2 = torch.randn(x.shape[0], 31, device=dev).bfloat16()
+
+    def step():
+        u_t2s, u_s2t, _ = conv._branch(x, None, central, target)
+        loss = (u_t2s * w1).float().sum() + (u_s2t * w2).float().sum()
+        return (u_t2s, u_s2t) + torch.autograd.grad(loss, [x] + params)
+
+    # detached, so that no autograd graph of an eager run outlives it
+    eager = [t.detach().clone() for t in step()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        [t.detach() for t in step()]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(static, eager, strict=True):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["blocked", "tiered"])
 def test_cuda_scan_replay_launches(rng, method):
     """Each replay launches the epoch's kernels: per layout 8 forwards
     (4 in the step, 4 in the eval), 4 backwards and 4 reduces, one at the
-    hidden width and three at the classes'. The wrappers count the eager
-    epochs and the capture once each; a replay counts nothing."""
+    hidden width and three at the classes'; and the conv prologue's
+    (``chip_smoke.prologue_want``). The wrappers count the eager epochs and the
+    capture once each; a replay counts nothing."""
     dev = _need_cuda()
     from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
 
@@ -669,7 +861,8 @@ def test_cuda_scan_replay_launches(rng, method):
     assert layouts >= (2 if tiered else 1)
     want = {fwd.__name__: {16: 2 * layouts, 4: 6 * layouts},
             bwd.__name__: {16: layouts, 4: 3 * layouts},
-            "slot_reduce": {16: layouts, 4: 3 * layouts}}
+            "slot_reduce": {16: layouts, 4: 3 * layouts},
+            **prologue_want(12, 16, forwards=2, backwards=1)}
     assert per == want
     counted = WARMUP_EPOCHS + 1
     for name, by_d in want.items():
@@ -871,7 +1064,9 @@ def test_cuda_bf16_predict_and_train(rng, method):
                                   "4:bf16": 6 * layouts},
                    bwd.__name__: {"16:bf16": layouts, "4:bf16": 3 * layouts},
                    "slot_reduce": {"16:bf16": layouts,
-                                   "4:bf16": 3 * layouts}}
+                                   "4:bf16": 3 * layouts},
+                   **prologue_want(12, 16, forwards=2, backwards=1,
+                                   tables=torch.bfloat16)}
     losses = [h["loss"] for h in res["history"]]
     assert np.all(np.isfinite(losses))
     a, b = res["history"][0]["loss"], cpu["history"][0]["loss"]
@@ -1167,8 +1362,9 @@ def test_cuda_convnet_weighted_gather_reduce_matches_plain(rng):
 def test_cuda_zoo_predictor_matches_cpu(rng, name):
     """A single-output model served on the card: one predict launches its
     kernel (GraphSAGE the SpMM at 12 and 16, KTGNN_noDTC the selective
-    attention at the classes), the one head stands for all three, and
-    the log-probs match the CPU's within 1e-4."""
+    attention at the classes after its conv's prologue at 12 features),
+    the one head stands for all three, and the log-probs match the CPU's
+    within 1e-4."""
     dev = _need_cuda()
     from bridged_gnn_tpu_torch.serve import KTGNNPredictor
     from bridged_gnn_tpu_torch.train.stage2 import Stage2Config, build_model
@@ -1185,7 +1381,8 @@ def test_cuda_zoo_predictor_matches_cpu(rng, name):
     launched = {n: c for n, c in fk.launch_counts().items() if c}
     assert launched == ({"gather_reduce": {12: 1, 16: 1}}
                         if name == "GraphSAGE"
-                        else {"attention_sel_fwd": {4: 1}})
+                        else {"attention_sel_fwd": {4: 1},
+                              **prologue_want(12, forwards=1)})
     for head in want:
         np.testing.assert_array_equal(got[head], got["source"])
         np.testing.assert_allclose(got[head], want[head], atol=1e-4)
@@ -1195,7 +1392,8 @@ def test_cuda_zoo_predictor_matches_cpu(rng, name):
 @pytest.mark.parametrize("method", ["dense", "gather"])
 def test_cuda_dense_and_gather_match_cpu(rng, method):
     """KT-GNN on a dense and on a gather adjacency on the card launches no
-    hand-written kernel (JAX runs these paths in XLA), follows its CPU
+    attention or reduce kernel (JAX runs these paths in XLA), only the
+    conv prologue's, which comes before the attention; it follows its CPU
     twin's losses at dropout 0 (rtol 1e-4), and runs in scan mode: the
     dense matrix's scatter and the segment ops are captured in one CUDA
     graph and replayed, the losses at the loop's (rtol 1e-4)."""
@@ -1208,7 +1406,8 @@ def test_cuda_dense_and_gather_match_cpu(rng, method):
     want = train_ktgnn(data, cfg, device="cpu")
     fk.reset_launch_counts()
     got = train_ktgnn(data, cfg, device=dev)
-    assert not any(fk.launch_counts().values())
+    assert {n: c for n, c in fk.launch_counts().items() if c} == \
+        prologue_want(12, 16, forwards=4, backwards=2)
     for a, b in zip(got["history"], want["history"], strict=True):
         assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
     loop = train_ktgnn(data, _scan_cfg(scan_epochs=0,

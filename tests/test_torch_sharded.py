@@ -58,6 +58,11 @@ from tests import torch_sharded_worker as worker
 from tests.test_torch_graph import sync_data
 
 BASE = dict(hidden=8, dropout=0.0, log_every=0, n_shards=2)
+# the conv prologue's wrappers (ops/conv_prologue.py), which every form
+# of an AdaptedConv calls
+PROLOGUE = {"conv_prologue_pass", "conv_prologue_finish",
+            "conv_prologue_epilogue", "conv_prologue_bwd",
+            "conv_prologue_bwd_finish", "conv_prologue_dx"}
 STEP_CASES = dict(
     halo=dict(BASE),
     overlap=dict(BASE, halo_overlap=True),
@@ -167,15 +172,16 @@ def test_lean_overlap_runs_the_plain_halo_form(ranks):
     rule), so the step exchanges and calls the kernels as the plain halo
     form under lean does (the concatenated attention pair and the
     sender reduce, no SpMM); the overlap form without lean calls the
-    SpMM alone."""
+    SpMM alone. Every form runs the conv prologue's kernels."""
     for out in ranks:
         lean, plain = out["overlap_lean"], out["halo_lean"]
         assert lean["info"]["exchange"]["calls"] == \
             plain["info"]["exchange"]["calls"] > 0
         assert lean["kernel_calls"] == plain["kernel_calls"]
-        assert set(lean["kernel_calls"]) == {"attention_fwd",
-                                             "attention_bwd", "slot_reduce"}
-        assert set(out["overlap"]["kernel_calls"]) == {"gather_reduce"}
+        assert set(lean["kernel_calls"]) == {
+            "attention_fwd", "attention_bwd", "slot_reduce", *PROLOGUE}
+        assert set(out["overlap"]["kernel_calls"]) == {"gather_reduce",
+                                                       *PROLOGUE}
 
 
 def test_replicated_state_identical_across_ranks(ranks):
