@@ -155,6 +155,23 @@ def add_self_loops_np(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
     return np.concatenate([edge_index, np.stack([loops, loops])], axis=1)
 
 
+def to_undirected_np(data: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """PyG ToUndirected(merge=True): union of edges and reversed edges,
+    coalesced (reference main_graph_knowledge_transfer.py:410-411)."""
+    ei = data["edge_index"]
+    both = np.concatenate([ei, ei[::-1]], axis=1)
+    out = dict(data)
+    out["edge_index"] = coalesce_np(both, data["x"].shape[0])
+    return out
+
+
+def slot_node_block(ktgnn_family: bool) -> int:
+    """The node block of a stage-2 model's slot layouts, in training and
+    in serving: 128 for the KT-GNN family's attention kernels, 256 for
+    the zoo's padded SpMM."""
+    return 128 if ktgnn_family else 256
+
+
 # ---------------------------------------------------------------------------
 # Graph construction
 # ---------------------------------------------------------------------------

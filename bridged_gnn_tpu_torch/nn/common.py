@@ -44,6 +44,16 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 0,
     return s / n.clamp(min=1.0)
 
 
+def masked_nll(log_probs: torch.Tensor, y: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Mean of -log p(y) over masked nodes (torch F.nll_loss semantics):
+    both stages' classifier loss."""
+    y_safe = y.clamp(min=0).long()
+    picked = log_probs.gather(1, y_safe[:, None])[:, 0]
+    m = mask.to(log_probs.dtype)
+    return -(picked * m).sum() / m.sum().clamp(min=1.0)
+
+
 def pair_norm(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
               mode: str = "PN", scale: float = 1.0,
               group=None) -> torch.Tensor:

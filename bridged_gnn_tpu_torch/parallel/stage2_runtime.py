@@ -3,16 +3,10 @@
 Port of ``bridged_gnn_tpu/parallel/stage2_runtime.py``. With
 ``Stage2Config.n_shards > 1`` the trainer (``train/stage2.py``) runs its
 own epoch loop, eval heads, best-by-``loss_clf_t2`` selection,
-checkpoints and numerics guards on one rank per shard, each with a
-backend that gives it two calls:
-
-* ``train_step(opt, generator)`` → ``(loss, aux)``: one optimizer step;
-  the loss and its terms of the whole graph (0-dim tensors);
-* ``evaluate()`` → ``(scores, per_head)``: the eval heads' scores on
-  the whole graph;
-* ``eval_counts()`` → the five confusion tables of scan mode, summed over
-  the ranks and left on the device: the eval half of a sharded scan
-  epoch (``train/stage2.py::_epoch_body``), which a CUDA graph captures.
+checkpoints and numerics guards on one rank per shard, each through a
+backend with the single device's calls (``train/stage2.py::Stage2Backend``,
+which it subclasses): the loss and its terms, the scores and the counts
+are the whole graph's, and ``info()`` gives the layout and its figures.
 
 Layouts: ``halo`` (:class:`HaloStage2Backend`, row partition + boundary
 exchange, ``halo_overlap`` for the overlap form unless the model
@@ -33,7 +27,7 @@ on every rank.
 
 Scores. With ``metric`` "f1" (``f1_average`` "macro" or "binary") or
 "acc", each rank counts the five confusion tables of scan mode
-(``train/stage2.py::_TABLES``) over its rows and the counts are
+(``train/metrics.py::TABLES``) over its rows and the counts are
 all-reduced (replicated under the edge shard): every rank scores the
 same counts, as ``score_from_counts`` does. Any other metric gathers the
 predictions (and probabilities) of all rows to every rank and scores
@@ -61,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from bridged_gnn_tpu_torch.graph import Graph
+from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN
 from bridged_gnn_tpu_torch.parallel.collectives import GradAllReduce
 from bridged_gnn_tpu_torch.parallel.gspmd import gspmd_setup
 from bridged_gnn_tpu_torch.parallel.halopart import (
@@ -71,13 +66,17 @@ from bridged_gnn_tpu_torch.parallel.halopart import (
     shard_node_array,
     wire_bytes_per_layer,
 )
+from bridged_gnn_tpu_torch.train.metrics import (
+    counts_can_score,
+    score_arrays,
+    table_scores,
+)
+from bridged_gnn_tpu_torch.train.stage2 import (
+    Stage2Backend,
+    kl_sum,
+    ktgnn_loss,
+)
 from bridged_gnn_tpu_torch.utils.profiling import collective_span
-
-
-def _counts_score(cfg) -> bool:
-    """Whether the confusion counts can score ``cfg``'s metric."""
-    return (cfg.metric in ("f1", "acc")
-            and cfg.f1_average in ("macro", "binary"))
 
 
 def _nll_sum(lp, y, mask):
@@ -85,47 +84,26 @@ def _nll_sum(lp, y, mask):
     return -(picked * mask.to(lp.dtype)).sum()
 
 
-def _kl_sum(log_q, log_p, mask):
-    kl = torch.exp(log_p) * (log_p - log_q)
-    return (kl * mask.to(log_q.dtype)[:, None]).sum()
+class _Backend(Stage2Backend):
+    """What sharding changes of the single device's backend: the loss over
+    ``counts`` (the global counts of the train rows, the target train rows
+    and the real rows) and the gradients' all-reduce, the tables'
+    all-reduce, the arrays' gather. Subclasses give the rank's ``g``,
+    ``adj`` and ``inputs`` and set ``replicated`` (every rank holds every
+    row)."""
 
-
-class _Backend:
-    """What both layouts share: the step, the loss terms, the scores.
-    Subclasses set ``g`` (the rank's graph on its device), ``adj`` and
-    ``halo`` (the model's inputs), ``counts`` (the global counts of the
-    train rows, the target train rows and the real rows) and
-    ``replicated`` (every rank holds every row)."""
-
-    g: Graph
-    adj: Any = None
-    halo: Any = None
     replicated: bool = False
+    halo: Any = None  # the halo view, the halo layout's model input
 
-    def __init__(self, group, device, model, cfg, num_classes: int):
-        from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN
-
-        self.group, self.device, self.model, self.cfg = (
-            group, torch.device(device), model, cfg)
+    def __init__(self, group, device, model, g: Graph, adj, inputs, cfg,
+                 num_classes: int):
+        self.group, self.device = group, torch.device(device)
         self.n = dist.get_world_size(group)
         self.multi_head = isinstance(model, KTGNN)
-        self.num_classes = num_classes
         self.all_reduce_grads = GradAllReduce(model.parameters(), group)
-
-    def _setup(self) -> None:
-        """What subclasses call once ``g`` is set: the global counts of
-        the loss and the five tables' masks and label bins."""
-        from bridged_gnn_tpu_torch.train.stage2 import _TABLES
-
-        g, c = self.g, self.num_classes
+        self.g = g
         self.counts = self._global_counts()
-        splits = torch.stack([g.train_mask, g.val_mask, g.test_mask]).int()
-        self.table_masks = splits[[m for _, m in _TABLES]]
-        self.y_bin = torch.where(g.y < 0, c, g.y).long()
-
-    def _heads(self, generator=None):
-        out = self.model(self.g, self.adj, generator, halo=self.halo)
-        return out[:3] if isinstance(out, tuple) else (out,) * 3
+        super().__init__(model, g, adj, inputs, cfg, num_classes)
 
     def _global_counts(self):
         g = self.g
@@ -140,7 +118,7 @@ class _Backend:
     def _terms(self, generator):
         """This rank's share of the loss and of each term."""
         g, (n_tm, n_tt, n_nm) = self.g, self.counts
-        lp_s, lp_t, lp_that = self._heads(generator)
+        lp_s, lp_t, lp_that = self.heads(generator)
         loss_s = _nll_sum(lp_s, g.y, g.train_mask) / n_tm
         if not self.multi_head:
             return loss_s, dict(loss_s=loss_s, loss_t1=loss_s,
@@ -150,10 +128,8 @@ class _Backend:
         aux = dict(loss_s=loss_s,
                    loss_t1=_nll_sum(lp_t, g.y, tt) / n_tt,
                    loss_t2=_nll_sum(lp_that, g.y, tt) / n_tt,
-                   loss_kl=_kl_sum(lp_that, lp_t, g.node_mask) / n_nm)
-        loss = ((2.0 * aux["loss_s"] + aux["loss_t1"] + aux["loss_t2"]) / 4.0
-                + self.cfg.Lambda * aux["loss_kl"])
-        return loss, aux
+                   loss_kl=kl_sum(lp_that, lp_t, g.node_mask) / n_nm)
+        return ktgnn_loss(aux, self.cfg.Lambda), aux
 
     def train_step(self, opt: torch.optim.Optimizer,
                    generator: Optional[torch.Generator]
@@ -175,53 +151,28 @@ class _Backend:
         return vals[0], dict(zip(keys, vals[1:]))
 
     def eval_counts(self) -> torch.Tensor:
-        """The five confusion tables of the eval heads
-        (``train/stage2.py::_TABLES``) [5, 3, C+1] int64, summed over the
-        ranks, on the device: nothing waits for it, so a CUDA graph
-        captures it under NCCL."""
-        from bridged_gnn_tpu_torch.train.stage2 import (
-            _TABLES,
-            _confusion_counts,
-        )
-
-        self.model.eval()
-        with torch.no_grad():
-            heads = self._heads()
-            preds = torch.stack([heads[h].argmax(1) for h, _ in _TABLES])
-            counts = _confusion_counts(preds, self.table_masks, self.y_bin,
-                                       self.num_classes + 1)
-            if not self.replicated:
-                with collective_span("all_reduce"):
-                    dist.all_reduce(counts, op=dist.ReduceOp.SUM,
-                                    group=self.group)
+        """The tables of this rank's rows, summed over the ranks."""
+        counts = super().eval_counts()
+        if not self.replicated:
+            with collective_span("all_reduce"):
+                dist.all_reduce(counts, op=dist.ReduceOp.SUM,
+                                group=self.group)
         return counts
 
     def evaluate(self):
-        """``(scores, per_head)`` of the eval heads (source head on train,
-        target-hat on val and test; each head on test), as the
-        single-device trainer's."""
-        from bridged_gnn_tpu_torch.train.stage2 import (
-            _table_scores,
-            score_arrays,
-        )
-
-        if _counts_score(self.cfg):
-            return _table_scores(self.eval_counts().cpu().numpy(), self.cfg)
-        self.model.eval()
-        g = self.g
-        with torch.no_grad():
-            heads = self._heads()
-            preds = torch.stack([lp.argmax(1) for lp in heads])
-            splits = [g.train_mask, g.val_mask, g.test_mask]
-            probs = torch.stack([lp[:, 1].exp() for lp in heads])
-            local = [t.cpu().numpy() for t in (preds, probs, g.y, *splits)]
+        metric, average = self.cfg.metric, self.cfg.f1_average
+        if counts_can_score(metric, average):
+            return table_scores(self.eval_counts().cpu().numpy(), metric,
+                                average)
+        local = [*self._eval_arrays(need_probs=True), self.y_np,
+                 *self.masks_np.values()]
         if not self.replicated:
             parts = [None] * self.n
             dist.all_gather_object(parts, local, group=self.group)
             local = [np.concatenate(a, axis=-1) for a in zip(*parts)]
         preds, probs, y, *masks = local
         return score_arrays(preds, probs, y, dict(zip(
-            ("train", "val", "test"), masks)), self.cfg)
+            ("train", "val", "test"), masks)), metric, average)
 
     def info(self) -> Dict[str, Any]:
         return dict(layout=self.layout, n_shards=self.n,
@@ -239,29 +190,28 @@ class HaloStage2Backend(_Backend):
 
     def __init__(self, group, device, model, g: Graph, cfg,
                  num_classes: int, part: Optional[HaloPartition] = None):
-        super().__init__(group, device, model, cfg, num_classes)
+        n, dev = dist.get_world_size(group), torch.device(device)
         # JAX takes the overlap form only without recompute-backward
         # (nn/ktgnn.py:428-429), and a sharded lean KT-GNN recomputes: a
         # model whose convs recompute in the backward runs the plain
         # exchange and the attention kernels, whatever halo_overlap says
         overlap = cfg.halo_overlap and not getattr(model, "remat", False)
         part = part or build_halo_partition(
-            g, self.n, overlap=overlap, node_block=cfg.halo_node_block)
+            g, n, overlap=overlap, node_block=cfg.halo_node_block)
         self.part = part = part if overlap else part._replace(pl2=None)
-        if part.num_shards != self.n:
+        if part.num_shards != n:
             raise ValueError(f"the partition has {part.num_shards} shards, "
-                             f"the group {self.n} ranks")
+                             f"the group {n} ranks")
         q = dist.get_rank(group)
-        self.halo = halo_view(part, group, self.device,
-                              selective=not self.multi_head)
-        dev = self.device
+        self.halo = halo_view(part, group, dev,
+                              selective=not isinstance(model, KTGNN))
 
         def rows(t, fill=0):
             a = shard_node_array(t.cpu().numpy(), part, q, fill)
             return torch.from_numpy(a).to(dev)
 
         r, s, m = shard_edges(part, q)
-        self.g = Graph(
+        shard = Graph(
             x=rows(g.x), y=rows(g.y, -1),
             senders=torch.from_numpy(s).to(dev),
             receivers=torch.from_numpy(r).to(dev),
@@ -272,7 +222,8 @@ class HaloStage2Backend(_Backend):
             test_mask=rows(g.test_mask, False),
             central_mask=rows(g.central_mask, False),
             num_nodes=part.rows, num_edges=int(m.sum()))
-        self._setup()
+        super().__init__(group, dev, model, shard, None,
+                         dict(halo=self.halo), cfg, num_classes)
 
     def info(self) -> Dict[str, Any]:
         p = self.part
@@ -297,9 +248,9 @@ class EdgeShardStage2Backend(_Backend):
 
     def __init__(self, group, device, model, g: Graph, cfg,
                  num_classes: int):
-        super().__init__(group, device, model, cfg, num_classes)
-        self.g, self.adj = gspmd_setup(group, g, self.device)
-        self._setup()
+        shard, adj = gspmd_setup(group, g, torch.device(device))
+        super().__init__(group, device, model, shard, adj, {}, cfg,
+                         num_classes)
 
 
 def make_stage2_backend(group, device, model, g: Graph, cfg,

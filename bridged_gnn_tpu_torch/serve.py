@@ -36,6 +36,8 @@ from bridged_gnn_tpu_torch.graph import (
     Graph,
     build_graph,
     graph_from_dict,
+    slot_node_block,
+    to_undirected_np,
     with_self_loops,
 )
 from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN, KTGNNNoDTC
@@ -45,7 +47,6 @@ from bridged_gnn_tpu_torch.ops.sddmm import (
     pair_mlp_score_block,
 )
 from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph
-from bridged_gnn_tpu_torch.train.stage2 import to_undirected_np
 from bridged_gnn_tpu_torch.utils.profiling import annotate
 from bridged_gnn_tpu_torch.utils.platform import (
     check_matmul_precision,
@@ -150,7 +151,8 @@ class KTGNNPredictor:
         self.graph = with_self_loops(graph_from_dict(data)).to(self.device)
         self.adj = adjacency_from_graph(
             self.graph, method=adjacency_method,
-            node_block=128 if isinstance(model, (KTGNN, KTGNNNoDTC)) else 256,
+            node_block=slot_node_block(
+                isinstance(model, (KTGNN, KTGNNNoDTC))),
             device=self.device,
         )
         if state_dict is not None:

@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from bridged_gnn_tpu_torch.graph import Graph, graph_from_dict
+from bridged_gnn_tpu_torch.nn.common import masked_nll
 from bridged_gnn_tpu_torch.nn.stage1 import AdversarialLearnerV2
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency, adjacency_from_graph
 from bridged_gnn_tpu_torch.parallel.collectives import GradAllReduce
@@ -84,18 +85,18 @@ from bridged_gnn_tpu_torch.train.device_sampler import (
     pair_targets,
     sample_epoch_on_device,
 )
-from bridged_gnn_tpu_torch.train.metrics import eval_metric, score_from_counts
+from bridged_gnn_tpu_torch.train.metrics import (
+    confusion_counts,
+    eval_metric,
+    score_from_counts,
+)
 from bridged_gnn_tpu_torch.train.optim import load_optimizer_state
 from bridged_gnn_tpu_torch.train.samplers import (
     PairEnumerator,
     PairEnumeratorCross,
     enumerate_all_pairs,
 )
-from bridged_gnn_tpu_torch.train.stage2 import (
-    _confusion_counts,
-    masked_nll,
-    run_scan,
-)
+from bridged_gnn_tpu_torch.train.scan import run_scan
 from bridged_gnn_tpu_torch.utils.platform import resolve_device
 from bridged_gnn_tpu_torch.utils.profiling import EpochTimer, annotate
 from bridged_gnn_tpu_torch.utils.sanitizers import assert_all_finite
@@ -535,8 +536,8 @@ class DeviceStage1Evaluator:
     test pairs drawn on the device (:class:`DeviceBalancedSampler`, each
     domain's class count as ``max_class_num``, as the host evaluator
     passes it), scored from one encode per domain, and every confusion
-    count formed there, without atomics or a sync (stage 2's
-    ``_confusion_counts``): ``[3, 2]`` per pair relation, ``[3, C+1]`` per
+    count formed there, without atomics or a sync
+    (``train/metrics.py::confusion_counts``): ``[3, 2]`` per pair relation, ``[3, C+1]`` per
     classifier, bin C holding ``y == -1``. One copy to the host; the
     scores are ``score_from_counts``', the same floats ``eval_metric``
     gives on the same rows.
@@ -602,12 +603,12 @@ class DeviceStage1Evaluator:
         out = []
         for rel in RELATIONS:
             pred = (probs[rel] > 0.5).long()[None]
-            out.append(_confusion_counts(
+            out.append(confusion_counts(
                 pred, torch.ones_like(pred, dtype=torch.int32),
                 truth[rel].long(), 2))
         for z, y_bin, mask, bins in zip((z_src, z_tar), self.y_bin,
                                         self.masks[split], self.bins):
-            out.append(_confusion_counts(sim.classify(z).argmax(1)[None],
+            out.append(confusion_counts(sim.classify(z).argmax(1)[None],
                                          mask, y_bin, bins))
         return torch.cat([c.reshape(-1) for c in out])
 

@@ -40,25 +40,20 @@ padded node count (``ops/spmm.py::resolve_adjacency_method``; the slot
 layouts at every size since the H100 measurement), ``"dense"`` and
 ``"gather"`` run KT-GNN's attention and the SpMMs in plain PyTorch.
 ``n_shards > 1`` trains KT-GNN or KTGNN_noDTC over that many ranks of a
-process group, one per shard (JAX ``stage2.py:457-495``): the same loop
-on every rank, with the halo row partition (``shard_layout="halo"``,
-``halo_overlap`` for its overlap form, ``halo_node_block`` for its slot
-layouts' block) or the edge-shard layout as the backend of its train
-step and eval heads (``parallel/stage2_runtime.py``). Outside a process
-group :func:`train_ktgnn` starts the ranks itself
-(``parallel.multihost.spawn``) and returns rank 0's result. Sharded scan
-mode runs the same epoch body over the backend's step and its
-device-side confusion counts: under NCCL one CUDA graph of an epoch,
-replayed; under gloo (CPU ranks, or ranks sharing one card) every epoch
-eagerly, the record on the device and one copy per chunk. The rule is
-fixed from the group's backend before the run, printed in the
+process group, one per shard (JAX ``stage2.py:457-495``), on the halo
+row partition or the edge-shard layout (``parallel/stage2_runtime.py``);
+outside a process group :func:`train_ktgnn` starts the ranks itself and
+returns rank 0's result. Every run steps and scores through one backend
+interface, :class:`Stage2Backend` on one device or its sharded
+subclasses; scan mode's segment loop is ``train/scan.py``, shared with
+stage 1. A sharded scan run captures its epoch under NCCL and runs every
+epoch eagerly under gloo (CPU ranks, or ranks sharing one card), by a
+rule fixed from the group's backend before the run, printed in the
 ``[parallel]`` header and returned in ``scan["capture"]``.
-:func:`run_scan` is the segment loop that stage 1's scan mode shares.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import pickle
 import time
@@ -70,24 +65,32 @@ import torch
 
 from bridged_gnn_tpu_torch.graph import (
     Graph,
-    coalesce_np,
     dst_order,
     graph_from_dict,
+    slot_node_block,
+    to_undirected_np,
     with_self_loops,
 )
 from bridged_gnn_tpu_torch.nn.backbones import build_backbone
+from bridged_gnn_tpu_torch.nn.common import masked_nll
 from bridged_gnn_tpu_torch.nn.complementor import (
     build_frontier_edges,
     pad_frontiers,
 )
 from bridged_gnn_tpu_torch.nn.ktgnn import KTGNN, MSG_DTYPES, KTGNNNoDTC
-from bridged_gnn_tpu_torch.ops import fused_kernels
 from bridged_gnn_tpu_torch.ops.spmm import Adjacency, adjacency_from_graph
-from bridged_gnn_tpu_torch.train.metrics import eval_metric, score_from_counts
+from bridged_gnn_tpu_torch.train.metrics import (
+    TABLES,
+    confusion_counts,
+    counts_can_score,
+    score_arrays,
+    table_scores,
+)
 from bridged_gnn_tpu_torch.train.optim import (
     load_optimizer_state,
     make_optimizer,
 )
+from bridged_gnn_tpu_torch.train.scan import run_scan
 from bridged_gnn_tpu_torch.utils.platform import (
     check_matmul_precision,
     matmul_precision,
@@ -183,9 +186,8 @@ def check_ported(cfg: Stage2Config) -> None:
         raise NotImplementedError(
             "Stage2Config.memory_policy='xla_plain' (the JAX package's "
             "kernels-off tier) is not ported by design: on the card the "
-            "port always runs its kernels, and its plain versions run "
-            "only for CPU tensors; see ROADMAP.md Queue 1, \"left out by "
-            "design\"")
+            "port always runs its kernels, and their plain versions run "
+            "only for CPU tensors")
     if cfg.memory_policy not in ("auto", "plain", "lean"):
         raise ValueError(f"memory_policy: {cfg.memory_policy!r}")
     if cfg.need_complement and not _multi_head(cfg):
@@ -211,32 +213,18 @@ def _check_sharded_model(cfg: Stage2Config) -> None:
             f"{cfg.model_name!r}, need_complement={cfg.need_complement}")
 
 
-def masked_nll(log_probs: torch.Tensor, y: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
-    """Mean of -log p(y) over masked nodes (torch F.nll_loss semantics)."""
-    y_safe = y.clamp(min=0).long()
-    picked = log_probs.gather(1, y_safe[:, None])[:, 0]
-    m = mask.to(log_probs.dtype)
-    return -(picked * m).sum() / m.sum().clamp(min=1.0)
+def kl_sum(log_q: torch.Tensor, log_p: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """sum(exp(log_p)·(log_p − log_q)) over masked rows."""
+    kl = torch.exp(log_p) * (log_p - log_q)
+    return (kl * mask.to(log_q.dtype)[:, None]).sum()
 
 
 def kl_batchmean(log_q: torch.Tensor, log_p: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
     """torch F.kl_div(log_q, log_p, log_target=True, reduction='batchmean')
-    over masked rows: sum(exp(log_p)·(log_p − log_q)) / num_rows."""
-    kl = torch.exp(log_p) * (log_p - log_q)
-    num = (kl * mask.to(log_q.dtype)[:, None]).sum()
-    return num / mask.sum().clamp(min=1)
-
-
-def to_undirected_np(data: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """PyG ToUndirected(merge=True): union of edges and reversed edges,
-    coalesced (reference main_graph_knowledge_transfer.py:410-411)."""
-    ei = data["edge_index"]
-    both = np.concatenate([ei, ei[::-1]], axis=1)
-    out = dict(data)
-    out["edge_index"] = coalesce_np(both, data["x"].shape[0])
-    return out
+    over masked rows: :func:`kl_sum` / num_rows."""
+    return kl_sum(log_q, log_p, mask) / mask.sum().clamp(min=1)
 
 
 # Models whose reference counterparts see a self-loop-augmented edge set
@@ -293,7 +281,7 @@ def prepare_stage2_graph(
     with annotate("stage2.layout"):
         adj = adjacency_from_graph(
             g, method=cfg.adjacency_method,
-            node_block=128 if _ktgnn_family(cfg) else 256, device=dev)
+            node_block=slot_node_block(_ktgnn_family(cfg)), device=dev)
     return g, adj
 
 
@@ -394,6 +382,12 @@ def resolve_memory_policy(cfg: Stage2Config) -> str:
     return "plain" if cfg.memory_policy == "auto" else cfg.memory_policy
 
 
+def ktgnn_loss(aux: Dict[str, torch.Tensor], lam: float) -> torch.Tensor:
+    """KT-GNN's loss from its terms: ``(2·L_s + L_t + L_t̂)/4 + λ·KL``."""
+    return ((2.0 * aux["loss_s"] + aux["loss_t1"] + aux["loss_t2"]) / 4.0
+            + lam * aux["loss_kl"])
+
+
 def stage2_loss(model: torch.nn.Module, g: Graph, adj: Adjacency,
                 lam: float, generator: Optional[torch.Generator],
                 inputs: Optional[Dict[str, Any]] = None
@@ -419,8 +413,7 @@ def stage2_loss(model: torch.nn.Module, g: Graph, adj: Adjacency,
         loss_t2=masked_nll(lp_that, g.y, tar_train),
         loss_kl=kl_batchmean(lp_that, lp_t, g.node_mask),
     )
-    loss = ((2.0 * aux["loss_s"] + aux["loss_t1"] + aux["loss_t2"]) / 4.0
-            + lam * aux["loss_kl"])
+    loss = ktgnn_loss(aux, lam)
     if loss_dist is not None:
         # reference main_graph_knowledge_transfer.py:60-63
         loss = loss + loss_dist
@@ -441,213 +434,134 @@ def train_step(model: torch.nn.Module, g: Graph, adj: Adjacency,
     return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
-def _heads(model: torch.nn.Module, g: Graph, adj: Adjacency,
-           inputs: Optional[Dict[str, Any]] = None):
-    """Eval-mode log-probabilities of the three heads (source, target,
-    target-hat); a single-head model's one head stands for all three."""
-    model.eval()
-    with torch.no_grad():
-        heads = model(g, adj, **(inputs or {}))
-    return heads[:3] if isinstance(heads, tuple) else (heads,) * 3
+class Stage2Backend:
+    """One device's train step and eval heads over the whole graph ``g``
+    (``inputs`` from :func:`model_inputs`); the sharded backends
+    (``parallel/stage2_runtime.py``) subclass it. The trainer calls
+    ``train_step(opt, generator)`` → ``(loss, aux)``, one optimizer step
+    and the loss and its terms before it; ``eval_counts()`` → the eval
+    heads' :data:`TABLES` [5, 3, C+1] int64, left on the device for a
+    CUDA graph to capture; ``evaluate()`` → ``(scores, per_head)`` on the
+    host (source head on train, target-hat on val and test, each head on
+    test); ``info()`` → the result's ``parallel``, None here."""
 
+    def __init__(self, model: torch.nn.Module, g: Graph,
+                 adj: Optional[Adjacency], inputs: Dict[str, Any],
+                 cfg: Stage2Config, num_classes: int):
+        self.model, self.g, self.adj, self.inputs = model, g, adj, inputs
+        self.cfg, self.num_classes = cfg, num_classes
+        splits = [g.train_mask, g.val_mask, g.test_mask]
+        # each table's split mask, int32 [5, N]; each row's class, with
+        # y == -1 in bin C
+        self.table_masks = torch.stack(splits).int()[[m for _, m in TABLES]]
+        self.y_bin = torch.where(g.y < 0, num_classes, g.y).long()
+        self.y_np = g.y.cpu().numpy()
+        self.masks_np = {k: m.cpu().numpy()
+                         for k, m in zip(("train", "val", "test"), splits)}
 
-def _eval_arrays(model: torch.nn.Module, g: Graph, adj: Adjacency,
-                 need_probs: bool, inputs: Optional[Dict[str, Any]] = None):
-    """Eval-mode predictions of the three heads on the host, and their
-    positive-class probabilities when ``need_probs`` (for auc)."""
-    with torch.no_grad():
-        heads = _heads(model, g, adj, inputs)
+    def heads(self, generator: Optional[torch.Generator] = None):
+        """The source, target and target-hat log-probabilities of one
+        forward, dropout from ``generator``; a single head stands for all."""
+        out = self.model(self.g, self.adj, generator, **self.inputs)
+        return out[:3] if isinstance(out, tuple) else (out,) * 3
+
+    def eval_heads(self):
+        """:meth:`heads` of the eval-mode forward, without gradients."""
+        self.model.eval()
+        with torch.no_grad():
+            return self.heads()
+
+    def train_step(self, opt: torch.optim.Optimizer,
+                   generator: Optional[torch.Generator]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return train_step(self.model, self.g, self.adj, opt, self.cfg.Lambda,
+                          generator, self.inputs)
+
+    def eval_counts(self) -> torch.Tensor:
+        heads = self.eval_heads()
+        preds = torch.stack([heads[h].argmax(1) for h, _ in TABLES])
+        return confusion_counts(preds, self.table_masks, self.y_bin,
+                                self.num_classes + 1)
+
+    def _eval_arrays(self, need_probs: bool):
+        """The eval heads' predictions [3, N] on the host, and their
+        positive-class probabilities when ``need_probs`` (for auc)."""
+        heads = self.eval_heads()
         preds = torch.stack([lp.argmax(1) for lp in heads]).cpu().numpy()
         probs = (torch.stack([lp[:, 1].exp() for lp in heads]).cpu().numpy()
                  if need_probs else None)
-    return preds, probs
+        return preds, probs
+
+    def evaluate(self):
+        preds, probs = self._eval_arrays(self.cfg.metric == "auc")
+        return score_arrays(preds, probs, self.y_np, self.masks_np,
+                            self.cfg.metric, self.cfg.f1_average)
+
+    def info(self) -> Optional[Dict[str, Any]]:
+        return None
 
 
 # ---------------------------------------------------------------- scan mode
-
-# Eager epochs before the capture, on the capture's side stream: they
-# create Adam's state, cuBLAS's workspace for that stream and the
-# allocator's blocks. They are real epochs of the run, scored as the
-# others.
-WARMUP_EPOCHS = 2
-# The five confusion-count tables of an epoch: (head, split) with heads
-# 0 source, 1 target, 2 target-hat and splits 0 train, 1 val, 2 test. The
-# first three score the splits, the last three the heads on test.
-_TABLES = ((0, 0), (2, 1), (2, 2), (0, 2), (1, 2))
-
-
-def _table_scores(counts: np.ndarray, cfg: Stage2Config):
-    """``(scores, per_head)`` from one epoch's five tables [5, 3, bins]:
-    train, val and test by their heads, and every head on test."""
-    sc = [score_from_counts(*counts[t], metric=cfg.metric,
-                            f1_average=cfg.f1_average)
-          for t in range(len(_TABLES))]
-    return (dict(train=sc[0], val=sc[1], test=sc[2]),
-            dict(source=sc[3], target=sc[4], target_hat=sc[2]))
-
-
-def score_arrays(preds: np.ndarray, probs: Optional[np.ndarray],
-                 y: np.ndarray, masks: Dict[str, np.ndarray],
-                 cfg: Stage2Config):
-    """``(scores, per_head)`` of the three heads' predictions [3, N] (and
-    positive-class probabilities for auc) on the host: the source head on
-    train, the distilled target-hat head on val and test, each head on
-    test."""
-
-    def score(head, mask):
-        # probs: positive-class probability for auc (reference
-        # main_graph_knowledge_transfer.py:88,102 uses column 1)
-        return eval_metric(
-            y[mask], preds[head][mask], cfg.metric, cfg.f1_average,
-            probs_pos=None if probs is None else probs[head][mask])
-
-    scores = {split: score(0 if split == "train" else 2, mask)
-              for split, mask in masks.items()}
-    per_head = {name: score(h, masks["test"]) for h, name in
-                enumerate(("source", "target", "target_hat"))}
-    return scores, per_head
-
-
-def _confusion_counts(preds: torch.Tensor, masks: torch.Tensor,
-                      y_bin: torch.Tensor, bins: int) -> torch.Tensor:
-    """[T, 3, bins] int64 ``tp``, ``pred`` and ``true`` counts of T
-    tables: table t counts the predictions ``preds[t]`` [N] over the rows
-    where ``masks[t]`` (int32, 0 or 1) is 1. ``y_bin`` holds each row's
-    class, with ``y == -1`` rows in the last bin, which no prediction
-    reaches (``score_from_counts``'s layout). As JAX ``stage2.py:665-680``
-    computes them: one-hot rows, the mask multiplied in, integer sums
-    over the rows; no atomics and nothing that waits for the device."""
-    classes = torch.arange(bins, device=y_bin.device)
-    true = (y_bin[:, None] == classes).int()                  # [N, bins]
-    pred = (preds[:, :, None] == classes).int() * masks[:, :, None]
-    return torch.stack([(pred * true).sum(1), pred.sum(1),
-                        (masks[:, :, None] * true).sum(1)], 1)
 
 
 @dataclasses.dataclass
 class _ScanRun:
     """What :func:`_epoch_body` reads and writes. Every tensor keeps its
-    storage for the whole run, as a CUDA graph's replays need. A sharded
-    run steps and counts through ``backend`` (``parallel/stage2_runtime``)
-    and has no ``masks`` and ``y_bin`` of its own."""
+    storage for the whole run, as a CUDA graph's replays need."""
 
-    model: torch.nn.Module
-    g: Optional[Graph]
-    adj: Optional[Adjacency]
-    inputs: Dict[str, Any]  # model_inputs: frontiers or pseudo
+    backend: Stage2Backend
     opt: torch.optim.Optimizer
     gen: torch.Generator
-    lam: float
     lr: torch.Tensor       # f64 [], Adam's rate for the next epoch
     schedule: bool         # StepLR on
     step_size: int
     gamma: float
     step: torch.Tensor     # int64 [], epochs done
-    masks: Optional[torch.Tensor]   # int32 [5, N]: each table's split mask
-    y_bin: Optional[torch.Tensor]   # int64 [N]: class, y == -1 in bin C
-    bins: int              # C + 1
     i: torch.Tensor        # int64 [1]: the record row this epoch writes
     record: torch.Tensor   # f64 [rows, 2 + 15·bins]: loss, loss_t2, counts
-    backend: Any = None    # a sharded run's backend, else None
 
 
-def _scan_run(model, g, adj, inputs, opt, gen, cfg: Stage2Config,
-              lr: torch.Tensor, epochs_done: int, num_classes: int,
-              backend=None) -> _ScanRun:
+def _scan_run(backend: Stage2Backend, opt, gen, cfg: Stage2Config,
+              lr: torch.Tensor, epochs_done: int) -> _ScanRun:
     dev = lr.device
-    c = num_classes
-    masks = y_bin = None
-    if backend is None:
-        splits = torch.stack([g.train_mask, g.val_mask, g.test_mask]).int()
-        masks = splits[[m for _, m in _TABLES]]
-        y_bin = torch.where(g.y < 0, c, g.y).long()
     return _ScanRun(
-        model=model, g=g, adj=adj, inputs=inputs, opt=opt, gen=gen,
-        lam=cfg.Lambda,
+        backend=backend, opt=opt, gen=gen,
         lr=lr, schedule=cfg.use_scheduler, step_size=cfg.step_size,
         gamma=cfg.gamma,
         step=torch.tensor(epochs_done, dtype=torch.int64, device=dev),
-        masks=masks, y_bin=y_bin, bins=c + 1,
         i=torch.zeros(1, dtype=torch.int64, device=dev),
-        record=torch.zeros(cfg.scan_epochs, 2 + len(_TABLES) * 3 * (c + 1),
-                           dtype=torch.float64, device=dev),
-        backend=backend)
+        record=torch.zeros(
+            cfg.scan_epochs, 2 + len(TABLES) * 3 * (backend.num_classes + 1),
+            dtype=torch.float64, device=dev))
 
 
 def _epoch_body(run: _ScanRun) -> None:
     """One epoch of scan mode, on tensors only (JAX ``stage2.py:682-716``;
-    sharded, ``parallel/stage2_runtime.py``'s ``scan_chunk``): the train
-    step (dropout from the run's generator), Adam, StepLR's step computed
-    on the device, the eval forward, the three heads' argmax and the five
-    confusion tables (a sharded run's all-reduced on the device); the
-    losses and the tables go to row ``i`` of the record, and ``i``
-    advances. Nothing in it waits for the device, so a CUDA graph can
-    capture it."""
-    if run.backend is None:
-        loss, aux = train_step(run.model, run.g, run.adj, run.opt, run.lam,
-                               run.gen, run.inputs)
-    else:
-        loss, aux = run.backend.train_step(run.opt, run.gen)
+    sharded, ``parallel/stage2_runtime.py``'s ``scan_chunk``): the
+    backend's train step (dropout from the run's generator), Adam,
+    StepLR's step computed on the device, and the backend's five
+    confusion tables of the eval forward; the losses and the tables go to
+    row ``i`` of the record, and ``i`` advances. Nothing in it waits for
+    the device, so a CUDA graph can capture it."""
+    loss, aux = run.backend.train_step(run.opt, run.gen)
     run.step += 1
     if run.schedule:
         # StepLR's own chained product, so the rate is the float the
         # per-epoch loop's scheduler holds, bit for bit
         run.lr.copy_(torch.where(run.step % run.step_size == 0,
                                  run.lr * run.gamma, run.lr))
-    if run.backend is None:
-        heads = _heads(run.model, run.g, run.adj, run.inputs)
-        preds = torch.stack([heads[h].argmax(1) for h, _ in _TABLES])
-        counts = _confusion_counts(preds, run.masks, run.y_bin, run.bins)
-    else:
-        counts = run.backend.eval_counts()
+    counts = run.backend.eval_counts()
     row = torch.cat([torch.stack([loss, aux["loss_t2"]]).double(),
                      counts.reshape(-1).double()])
     run.record.index_copy_(0, run.i, row[None])
     run.i += 1
 
 
-def capture_epoch(body, generators, stream: torch.cuda.Stream):
-    """``body()``, one epoch, captured in a CUDA graph on ``stream``, the
-    ``generators`` it draws from registered with it; and the kernel
-    launches each replay makes, by wrapper and width. A failed capture
-    raises. The capture is ``"thread_local"``: an unsafe call made by the
-    capturing thread still voids it, while one made by another thread
-    (NCCL's watchdog polls the events of finished collectives) does
-    not."""
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
-    before = fused_kernels.launch_counts()
-    with torch.cuda.graph(graph, stream=stream,
-                          capture_error_mode="thread_local"):
-        body()
-    per_replay = {}
-    for name, by_d in fused_kernels.launch_counts().items():
-        diff = {d: n - before[name].get(d, 0) for d, n in by_d.items()
-                if n != before[name].get(d, 0)}
-        if diff:
-            per_replay[name] = diff
-    return graph, per_replay
-
-
-# One capture stream per device for the whole process. cuBLAS keeps a
-# workspace (65 MiB on an H100) for every stream it has run on, and frees
-# none, so a new stream per run would leave one behind after each run.
-_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
-
-
-def capture_stream(dev: torch.device) -> torch.cuda.Stream:
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if index not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
-    return _CAPTURE_STREAMS[index]
-
-
 def _use_scan(cfg: Stage2Config) -> bool:
     """The JAX rule (``stage2.py:890-895``): scan needs counts-based
     scores and no per-epoch best-weights copy."""
-    return (cfg.scan_epochs > 0 and cfg.metric in ("f1", "acc")
-            and cfg.f1_average in ("macro", "binary")
+    return (cfg.scan_epochs > 0
+            and counts_can_score(cfg.metric, cfg.f1_average)
             and cfg.save_best_path is None)
 
 
@@ -717,7 +631,7 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
 
         group, dev = make_group(cfg.n_shards, device, group)
         primary = is_primary()
-        g, adj = prepare_stage2_graph(data, cfg, "cpu", build_adj=False)
+        g, _ = prepare_stage2_graph(data, cfg, "cpu", build_adj=False)
     else:
         dev, primary = resolve_device(device), True
         g, adj = prepare_stage2_graph(data, cfg, dev)
@@ -730,12 +644,10 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
               "recompute in the backward)")
     model = build_model(cfg, num_classes, g.num_features, dev,
                         remat=mem_mode == "lean")
-    backend = None
     use_scan = _use_scan(cfg)
     # scan mode's capture rule, fixed before the run: on a card one CUDA
     # graph of an epoch; a sharded run's only under NCCL, since gloo's
     # collectives on CUDA tensors go through the host
-    capture, rule = dev.type == "cuda", None
     if sharded:
         backend = make_stage2_backend(group, dev, model, g, cfg,
                                       num_classes)
@@ -745,6 +657,9 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
             print(f"[parallel] {backend.info()}")
             if use_scan:
                 print(describe_capture(group, dev))
+    else:
+        backend = Stage2Backend(model, g, adj, inputs, cfg, num_classes)
+        capture, rule = dev.type == "cuda", None
     # the loop's rate is a float that StepLR steps; scan mode's a tensor
     # that the epoch body sets on the device (capturable Adam on a card)
     lr = (torch.tensor(cfg.lr, dtype=torch.float64, device=dev)
@@ -753,25 +668,6 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
         model.parameters(), lr, cfg.weight_decay,
         cfg.use_scheduler and not use_scan, cfg.step_size, cfg.gamma)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-
-    y_np = g.y.cpu().numpy()
-    masks_np = {
-        "train": g.train_mask.cpu().numpy(),
-        "val": g.val_mask.cpu().numpy(),
-        "test": g.test_mask.cpu().numpy(),
-    }
-    need_probs = cfg.metric == "auc"
-
-    def evaluate():
-        if backend is not None:
-            return backend.evaluate()
-        preds, probs = _eval_arrays(model, g, adj, need_probs, inputs)
-        return score_arrays(preds, probs, y_np, masks_np, cfg)
-
-    def step():
-        if backend is not None:
-            return backend.train_step(opt, gen)
-        return train_step(model, g, adj, opt, cfg.Lambda, gen, inputs)
 
     def check_numerics(losses, epoch):
         if cfg.check_numerics:
@@ -837,22 +733,43 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
     timer = EpochTimer(dev)
     scan_info = None
     if use_scan:
-        run = _scan_run(model, g, adj, inputs, opt, gen, cfg, lr,
-                        start_epoch - 1, num_classes, backend)
-        scan_info = _scan_loop(run, cfg, timer, start_epoch, record,
-                               check_numerics, save if ckptr else None,
-                               capture)
+        # chunks of k = min(scan_epochs, remaining) epochs (JAX
+        # stage2.py:896-968), each copying its [k] rows of losses and
+        # counts to the host in one copy (numerics checked there); the host
+        # scores them, records the epochs and checkpoints
+        run = _scan_run(backend, opt, gen, cfg, lr, start_epoch - 1)
+
+        def fetch(first, last):
+            rec = run.record[: last - first + 1].cpu().numpy()
+            check_numerics(rec[:, :2], last)
+            return rec
+
+        def after(first, last, rec):
+            k = last - first + 1
+            counts = rec[:, 2:].reshape(k, len(TABLES), 3, num_classes + 1)
+            for j in range(k):
+                record(first + j, float(rec[j, 0]), float(rec[j, 1]),
+                       *table_scores(counts[j], cfg.metric, cfg.f1_average))
+            if ckptr is not None:
+                save(last)
+
+        segments = [(e, min(e + cfg.scan_epochs, cfg.num_epoch + 1) - 1)
+                    for e in range(start_epoch, cfg.num_epoch + 1,
+                                   cfg.scan_epochs)]
+        scan_info = run_scan(segments, lambda: _epoch_body(run), (gen,),
+                             run.i, timer, fetch, after, capture=capture,
+                             spans="stage2")
         if rule is not None:
             scan_info["capture"] = rule
     else:
         for epoch in range(start_epoch, cfg.num_epoch + 1):
             with timer:
-                loss, aux = step()
+                loss, aux = backend.train_step(opt, gen)
                 if sched is not None:
                     sched.step()
                 loss, loss_t2 = float(loss), float(aux["loss_t2"])
                 check_numerics(np.asarray(loss), epoch)
-                scores, per_head = evaluate()
+                scores, per_head = backend.evaluate()
             record(epoch, loss, loss_t2, scores, per_head)
             if ckptr is not None and (
                 epoch % cfg.ckpt_every == 0 or epoch == cfg.num_epoch
@@ -887,111 +804,5 @@ def _train_ktgnn(data: Dict[str, np.ndarray], cfg: Stage2Config,
         state_dict={k: v.detach().cpu().clone()
                     for k, v in model.state_dict().items()},
         num_edges=g.num_edges,
-        parallel=None if backend is None else backend.info(),
+        parallel=backend.info(),
     )
-
-
-def run_scan(segments, body, generators, i: torch.Tensor,
-             timer: EpochTimer, fetch, after, load=None,
-             capture: Optional[bool] = None,
-             spans: Optional[str] = None) -> dict:
-    """The segment loop of both trainers' scan modes. For each segment
-    ``(first, last)`` of k epochs, timed as one ``timer.chunk(k)``: the
-    segment's inputs (``load(k)``), the record row counter ``i`` zeroed,
-    ``body()`` k times, and ``fetch(first, last)``, the segment's one
-    synchronize and copy to the host; then, outside the timer,
-    ``after(first, last, fetched)``.
-
-    With ``capture`` (default: on a card) the first :data:`WARMUP_EPOCHS`
-    epochs run eagerly on the capture stream, the next is captured there
-    once (``generators`` registered with it), and every later epoch is a
-    replay of that graph. Without it (the CPU, or a sharded run over
-    gloo) every epoch runs eagerly. A failed capture raises. Returns the
-    eager epochs, the captures, the replays and each replay's kernel
-    launches.
-
-    ``spans``: a name under which a profiler sees the capture
-    (``<spans>.capture``) and each ``after`` (``<spans>.score``) as
-    ranges of their own; None for no ranges."""
-    dev = i.device
-    on_card = dev.type == "cuda" if capture is None else capture
-    stream = capture_stream(dev) if on_card else None
-    graph, per_replay = None, {}
-    eager = replays = 0
-    if stream is not None:
-        stream.wait_stream(torch.cuda.current_stream(dev))
-    with (torch.cuda.stream(stream) if on_card
-          else contextlib.nullcontext()):
-        for first, last in segments:
-            k = last - first + 1
-            captured, eager_before = False, eager
-            with timer.chunk(k):
-                if load is not None:
-                    load(k)
-                i.zero_()
-                for _ in range(k):
-                    if not on_card or eager < WARMUP_EPOCHS:
-                        with warnings.catch_warnings():
-                            # capturable Adam warns when it steps outside
-                            # a capture, as the warm-up epochs do
-                            warnings.filterwarnings(
-                                "ignore", message=".*capturable=True")
-                            body()
-                        eager += 1
-                        continue
-                    if graph is None:
-                        with _span(spans, "capture"):
-                            # nothing in flight when the capture starts
-                            torch.cuda.synchronize(dev)
-                            graph, per_replay = capture_epoch(
-                                body, generators, stream)
-                        captured = True
-                    graph.replay()
-                    replays += 1
-                fetched = fetch(first, last)
-            if (first == segments[0][0] or captured
-                    or (on_card and eager > eager_before)):
-                # the first segment, and on the card the warm-up epochs
-                # and the capture, stay out of the steady statistics
-                timer.warmup = len(timer.times)
-            with _span(spans, "score"):
-                after(first, last, fetched)
-    if stream is not None:
-        torch.cuda.current_stream(dev).wait_stream(stream)
-    return dict(eager_epochs=eager, captures=int(graph is not None),
-                replays=replays, launches_per_replay=per_replay)
-
-
-def _span(prefix: Optional[str], name: str):
-    return (contextlib.nullcontext() if prefix is None
-            else annotate(f"{prefix}.{name}"))
-
-
-def _scan_loop(run: _ScanRun, cfg: Stage2Config, timer: EpochTimer,
-               start_epoch: int, record, check_numerics, save,
-               capture: bool) -> dict:
-    """Scan mode's chunk loop (JAX ``stage2.py:896-968``) on
-    :func:`run_scan`: chunks of ``k = min(scan_epochs, remaining)``
-    epochs of :func:`_epoch_body`, each copying its ``[k]`` rows of
-    losses and counts to the host in one copy (numerics checked there);
-    the host scores them, records the epochs and checkpoints."""
-
-    def fetch(first, last):
-        rec = run.record[: last - first + 1].cpu().numpy()
-        check_numerics(rec[:, :2], last)
-        return rec
-
-    def after(first, last, rec):
-        k = last - first + 1
-        counts = rec[:, 2:].reshape(k, len(_TABLES), 3, run.bins)
-        for j in range(k):
-            record(first + j, float(rec[j, 0]), float(rec[j, 1]),
-                   *_table_scores(counts[j], cfg))
-        if save is not None:
-            save(last)
-
-    segments = [(e, min(e + cfg.scan_epochs, cfg.num_epoch + 1) - 1)
-                for e in range(start_epoch, cfg.num_epoch + 1,
-                               cfg.scan_epochs)]
-    return run_scan(segments, lambda: _epoch_body(run), (run.gen,), run.i,
-                    timer, fetch, after, capture=capture, spans="stage2")

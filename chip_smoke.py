@@ -1652,6 +1652,7 @@ def scan_phase(name, data, tiered: bool, n_layouts: int,
 
     from bridged_gnn_tpu_torch.ops import fused_kernels as fk
     from bridged_gnn_tpu_torch.train import stage2
+    from bridged_gnn_tpu_torch.train.scan import WARMUP_EPOCHS
 
     cfg = stage2.Stage2Config(
         adjacency_method=KERNEL_METHOD,
@@ -1717,7 +1718,7 @@ def scan_phase(name, data, tiered: bool, n_layouts: int,
                 cfg, scan_epochs=0), loop, score_diffs)
     info = scan["scan"]
     if (info["captures"], info["eager_epochs"], info["replays"]) != (
-            1, stage2.WARMUP_EPOCHS, SCAN_EPOCHS - stage2.WARMUP_EPOCHS):
+            1, WARMUP_EPOCHS, SCAN_EPOCHS - WARMUP_EPOCHS):
         raise RuntimeError(f"{name}: scan ran {info}")
     if info["launches_per_replay"] != want:
         raise RuntimeError(f"{name}: a replay launches "
@@ -2018,12 +2019,13 @@ def name_ties(name, data, cfg, loop, diffs) -> list:
 
     evals, graph = [], {}
 
-    def recording(model, g, adj, need_probs, inputs=None):
-        # stage2._eval_arrays on the same forward whose margins it keeps:
-        # the predictions are the argmax, whose first class wins an exact
-        # tie (topk's order there is unspecified)
+    def recording(backend, need_probs):
+        # Stage2Backend._eval_arrays on the same forward whose margins it
+        # keeps: the predictions are the argmax, whose first class wins an
+        # exact tie (topk's order there is unspecified)
+        g = backend.g
         with torch.no_grad():
-            heads = stage2._heads(model, g, adj, inputs)
+            heads = backend.eval_heads()
             lp = torch.stack(heads)
             first = lp.argmax(-1)
             val, idx = lp.topk(2, dim=-1)
@@ -2039,7 +2041,8 @@ def name_ties(name, data, cfg, loop, diffs) -> list:
                           ("y", "train_mask", "val_mask", "test_mask")})
         return preds, probs
 
-    with mock.patch.object(stage2, "_eval_arrays", recording):
+    with mock.patch.object(stage2.Stage2Backend, "_eval_arrays",
+                           recording):
         again = stage2.train_ktgnn(data, cfg, device="cuda")
     if again["history"] != loop["history"]:
         raise RuntimeError(f"{name}: the loop did not repeat its history")
@@ -2487,9 +2490,12 @@ def zoo_replay(data, cfg, layouts_want: int, panel_check: bool = False,
         raise RuntimeError(f"zoo replay: {len(layouts)} layout(s), not "
                            f"{layouts_want}")
 
+    backend = stage2.Stage2Backend(model, g, adj, inputs, cfg,
+                                   g.num_classes)
+
     def epoch():
-        stage2.train_step(model, g, adj, opt, cfg.Lambda, gen, inputs)
-        stage2._heads(model, g, adj, inputs)
+        backend.train_step(opt, gen)
+        backend.eval_heads()
 
     recs = [r for r in record_run(epoch, ("gather_reduce",))
             if width is None or r["d"] == width]
@@ -2824,6 +2830,7 @@ def zoo_phase(bench, hub, c: int, card: str) -> dict:
     import torch
 
     from bridged_gnn_tpu_torch.train import stage2
+    from bridged_gnn_tpu_torch.train.scan import WARMUP_EPOCHS
 
     f, h = BENCH["dim"], HIDDEN
     out = {}
@@ -2869,8 +2876,8 @@ def zoo_phase(bench, hub, c: int, card: str) -> dict:
             check_numerics=True), sage, 1, record=False)
         info = scan["scan"]
         if (info["captures"], info["eager_epochs"], info["replays"]) != (
-                1, stage2.WARMUP_EPOCHS,
-                ZOO_SCAN_EPOCHS - stage2.WARMUP_EPOCHS) \
+                1, WARMUP_EPOCHS,
+                ZOO_SCAN_EPOCHS - WARMUP_EPOCHS) \
                 or info["launches_per_replay"] != sage:
             raise RuntimeError(f"zoo scan: {info}")
         err = max(abs(a - b) / abs(b) for a, b in zip(
@@ -5097,6 +5104,7 @@ def nccl_scan_run(bench, cfg, c: int, group, single, name: str) -> dict:
 
     from bridged_gnn_tpu_torch.ops import fused_kernels as fk
     from bridged_gnn_tpu_torch.train import stage2
+    from bridged_gnn_tpu_torch.train.scan import WARMUP_EPOCHS
 
     fk.reset_launch_counts()
     t0 = time.perf_counter()
@@ -5111,8 +5119,8 @@ def nccl_scan_run(bench, cfg, c: int, group, single, name: str) -> dict:
     torch.cuda.empty_cache()
     info, want = res["scan"], sharded_want(cfg, c, bench["x"].shape[1])
     if (info["capture"], info["captures"], info["eager_epochs"],
-            info["replays"]) != ("nccl", 1, stage2.WARMUP_EPOCHS,
-                                 NCCL28_EPOCHS - stage2.WARMUP_EPOCHS):
+            info["replays"]) != ("nccl", 1, WARMUP_EPOCHS,
+                                 NCCL28_EPOCHS - WARMUP_EPOCHS):
         raise RuntimeError(f"{name}: {info}")
     if info["launches_per_replay"] != want:
         raise RuntimeError(f"{name}: a replay launches "

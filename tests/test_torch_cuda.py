@@ -690,7 +690,8 @@ def test_cuda_scan_equals_loop(rng, method):
     Adam with a float rate) and the scores and the best epoch are
     equal."""
     dev = _need_cuda()
-    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
+    from bridged_gnn_tpu_torch.train.scan import WARMUP_EPOCHS
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
 
     data = _scan_data(rng, method)
     loop = train_ktgnn(data, _scan_cfg(scan_epochs=0,
@@ -848,7 +849,8 @@ def test_cuda_scan_replay_launches(rng, method):
     (``chip_smoke.prologue_want``). The wrappers count the eager epochs and the
     capture once each; a replay counts nothing."""
     dev = _need_cuda()
-    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
+    from bridged_gnn_tpu_torch.train.scan import WARMUP_EPOCHS
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
 
     fk.reset_launch_counts()
     res = train_ktgnn(_scan_data(rng, method),
@@ -1292,7 +1294,8 @@ def test_cuda_zoo_scan_equals_loop(rng, method):
     rtol 1e-4, scores and best epoch equal; each replay launches the SpMM
     kernel as a loop epoch does."""
     dev = _need_cuda()
-    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
+    from bridged_gnn_tpu_torch.train.scan import WARMUP_EPOCHS
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
 
     data = _zoo_data(rng, method)
     kw = dict(model_name="GraphSAGE", use_scheduler=False,
@@ -1336,10 +1339,11 @@ def test_cuda_convnet_weighted_gather_reduce_matches_plain(rng):
     inputs = stage2.model_inputs(data, cfg, g)
     model = stage2.build_model(cfg, g.num_classes, g.num_features, dev)
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    backend = stage2.Stage2Backend(model, g, adj, inputs, cfg, g.num_classes)
     fk.reset_launch_counts()
     with fk.record_launches(keep_inputs=True) as recs:
-        stage2.train_step(model, g, adj, opt, 1.0, None, inputs)
-        stage2._heads(model, g, adj, inputs)
+        backend.train_step(opt, None)
+        backend.eval_heads()
     assert fk.gather_reduce.launches_by_d == {16: 6, 4: 6}
     assert {r["name"] for r in recs} == {"gather_reduce"}
     with torch.no_grad():
@@ -1610,7 +1614,7 @@ def test_cuda_stage1_scan_replays_equal_eager(device_sampling):
     and no other kernel."""
     dev = _need_cuda()
     from bridged_gnn_tpu_torch.train import stage1 as ts1
-    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS
+    from bridged_gnn_tpu_torch.train.scan import WARMUP_EPOCHS
 
     src, tar, _, _ = _stage1_domains()
     cfg = _stage1_cfg(num_epoch=7, start_eval_epoch=3, eval_per_epoch=2,
@@ -1792,7 +1796,8 @@ def test_cuda_nccl_sharded_scan_captures(rng, layout):
     its. ``overlap``: the halo layout's overlap form, whose exchange is
     still in flight while the local partials are captured."""
     dev = _need_cuda()
-    from bridged_gnn_tpu_torch.train.stage2 import WARMUP_EPOCHS, train_ktgnn
+    from bridged_gnn_tpu_torch.train.scan import WARMUP_EPOCHS
+    from bridged_gnn_tpu_torch.train.stage2 import train_ktgnn
 
     data = _scan_data(rng, "blocked")
     kw = (dict(shard_layout="halo", halo_overlap=True)

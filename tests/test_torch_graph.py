@@ -24,7 +24,6 @@ from bridged_gnn_tpu_torch.data import synthetic as tsyn
 from bridged_gnn_tpu_torch.io.serialize import load_graph_npz
 from bridged_gnn_tpu_torch.ops import blocked_segment as tbs
 from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph as t_adjacency
-from bridged_gnn_tpu_torch.train.stage2 import to_undirected_np as t_undirected
 
 from tests.test_torch_cuda import random_edges, skewed_data
 
@@ -104,7 +103,7 @@ def test_graph_builders_identical(rng):
         tgraph.sort_edges_by_dst(data["edge_index"], 150))
     assert_same_graph(jgraph.graph_from_dict(data),
                       tgraph.graph_from_dict(data))
-    uj, ut = j_undirected(data), t_undirected(data)
+    uj, ut = j_undirected(data), tgraph.to_undirected_np(data)
     np.testing.assert_array_equal(uj["edge_index"], ut["edge_index"])
     gj = jgraph.with_self_loops(jgraph.graph_from_dict(uj))
     gt = tgraph.with_self_loops(tgraph.graph_from_dict(ut))

@@ -8,11 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from bridged_gnn_tpu_torch.graph import graph_from_dict, with_self_loops
+from bridged_gnn_tpu_torch.graph import (
+    graph_from_dict,
+    to_undirected_np,
+    with_self_loops,
+)
 from bridged_gnn_tpu_torch.ops import blocked_segment as tbs
 from bridged_gnn_tpu_torch.ops import fused_kernels as fk
 from bridged_gnn_tpu_torch.ops.spmm import adjacency_from_graph
-from bridged_gnn_tpu_torch.train.stage2 import to_undirected_np
 
 from tests.test_torch_cuda import (
     SLOPE,

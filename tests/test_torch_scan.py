@@ -24,7 +24,11 @@ from bridged_gnn_tpu_torch.io.flax_weights import (
 )
 from bridged_gnn_tpu_torch.train import stage2 as ts2
 from bridged_gnn_tpu_torch.train.checkpoint import TrainCheckpointer
-from bridged_gnn_tpu_torch.train.metrics import eval_metric, score_from_counts
+from bridged_gnn_tpu_torch.train.metrics import (
+    confusion_counts,
+    eval_metric,
+    score_from_counts,
+)
 from bridged_gnn_tpu_torch.train.stage2 import (
     Stage2Config,
     prepare_stage2_graph,
@@ -159,7 +163,7 @@ def test_confusion_counts_match_numpy(seed):
     preds = rng.integers(0, 5, size=(t, n))      # class 5 never predicted
     masks = rng.random((t, n)) < 0.6
     masks[-1] = False
-    got = ts2._confusion_counts(
+    got = confusion_counts(
         torch.from_numpy(preds), torch.from_numpy(masks).int(),
         torch.from_numpy(np.where(y < 0, c, y)), c + 1)
     assert got.dtype == torch.int64 and got.shape == (t, 3, c + 1)

@@ -285,8 +285,8 @@ def test_dropout_draws_from_the_generator():
     dict(adjacency_method="dense"),
 ], ids=lambda o: "-".join(f"{k}-{v}" for k, v in o.items()))
 def test_options_run_or_refuse_as_jax(overrides):
-    """``memory_policy="xla_plain"`` raises NotImplementedError naming
-    ROADMAP.md Queue 1's "left out by design". Of the other options,
+    """``memory_policy="xla_plain"`` raises NotImplementedError saying
+    that the kernels-off tier is not ported by design. Of the other options,
     ``need_complement``, the dense and gather adjacencies and
     ``n_shards=4`` (four ranks the trainer starts itself) train (finite
     losses), and the rest refuse as the JAX runtime does,
@@ -303,8 +303,8 @@ def test_options_run_or_refuse_as_jax(overrides):
         res = train_ktgnn(_data("sync"), cfg, device="cpu")
         assert np.all(np.isfinite([h["loss"] for h in res["history"]]))
         return
-    exc, match = refused.get(key, (NotImplementedError,
-                                   "ROADMAP.md Queue 1, \"left out by"))
+    exc, match = refused.get(key, (
+        NotImplementedError, "kernels-off tier\\) is not ported by design"))
     with pytest.raises(exc, match=match):
         train_ktgnn(_data("sync"), cfg, device="cpu")
 
@@ -354,7 +354,7 @@ def test_cli_refuses_xla_plain_and_trains_sharded_scan(cli_run, tmp_path):
     _, npz, _, argv = cli_run
     ap = tcli2.build_argparser()
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1, \"left out by"):
+                       match="kernels-off tier\\) is not ported by design"):
         tcli2.main(ap.parse_args(argv[:-2] + ["--device", "cpu",
                                               "--memory_policy",
                                               "xla_plain"]))

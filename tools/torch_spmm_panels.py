@@ -86,10 +86,11 @@ def _bench_setup(cs, data):
 
     cfg = cs.no_dtc_cfg()
     g, adj, model, opt, gen = cs.train_setup(data, cfg)
+    backend = stage2.Stage2Backend(model, g, adj, {}, cfg, g.num_classes)
 
     def epoch():
-        stage2.train_step(model, g, adj, opt, cfg.Lambda, gen)
-        stage2._heads(model, g, adj)
+        backend.train_step(opt, gen)
+        backend.eval_heads()
 
     recs = cs.record_run(epoch, ("gather_reduce",))
     return g, adj, recs
