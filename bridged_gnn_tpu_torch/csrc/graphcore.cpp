@@ -3,7 +3,8 @@
 // The port's own copy of the JAX package's native/graphcore.cpp: the
 // build-time graph operations (edge coalesce, destination sort, CSR row
 // pointers, degrees, chunk metadata, edge partitioning) run on the host
-// once per graph. Coalesce and sort pack each edge into one 64-bit key
+// once per graph, and so does the port's own sender index of a slot
+// layout. Coalesce and sort pack each edge into one 64-bit key
 // and radix-sort the keys, where the JAX package's copy sorts an index
 // array with an indirect comparison. bridged_gnn_tpu_torch/io/native.py
 // compiles this file with g++ into bridged_gnn_tpu_torch/_build/ at first
@@ -144,6 +145,43 @@ int64_t gc_chunk_meta(const int64_t* dst_sorted, int64_t e_pad,
     if (nc > max_chunks) max_chunks = nc;
   }
   return max_chunks;
+}
+
+// Sender-keyed CSR over a slot layout's real slots
+// (ops/blocked_segment.py::_sender_csr_np): a stable counting sort of the
+// slots by sender, in one count pass, one scan and one scatter.
+// in:  slot_src[n_slots] (int32: each slot's sender, negative on masked
+//      and pad slots)
+// out: src_ranges[num_senders * 2] (each sender's [begin, end) of CSR
+//      entries), src_slots (capacity: the real slot count; the real slots,
+//      ascending within each sender)
+// returns: the real slot count, or -1, having written nothing, when a
+// sender id is at or above num_senders
+int64_t gc_sender_csr(const int32_t* slot_src, int64_t n_slots,
+                      int64_t num_senders, int32_t* src_ranges,
+                      int32_t* src_slots) {
+  if (num_senders < 0) return -1;
+  // slot layouts index their slots in int32, so every count fits in one
+  std::vector<int32_t> next(num_senders);
+  for (int64_t k = 0; k < n_slots; ++k) {
+    const int32_t s = slot_src[k];
+    if (s < 0) continue;
+    if (s >= num_senders) return -1;
+    ++next[s];
+  }
+  int32_t sum = 0;
+  for (int64_t v = 0; v < num_senders; ++v) {
+    src_ranges[2 * v] = sum;
+    const int32_t n = next[v];
+    next[v] = sum;
+    sum += n;
+    src_ranges[2 * v + 1] = sum;
+  }
+  for (int64_t k = 0; k < n_slots; ++k) {
+    const int32_t s = slot_src[k];
+    if (s >= 0) src_slots[next[s]++] = static_cast<int32_t>(k);
+  }
+  return sum;
 }
 
 // Greedy contiguous edge partition into p shards of near-equal edge count

@@ -11,9 +11,12 @@ Unlike the JAX package's loader, which gives up without a word when
 ``make`` fails and leaves numpy to run, every entry point here raises
 ``RuntimeError`` when the library cannot be built or loaded: a caller that
 asked for the native path (``graph.py`` does above
-``NATIVE_EDGE_THRESHOLD`` edges) never gets another one in its place.
-The numpy versions stay in ``graph.py`` and ``ops/chunk_meta.py``, and
-the tests hold each entry point to them.
+``NATIVE_EDGE_THRESHOLD`` edges, and the slot layouts' sender index above
+as many real slots) never gets another one in its place.
+The numpy versions stay in ``graph.py``, ``ops/chunk_meta.py`` and
+``ops/blocked_segment.py``, and the tests hold each entry point to them.
+:func:`call_counts` counts each entry point's calls, as the kernel
+wrappers count their launches.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -47,10 +50,12 @@ _SIGNATURES = dict(
     gc_chunk_meta=(_c64, [_I64, _c64, _c64, _c64, _c64, _I32, _I32]),
     gc_degrees=(None, [_I64, _I64, _c64, _c64, _I64, _I64]),
     gc_edge_partition=(None, [_c64, _c64, _c64, _I64]),
+    gc_sender_csr=(_c64, [_I32, _c64, _c64, _I32, _I32]),
 )
 
 _lock = threading.Lock()
 _libs: dict = {}
+_calls = dict.fromkeys(_SIGNATURES, 0)
 
 
 def _compiler() -> str:
@@ -106,6 +111,19 @@ def load(build_dir: Optional[Path] = None) -> ctypes.CDLL:
         return _libs[key]
 
 
+def _call(name: str, *args):
+    """Entry point ``name`` of the default build, called and counted."""
+    fn = getattr(load(), name)
+    _calls[name] += 1
+    return fn(*args)
+
+
+def call_counts() -> Dict[str, int]:
+    """Each entry point's calls since import, as a snapshot: the
+    difference of two snapshots is what ran between them."""
+    return dict(_calls)
+
+
 def _i64(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.int64)
 
@@ -123,7 +141,7 @@ def coalesce(edge_index: np.ndarray) -> np.ndarray:
     e = src.shape[0]
     out_src = np.empty(e, dtype=np.int64)
     out_dst = np.empty(e, dtype=np.int64)
-    n = load().gc_coalesce(src, dst, e, out_src, out_dst)
+    n = _call("gc_coalesce", src, dst, e, out_src, out_dst)
     _check_packed(n)
     return np.stack([out_src[:n], out_dst[:n]])
 
@@ -135,7 +153,7 @@ def sort_by_dst(edge_index: np.ndarray) -> np.ndarray:
     e = src.shape[0]
     out_src = np.empty(e, dtype=np.int64)
     out_dst = np.empty(e, dtype=np.int64)
-    _check_packed(load().gc_sort_by_dst(src, dst, e, out_src, out_dst))
+    _check_packed(_call("gc_sort_by_dst", src, dst, e, out_src, out_dst))
     return np.stack([out_src, out_dst])
 
 
@@ -145,7 +163,7 @@ def csr_rowptr(dst_sorted: np.ndarray, num_nodes: int) -> np.ndarray:
     if len(dst) and not 0 <= dst.min() <= dst.max() < num_nodes:
         raise ValueError(f"destinations must lie in [0, {num_nodes})")
     out = np.empty(num_nodes + 1, dtype=np.int64)
-    load().gc_csr_rowptr(dst, len(dst), num_nodes, out)
+    _call("gc_csr_rowptr", dst, len(dst), num_nodes, out)
     return out
 
 
@@ -158,7 +176,7 @@ def degrees(edge_index: np.ndarray,
             raise ValueError(f"node ids must lie in [0, {num_nodes})")
     in_deg = np.empty(num_nodes, dtype=np.int64)
     out_deg = np.empty(num_nodes, dtype=np.int64)
-    load().gc_degrees(src, dst, src.shape[0], num_nodes, in_deg, out_deg)
+    _call("gc_degrees", src, dst, src.shape[0], num_nodes, in_deg, out_deg)
     return in_deg, out_deg
 
 
@@ -169,7 +187,7 @@ def edge_partition(num_edges: int, num_shards: int,
     if num_shards < 1 or align < 1:
         raise ValueError("num_shards and align must be at least 1")
     out = np.empty(num_shards + 1, dtype=np.int64)
-    load().gc_edge_partition(num_edges, num_shards, align, out)
+    _call("gc_edge_partition", num_edges, num_shards, align, out)
     return out
 
 
@@ -182,6 +200,22 @@ def chunk_meta(dst_sorted: np.ndarray, num_nodes_padded: int,
     n_blocks = -(-num_nodes_padded // node_block)
     chunk_base = np.empty(n_blocks, dtype=np.int32)
     num_chunks = np.empty(n_blocks, dtype=np.int32)
-    mx = load().gc_chunk_meta(dst, len(dst), num_nodes_padded, node_block,
-                              edge_chunk, chunk_base, num_chunks)
+    mx = _call("gc_chunk_meta", dst, len(dst), num_nodes_padded,
+               node_block, edge_chunk, chunk_base, num_chunks)
     return chunk_base, num_chunks, int(mx)
+
+
+def sender_csr(slot_src: np.ndarray,
+               num_senders: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A slot layout's sender-keyed CSR by a stable counting sort:
+    ``src_ranges`` [num_senders, 2] and ``src_slots``, the real slots
+    (``slot_src >= 0``) ascending within each sender, both int32
+    (``ops/blocked_segment.py::_sender_csr_np``'s arrays). Raises
+    ``RuntimeError`` when a sender id is at or above ``num_senders``."""
+    src = np.ascontiguousarray(slot_src, dtype=np.int32)
+    src_ranges = np.empty((num_senders, 2), dtype=np.int32)
+    src_slots = np.empty(np.count_nonzero(src >= 0), dtype=np.int32)
+    if _call("gc_sender_csr", src, len(src), num_senders, src_ranges,
+             src_slots) < 0:
+        raise RuntimeError(f"sender ids must lie in [0, {num_senders})")
+    return src_ranges, src_slots

@@ -16,9 +16,12 @@ Every layout also holds its sender-keyed index, the input of the
 backward's sender-side reduce: a CSR by sender over the real slots.
 ``src_ranges`` gives each sender row its range of CSR entries and
 ``src_slots`` the dst-layout slot of each entry, ordered by a stable sort
-on the sender. It stands for the JAX package's ``lay_src`` with its
-``src_from_dst`` map (blocked_segment.py:594-608, :895-905) restricted to
-real slots, in the same order. Masked edges and pad slots are left out.
+on the sender: numpy's argsort below ``graph.NATIVE_EDGE_THRESHOLD`` real
+slots, from there the native library's counting sort
+(``io/native.py::sender_csr``), which gives the same arrays. It stands
+for the JAX package's ``lay_src`` with its ``src_from_dst`` map
+(blocked_segment.py:594-608, :895-905) restricted to real slots, in the
+same order. Masked edges and pad slots are left out.
 It is not a padded ``[B, Et]`` grid: on a hub graph a few hundred
 senders own ~850 slots each, and a padded sender layout would give every
 block a tile that wide.
@@ -43,6 +46,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from bridged_gnn_tpu_torch.graph import NATIVE_EDGE_THRESHOLD
+from bridged_gnn_tpu_torch.io import native
 
 # Slots (or CSR entries) above which a row is heavy. The kernels test the
 # same bound (kHeavySlots in csrc/lane_groups.cuh, kHeavyEntries in
@@ -131,7 +137,18 @@ def _sender_csr_np(slot_src: np.ndarray, num_senders: int):
     """Sender-keyed CSR over the real slots: ``src_ranges`` [N_send, 2]
     and ``src_slots``, the real slots in a stable sort by sender. Slots
     follow edge order, so this is the JAX package's stable argsort of the
-    edges by sender, restricted to real edges."""
+    edges by sender, restricted to real edges. From
+    :data:`NATIVE_EDGE_THRESHOLD` real slots the native library's stable
+    counting sort builds it (``native.sender_csr``), as ``graph.py``
+    dispatches its sorts; below, :func:`_sender_csr_numpy`."""
+    if np.count_nonzero(slot_src >= 0) >= NATIVE_EDGE_THRESHOLD:
+        return native.sender_csr(slot_src, num_senders)
+    return _sender_csr_numpy(slot_src, num_senders)
+
+
+def _sender_csr_numpy(slot_src: np.ndarray, num_senders: int):
+    """:func:`_sender_csr_np` in numpy, at any size: the plain version
+    the tests hold the native one to."""
     real = np.flatnonzero(slot_src >= 0)
     order = np.argsort(slot_src[real], kind="stable")
     src_slots = real[order].astype(np.int32)

@@ -71,6 +71,7 @@ from bridged_gnn_tpu_torch.graph import (
     to_undirected_np,
     with_self_loops,
 )
+from bridged_gnn_tpu_torch.io import native
 from bridged_gnn_tpu_torch.nn.backbones import build_backbone
 from bridged_gnn_tpu_torch.nn.common import masked_nll
 from bridged_gnn_tpu_torch.nn.complementor import (
@@ -278,10 +279,13 @@ def prepare_stage2_graph(
         g = g.to(dev)
     if not build_adj:
         return g, None
-    with annotate("stage2.layout"):
+    with annotate("stage2.layout") as span:
+        before = native.call_counts()["gc_sender_csr"]
         adj = adjacency_from_graph(
             g, method=cfg.adjacency_method,
             node_block=slot_node_block(_ktgnn_family(cfg)), device=dev)
+        span.counts.update(native_sender_csr=native.call_counts()[
+            "gc_sender_csr"] - before)
     return g, adj
 
 
@@ -595,7 +599,9 @@ def train_ktgnn(
 
     Under ``torch.profiler`` (the CLI's ``--profile_dir``) the run is one
     range, ``stage2.train``, holding the graph's build (``stage2.graph``),
-    its layouts (``stage2.layout``) and in scan mode the capture
+    its layouts (``stage2.layout``, its count ``native_sender_csr`` the
+    layouts whose sender index the native library built) and in scan
+    mode the capture
     (``stage2.capture``) and each chunk's host scoring
     (``stage2.score``); see ``utils/profiling.annotate``."""
     cfg = cfg or Stage2Config()

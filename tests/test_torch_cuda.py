@@ -1835,3 +1835,32 @@ def test_cuda_nccl_row_sharded_stage1_scan_captures():
     for a, b in zip(got["history"], single["history"], strict=True):
         for key in ("loss", "loss_d", "loss_ae"):
             assert abs(a[key] - b[key]) <= 1e-4 * abs(b[key]), a
+
+
+@pytest.mark.cuda
+def test_cuda_bench_layout_sender_index_native_equals_numpy(monkeypatch):
+    """The benchmark's graph (131,072 nodes, 16 edges a node, undirected,
+    self loops) at ``node_block=128``: the layout on the card whose
+    sender index the native library built holds the same tensors as the
+    one built with numpy's argsort."""
+    dev = _need_cuda()
+    from bridged_gnn_tpu_torch.data.synthetic import make_benchmark_graph
+    from bridged_gnn_tpu_torch.graph import to_undirected_np
+    from bridged_gnn_tpu_torch.io import native
+
+    data = to_undirected_np(make_benchmark_graph(131072, 16, 256, 31, 0))
+    g = with_self_loops(graph_from_dict(data))
+    before = native.call_counts()["gc_sender_csr"]
+    got = adjacency_from_graph(g, "blocked", 128, dev).fast_fn.lay_dst
+    assert native.call_counts()["gc_sender_csr"] == before + 1
+    monkeypatch.setattr(tbs, "_sender_csr_np", tbs._sender_csr_numpy)
+    want = adjacency_from_graph(g, "blocked", 128, dev).fast_fn.lay_dst
+    assert native.call_counts()["gc_sender_csr"] == before + 1
+    assert got.src_slots.shape[0] >= 4_000_000
+    for name, a in got._asdict().items():
+        b = getattr(want, name)
+        if isinstance(a, torch.Tensor):
+            assert a.device.type == "cuda" and a.dtype == b.dtype, name
+            assert torch.equal(a, b), name
+        else:
+            assert a == b, name

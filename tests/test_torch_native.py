@@ -1,8 +1,9 @@
 """PyTorch port, the native graph-core library (``io/native.py``, built
 from the port's ``csrc/graphcore.cpp``): each entry point against the JAX
 package's (native or numpy) and the port's numpy versions, the dispatch of
-``graph.py`` above its edge threshold, the build into a given directory,
-and a missing compiler raising instead of falling back."""
+``graph.py`` and of the slot layouts' sender index above the threshold,
+the build into a given directory, and a missing compiler raising instead
+of falling back."""
 
 import numpy as np
 import pytest
@@ -12,8 +13,13 @@ from bridged_gnn_tpu.graph import sort_edges_by_dst as j_sort
 from bridged_gnn_tpu.io import native as jnative
 
 from bridged_gnn_tpu_torch import graph as tgraph
+from bridged_gnn_tpu_torch.data.synthetic import make_benchmark_graph
 from bridged_gnn_tpu_torch.io import native as tnative
+from bridged_gnn_tpu_torch.ops import blocked_segment as tbs
 from bridged_gnn_tpu_torch.ops.chunk_meta import build_chunk_meta
+from bridged_gnn_tpu_torch.train.stage2 import (Stage2Config,
+                                               prepare_stage2_graph)
+from bridged_gnn_tpu_torch.utils.profiling import clear_recorded, recorded
 from bridged_gnn_tpu_torch.utils.diagnostics import degree_stats
 
 N_BIG = 300_000
@@ -150,3 +156,87 @@ def test_missing_compiler_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="not found"):
         tnative.load(tmp_path / "_build")
     assert not (tmp_path / "_build").exists()
+
+
+def _slot_src(big_edges, hub: bool = False):
+    """``big_edges`` dst-sorted, a tenth of them masked, through the slot
+    assignment: ``slot_src`` with -1 on masked and pad slots. ``hub``:
+    four senders own ~80% of the edges."""
+    rng = np.random.default_rng(11)
+    s, r = big_edges[0].copy(), big_edges[1]
+    if hub:
+        s = np.where(rng.random(E_BIG) < 0.8, rng.integers(0, 4, E_BIG), s)
+    order = np.argsort(r, kind="stable")
+    valid = rng.random(E_BIG) < 0.9
+    return tbs._padded_layout_np(r[order], s[order].astype(np.int32),
+                                 valid, N_BIG, 128)[0]
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["uniform", "hub"])
+def test_sender_csr_matches_numpy_above_threshold(big_edges, hub):
+    """The native counting sort gives the numpy argsort's ``src_ranges``
+    and ``src_slots`` bit for bit: -1 slots left out, senders with no
+    entry (among them the rows past the largest id), the largest sender
+    id, and a hub-skewed sender column."""
+    slot_src = _slot_src(big_edges, hub)
+    slot_src[np.flatnonzero(slot_src >= 0)[-1]] = N_BIG - 1
+    real = slot_src >= 0
+    assert real.sum() >= tgraph.NATIVE_EDGE_THRESHOLD and not real.all()
+    num_senders = N_BIG + 3
+    got = tnative.sender_csr(slot_src, num_senders)
+    want = tbs._sender_csr_numpy(slot_src, num_senders)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.int32 and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    counts = np.diff(got[0], axis=1)[:, 0]
+    assert (counts == 0).sum() > 3 and counts[N_BIG - 1] > 0
+    assert counts.max() > (200_000 if hub else 0)
+
+
+@pytest.mark.parametrize("bad", [5, 6, 2**31 - 1])
+def test_sender_csr_refuses_out_of_range_senders(bad):
+    """A sender id at or above ``num_senders``: the entry returns -1 with
+    its outputs untouched, and the binding raises."""
+    slot_src = np.array([0, -1, 4, bad, 2, -1], dtype=np.int32)
+    ranges = np.full((5, 2), 77, dtype=np.int32)
+    slots = np.full(4, 77, dtype=np.int32)
+    lib = tnative.load()
+    assert lib.gc_sender_csr(slot_src, len(slot_src), 5, ranges, slots) == -1
+    assert (ranges == 77).all() and (slots == 77).all()
+    with pytest.raises(RuntimeError, match=r"\[0, 5\)"):
+        tnative.sender_csr(slot_src, 5)
+
+
+def test_sender_csr_dispatch_runs_native_above_threshold(big_edges):
+    """From the threshold of real slots up the layout's sender index is
+    the library's (one call), below it numpy's (none)."""
+    slot_src = _slot_src(big_edges)
+    n_real = int((slot_src >= 0).sum())
+    small = slot_src.copy()
+    small[np.flatnonzero(small >= 0)[: n_real - 1000]] = -1
+    before = tnative.call_counts()["gc_sender_csr"]
+    tbs._sender_csr_np(small, N_BIG)
+    assert tnative.call_counts()["gc_sender_csr"] == before
+    got = tbs._sender_csr_np(slot_src, N_BIG)
+    assert tnative.call_counts()["gc_sender_csr"] == before + 1
+    np.testing.assert_array_equal(got[1],
+                                  tbs._sender_csr_numpy(slot_src, N_BIG)[1])
+
+
+@pytest.mark.parametrize("n,native_layouts", [(2048, 0), (65536, 1)])
+def test_layout_span_counts_native_sender_index(n, native_layouts):
+    """The ``stage2.layout`` range counts the layouts whose sender index
+    the library built: the one of a graph of over a million slots, none
+    of a small one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data = make_benchmark_graph(n, 8, 8, 4, seed=0)
+    cfg = Stage2Config(to_undirected=True, adjacency_method="blocked")
+    clear_recorded()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            prepare_stage2_graph(data, cfg, "cpu")
+        spans = [s for s in recorded() if s.name == "stage2.layout"]
+    finally:
+        clear_recorded()
+    assert [s.counts for s in spans] == [dict(native_sender_csr=native_layouts)]
